@@ -1,0 +1,158 @@
+"""Curve context: the package's user-facing API object.
+
+Counterpart of the reference's protoboard (wasmcurves/index.js:26-29
+exports buildBn128/buildBls12381/buildF1m, each returning an instantiated
+WASM module whose exports are methods).  A ``CurveContext`` bundles a
+CurveSpec with a device and bound methods over limb-tensor batches.
+
+The device is explicit.  ``device=None`` means the card: it resolves to
+``torch.device("cuda")`` and raises if there is none; nothing here decides
+on its own to run on the CPU.  Pass ``device="cpu"`` to do so.
+
+Only the surface whose modules are ported exists; the rest of the JAX
+package's CurveContext (GLV, legacy engine, subgroup checks, pairings,
+batched field ops, serialization, FFT) arrives with its slices.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..ops.curve import group
+from ..ops.curve.spec import CurveSpec
+from ..ops.msm import pippenger
+from ..utils.limbs import ints_to_limbs
+
+
+def resolve_device(device) -> torch.device:
+    """None -> the card (raises without one); anything else as given."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: this package runs on the card unless the "
+                "caller passes device='cpu'"
+            )
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+@dataclass
+class CurveContext:
+    spec: CurveSpec
+    device: torch.device
+
+    # ---- marshalling (role of pb.set/pb.get) -----------------------------
+
+    def _limbs(self, ints, n_limbs) -> torch.Tensor:
+        return torch.as_tensor(
+            ints_to_limbs(ints, n_limbs).astype(np.int64), device=self.device
+        )
+
+    def points_to_device(self, pts: Sequence[Optional[Tuple[int, int]]]):
+        """Affine python points (None = infinity) -> Montgomery limb batch."""
+        fq = self.spec.fq
+        xs = [0 if p is None else fq.to_mont_int(p[0]) for p in pts]
+        ys = [0 if p is None else fq.to_mont_int(p[1]) for p in pts]
+        return (self._limbs(xs, fq.n_limbs), self._limbs(ys, fq.n_limbs))
+
+    def scalars_to_device(self, ks: Sequence[int]) -> torch.Tensor:
+        fr = self.spec.fr
+        return self._limbs([k % (1 << fr.n_limbs * 16) for k in ks], fr.n_limbs)
+
+    def result_to_affine(self, res) -> Optional[Tuple[int, int]]:
+        """Projective device point -> python affine (None = infinity)."""
+        F = self.spec.field
+        r = tuple(c[:, None] if c.ndim == 1 else c for c in res)
+        x, y = group.to_affine(self.spec, r)
+        xi = F.to_host(x)[0]
+        yi = F.to_host(y)[0]
+        return None if (xi == 0 and yi == 0) else (xi, yi)
+
+    # ---- MSM (the reference's g1m_multiexp_multiExp) ---------------------
+
+    def msm(
+        self,
+        points,
+        scalars,
+        c: Optional[int] = None,
+        use_glv: Optional[bool] = None,
+        **kw,
+    ):
+        """points: (X, Y) device batch; scalars: device limb batch.
+
+        On a curve with a GLV endomorphism the JAX package's default is the
+        GLV-split MSM.  That preprocessing is not ported yet, and running
+        the full-scalar MSM in its place would be a different default, so
+        the caller has to say ``use_glv=False`` there.
+        """
+        spec = self.spec
+        if use_glv is None:
+            use_glv = spec.glv is not None
+        if use_glv and spec.glv is not None:
+            raise NotImplementedError(
+                f"{spec.name}: the GLV-split MSM (ops.msm.glv, the default on "
+                "this curve) is the next slice of the port; pass use_glv=False "
+                "for the full-scalar MSM"
+            )
+        return pippenger.msm(spec, points, scalars, c=c, **kw)
+
+    def msm_host(self, pts, ks, **kw) -> Optional[Tuple[int, int]]:
+        """Convenience end-to-end host API: python points/ints in, out."""
+        P = self.points_to_device(pts)
+        s = self.scalars_to_device(ks)
+        return self.result_to_affine(self.msm(P, s, **kw))
+
+    # ---- group-op parity surface (build_curve_jacobian_a0.js exports) -----
+
+    def add(self, p, q):
+        return group.add(self.spec, p, q)
+
+    def add_mixed(self, p, q):
+        return group.add_mixed(self.spec, p, q)
+
+    def double(self, p):
+        return group.double(self.spec, p)
+
+    def neg(self, p):
+        return group.neg(self.spec, p)
+
+    def sub(self, p, q):
+        return group.sub(self.spec, p, q)
+
+    def eq(self, p, q):
+        return group.eq(self.spec, p, q)
+
+    def is_zero(self, p):
+        return group.is_zero(self.spec, p)
+
+    def in_curve(self, p):
+        return group.in_curve(self.spec, p)
+
+    def times_scalar(self, points, scalars):
+        return group.times_scalar(self.spec, points, scalars)
+
+    def to_affine(self, p):
+        """normalize / batchToAffine (ref :940-1128) — batched by nature."""
+        return group.to_affine(self.spec, p)
+
+    batch_to_affine = to_affine
+
+    @property
+    def g1(self):
+        return group.generator(self.spec, (), self.device)
+
+    @property
+    def fq(self):
+        return self.spec.fq
+
+    @property
+    def fr(self):
+        return self.spec.fr
+
+
+def build_curve(spec: CurveSpec, device=None) -> CurveContext:
+    return CurveContext(spec, resolve_device(device))

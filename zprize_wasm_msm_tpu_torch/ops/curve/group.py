@@ -1,0 +1,317 @@
+"""Branch-free elliptic-curve group ops on limb-tensor batches.
+
+Counterpart of the reference's Jacobian a=0 group layer
+(wasmcurves/src/build_curve_jacobian_a0.js: add:541, addMixed:661,
+double:291, neg, timesScalar via build_timesscalarnaf.js,
+normalize/toAffine:940-1013, batchToAffine:1040).
+
+The reference's Jacobian formulas carry data-dependent special cases
+(P==Q, P==-Q, infinity); a batched tensor program would have to evaluate
+both the add and the double path plus selects.  Instead these are the
+*complete* homogeneous projective formulas for a=0 curves
+(Renes–Costello–Batina 2016, Algorithms 7-9): exception-free by
+construction, every batch element runs the identical straight-line code.
+Infinity is (0:1:0); affine zero is encoded as (0,0) exactly like the
+reference (build_curve_jacobian_a0.js isZeroAffine:55).
+
+Only a = 0 curves are covered so far; the general-a complete formulas
+(MNT6753) arrive with a later slice of the port, and ``add`` raises on them.
+
+A point batch is a tuple (X, Y, Z) of int64 tensors of shape (EL, *batch)
+in Montgomery form (EL = field.elem_len); affine batches are (X, Y).
+These functions are also the plain version the CUDA device functions
+(csrc/group.cuh) are held against, bit for bit.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .spec import CurveSpec
+
+Point = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+AffinePoint = Tuple[torch.Tensor, torch.Tensor]
+
+
+def _require_a0(curve: CurveSpec) -> None:
+    if curve.a != 0:
+        raise NotImplementedError(
+            f"{curve.name}: the general-a complete formulas are not ported yet"
+        )
+
+
+# ---------------------------------------------------------------------------
+# constructors / predicates
+# ---------------------------------------------------------------------------
+
+
+def zero(curve: CurveSpec, batch_shape=(), device=None) -> Point:
+    """The identity (0 : 1 : 0)."""
+    F = curve.field
+    return (
+        F.zeros(batch_shape, device),
+        F.one(batch_shape, device),
+        F.zeros(batch_shape, device),
+    )
+
+
+def generator(curve: CurveSpec, batch_shape=(), device=None) -> Point:
+    F = curve.field
+    return (
+        F.const(curve.gx, batch_shape, device),
+        F.const(curve.gy, batch_shape, device),
+        F.one(batch_shape, device),
+    )
+
+
+def is_zero(curve: CurveSpec, p: Point) -> torch.Tensor:
+    return curve.field.is_zero(p[2])
+
+
+def is_zero_affine(curve: CurveSpec, p: AffinePoint) -> torch.Tensor:
+    """(0,0) encodes the affine identity (ref isZeroAffine:55)."""
+    F = curve.field
+    return F.is_zero(p[0]) & F.is_zero(p[1])
+
+
+def from_affine(curve: CurveSpec, p: AffinePoint) -> Point:
+    """Affine -> projective; (0,0) -> (0:1:0)."""
+    F = curve.field
+    z = is_zero_affine(curve, p)
+    batch = F.batch_shape(p[0])
+    one = F.one(batch, p[0].device)
+    zeros = F.zeros(batch, p[0].device)
+    return (p[0], F.select(z, one, p[1]), F.select(z, zeros, one))
+
+
+def eq(curve: CurveSpec, p: Point, q: Point) -> torch.Tensor:
+    """Projective equality: X1*Z2 == X2*Z1 and Y1*Z2 == Y2*Z1 (+ both-inf)."""
+    F = curve.field
+    both_inf = is_zero(curve, p) & is_zero(curve, q)
+    one_inf = is_zero(curve, p) ^ is_zero(curve, q)
+    x_eq = F.eq(F.mul(p[0], q[2]), F.mul(q[0], p[2]))
+    y_eq = F.eq(F.mul(p[1], q[2]), F.mul(q[1], p[2]))
+    return both_inf | (x_eq & y_eq & ~one_inf)
+
+
+# ---------------------------------------------------------------------------
+# complete group law (RCB16 algorithms 7/8/9 for a = 0)
+# ---------------------------------------------------------------------------
+
+
+def _b3(curve: CurveSpec, like: torch.Tensor) -> torch.Tensor:
+    """3b as an (L, 1, ..., 1) Montgomery constant beside ``like``."""
+    return curve.field.const(curve.b3, (1,) * (like.ndim - 1), like.device)
+
+
+def add(curve: CurveSpec, p: Point, q: Point) -> Point:
+    """Complete projective addition (RCB16 alg. 7 for a=0; 12M).
+
+    Replaces the reference's branchy Jacobian add
+    (build_curve_jacobian_a0.js:541-658) — handles P==Q, P==-Q and
+    infinities with NO special cases.
+    """
+    _require_a0(curve)
+    F = curve.field
+    X1, Y1, Z1 = p
+    X2, Y2, Z2 = q
+    b3 = _b3(curve, X1)
+    fadd, fsub = F.add, F.sub
+
+    # round 1: six independent products, one stacked multiply
+    t0, t1, t2, A, B, C = F.mul_many(
+        [
+            (X1, X2),
+            (Y1, Y2),
+            (Z1, Z2),
+            (fadd(X1, Y1), fadd(X2, Y2)),
+            (fadd(Y1, Z1), fadd(Y2, Z2)),
+            (fadd(X1, Z1), fadd(X2, Z2)),
+        ]
+    )
+    t3 = fsub(fsub(A, t0), t1)  # X1Y2 + X2Y1
+    t4 = fsub(fsub(B, t1), t2)  # Y1Z2 + Y2Z1
+    Yr = fsub(fsub(C, t0), t2)  # X1Z2 + X2Z1
+    t0_3 = fadd(fadd(t0, t0), t0)
+
+    # round 2: the two b3 products
+    t2b, Yb = F.mul_many([(b3, t2), (b3, Yr)])
+    Z3l = fadd(t1, t2b)
+    t1l = fsub(t1, t2b)
+
+    # round 3: six independent products
+    X3a, t2c, Yc, t1c, t0c, Z3c = F.mul_many(
+        [
+            (t4, Yb),
+            (t3, t1l),
+            (Yb, t0_3),
+            (t1l, Z3l),
+            (t0_3, t3),
+            (Z3l, t4),
+        ]
+    )
+    return (fsub(t2c, X3a), fadd(t1c, Yc), fadd(Z3c, t0c))
+
+
+def add_mixed(curve: CurveSpec, p: Point, q: AffinePoint) -> Point:
+    """Complete projective + affine addition, a=0 (RCB16 alg. 8; 11M).
+
+    Replaces build_curve_jacobian_a0.js addMixed:661.  The affine identity
+    (0,0) cannot be expressed in the complete formula, so it is handled by
+    one select — the only mask in the hot path.
+    """
+    _require_a0(curve)
+    F = curve.field
+    X1, Y1, Z1 = p
+    X2, Y2 = q
+    b3 = _b3(curve, X1)
+    fadd, fsub = F.add, F.sub
+
+    # round 1: six independent products (incl. b3*Z1), one stacked multiply
+    t0, t1, A, t4a, Ya, t2b = F.mul_many(
+        [
+            (X1, X2),
+            (Y1, Y2),
+            (fadd(X1, Y1), fadd(X2, Y2)),
+            (Y2, Z1),
+            (X2, Z1),
+            (b3, Z1),
+        ]
+    )
+    t3 = fsub(fsub(A, t0), t1)
+    t4 = fadd(t4a, Y1)
+    Yr = fadd(Ya, X1)
+    t0_3 = fadd(fadd(t0, t0), t0)
+    Z3l = fadd(t1, t2b)
+    t1l = fsub(t1, t2b)
+
+    # round 2
+    (Yb,) = F.mul_many([(b3, Yr)])
+
+    # round 3: six independent products
+    X3a, t2c, Yc, t1c, t0c, Z3c = F.mul_many(
+        [
+            (t4, Yb),
+            (t3, t1l),
+            (Yb, t0_3),
+            (t1l, Z3l),
+            (t0_3, t3),
+            (Z3l, t4),
+        ]
+    )
+    X3 = fsub(t2c, X3a)
+    Y3 = fadd(t1c, Yc)
+    Z3 = fadd(Z3c, t0c)
+
+    qz = is_zero_affine(curve, q)
+    return (
+        F.select(qz, X1, X3),
+        F.select(qz, Y1, Y3),
+        F.select(qz, Z1, Z3),
+    )
+
+
+def double(curve: CurveSpec, p: Point) -> Point:
+    """Complete projective doubling, a=0 (RCB16 alg. 9; 6M+2S).
+
+    Replaces build_curve_jacobian_a0.js double:291; handles infinity for
+    free ((0:1:0) maps to itself).
+    """
+    _require_a0(curve)
+    F = curve.field
+    X, Y, Z = p
+    b3 = _b3(curve, X)
+    fadd, fsub = F.add, F.sub
+
+    # round 1: four independent products
+    t0, t1, t2, txy = F.mul_many([(Y, Y), (Y, Z), (Z, Z), (X, Y)])
+    Z8 = fadd(t0, t0)
+    Z8 = fadd(Z8, Z8)
+    Z8 = fadd(Z8, Z8)  # 8*Y^2
+
+    # round 2
+    (t2b,) = F.mul_many([(b3, t2)])
+    Y3s = fadd(t0, t2b)
+    t0p = fsub(t0, fadd(fadd(t2b, t2b), t2b))
+
+    # round 3: four independent products
+    X3a, Z3c, Yc, Xc = F.mul_many(
+        [(t2b, Z8), (t1, Z8), (t0p, Y3s), (t0p, txy)]
+    )
+    return (fadd(Xc, Xc), fadd(X3a, Yc), Z3c)
+
+
+def neg(curve: CurveSpec, p: Point) -> Point:
+    return (p[0], curve.field.neg(p[1]), p[2])
+
+
+def neg_affine(curve: CurveSpec, p: AffinePoint) -> AffinePoint:
+    return (p[0], curve.field.neg(p[1]))
+
+
+def sub(curve: CurveSpec, p: Point, q: Point) -> Point:
+    return add(curve, p, neg(curve, q))
+
+
+def select(mask: torch.Tensor, p: Point, q: Point) -> Point:
+    """Batch-wise select between two point batches (mask True -> p)."""
+    return tuple(torch.where(mask[None], a, b) for a, b in zip(p, q))
+
+
+# ---------------------------------------------------------------------------
+# scalar multiplication (ref build_timesscalarnaf.js / timesScalar)
+# ---------------------------------------------------------------------------
+
+
+def times_scalar(curve: CurveSpec, p: Point, scalar_limbs: torch.Tensor) -> Point:
+    """MSB-first double-and-add over a batch.
+
+    scalar_limbs: (Ls, *batch) int64 16-bit limbs (standard domain).
+    The reference uses a NAF ladder (build_timesscalarnaf.js); with complete
+    formulas a plain ladder is branch-free, and MSM never calls this on the
+    hot path — it exists for API parity and as a differential oracle.
+    A Python loop over the Ls*16 bits: one double, one add, one select each.
+    """
+    F = curve.field
+    Ls = scalar_limbs.shape[0]
+    acc = zero(curve, F.batch_shape(p[0]), p[0].device)
+    for limb in range(Ls - 1, -1, -1):
+        for bit in range(15, -1, -1):
+            acc = double(curve, acc)
+            added = add(curve, acc, p)
+            acc = select(((scalar_limbs[limb] >> bit) & 1) == 1, added, acc)
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# normalization (ref normalize/toAffine:940-1013, batchToAffine:1040)
+# ---------------------------------------------------------------------------
+
+
+def to_affine(curve: CurveSpec, p: Point) -> AffinePoint:
+    """Projective -> affine via batched Montgomery inversion of Z.
+
+    Infinity maps to (0,0), matching the reference's encoding.
+    """
+    F = curve.field
+    X, Y, Z = p
+    zinv = F.batch_inverse(Z)
+    x, y = F.mul_many([(X, zinv), (Y, zinv)])
+    inf = F.is_zero(Z)
+    zl = torch.zeros_like(x)
+    return (F.select(inf, zl, x), F.select(inf, zl, y))
+
+
+def in_curve(curve: CurveSpec, p: Point) -> torch.Tensor:
+    """Y^2*Z == X^3 + b*Z^3 (ref inCurve:1330), a = 0."""
+    _require_a0(curve)
+    F = curve.field
+    X, Y, Z = p
+    b = F.const(curve.b, (1,) * (X.ndim - 1), X.device)
+    zsq = F.mul(Z, Z)
+    lhs = F.mul(F.mul(Y, Y), Z)
+    x3 = F.mul(F.mul(X, X), X)
+    rhs = F.add(x3, F.mul(b, F.mul(zsq, Z)))
+    return F.eq(lhs, rhs) | is_zero(curve, p)

@@ -1,0 +1,194 @@
+"""Reduction kernels of the MSM: lane reduction, collapse, finish — each as
+a CUDA kernel and as plain PyTorch.
+
+They replace the TPU kernels of zprize_wasm_msm_tpu/ops/msm/pl_reduce.py:
+
+  lane_reduce   (``_lane_reduce_kernel``): (B, L, W, T) lane partials ->
+                (L, W, B).  csrc/bucket.cu lane_reduce_kernel; also the
+                second launch of pl_bucket.bucket_accumulate.
+  finish_large  (``_collapse_kernel``): per window sum_b (b+1) S_{w,b}
+                (csrc/reduce.cu collapse_kernel), then finish at B = 1.
+  finish        (``_finish_kernel``): sum_w 2^(c w) sum_b (b+1) S_{w,b} ->
+                ONE point (csrc/reduce.cu finish_kernel, one block).
+
+Reference lineage: reduceBucketsToSinglePoint (running sum over buckets,
+wasmcurves/src/build_multiexp_opt.js:1597-1706) + accumulateAcrossChunks
+(Horner over windows, :1710-1746) — the same weighted sum, reassociated
+(the group is abelian; the result is the same point, another projective
+representative).
+
+All three are bound by operations and, being a few thousand group ops with
+a long serial tail, by latency; see the notes at the top of the sources.
+Wrappers take and return the package's public layout ((L, ...) int64
+16-bit limbs) and re-pack to 32-bit words around the launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ... import _build
+from ..curve.spec import CurveSpec
+from . import _launch, pippenger
+
+#: lanes (W*B) the one-block finish takes; above it msm uses finish_large
+FINISH_LANES = 1024
+#: buckets per window the collapse kernel takes (threads of its block)
+COLLAPSE_MAX_B = 128
+
+#: times each kernel was launched (read by chip_smoke.py)
+launches = {"lane_reduce": 0, "collapse": 0, "finish": 0}
+
+
+def _check_buckets(curve, buckets):
+    bx, by, bz = buckets
+    L = curve.field.elem_len
+    if bx.ndim != 3 or bx.shape[0] != L:
+        raise ValueError(f"buckets: expected ({L}, W, B) tensors, got {tuple(bx.shape)}")
+    for name, t in zip("xyz", buckets):
+        _launch.check_limbs(f"buckets {name}", t, bx.shape, bx.device)
+    return bx.shape[1], bx.shape[2]
+
+
+# ---------------------------------------------------------------------------
+# lane reduction
+# ---------------------------------------------------------------------------
+
+
+def lane_reduce_plain(curve: CurveSpec, buckets):
+    """(bx, by, bz) each (B, L, W, T) -> (L, W, B): the plain lane tree."""
+    return pippenger._lane_tree_reduce(
+        curve, tuple(b.permute(1, 2, 3, 0) for b in buckets)
+    )
+
+
+def _lane_reduce_state(curve: CurveSpec, state: torch.Tensor):
+    """Launch the lane-reduction kernel on the sweep's native state,
+    (W, T, B, 3*NW) int32 words -> (X, Y, Z) each (L, W, B) int64."""
+    lib = _build.load("bucket")
+    fn = lib.zp_lane_reduce
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    NW = curve.fq.n_words
+    W, T, B, _ = state.shape
+    out = torch.empty((3, NW, W * B), dtype=torch.int32, device=state.device)
+    err = fn(
+        NW, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p),
+        _launch.ptr(state), _launch.ptr(out), W, T, B, _launch.stream_ptr(),
+    )
+    _build.check_launch(err, "lane_reduce")
+    launches["lane_reduce"] += 1
+    return _launch.unpack_point(out, (W, B))
+
+
+def lane_reduce(curve: CurveSpec, buckets, impl: str = "auto"):
+    """(bx, by, bz) each (B, L, W, T) lane partials -> (L, W, B) sums."""
+    bx = buckets[0]
+    if not _launch.use_kernel(impl, bx):
+        return lane_reduce_plain(curve, buckets)
+    B, L, W, T = bx.shape
+    for name, t in zip("xyz", buckets):
+        _launch.check_limbs(f"buckets {name}", t, bx.shape, bx.device)
+    # (B, L, W, T) limbs -> the sweep's state layout (W, T, B, 3*NW) words
+    words = torch.stack(
+        [_launch.pack_point((b.permute(1, 2, 3, 0),))[0] for b in buckets]
+    )  # (3, NW, W*T*B)
+    state = words.reshape(3 * (L // 2), W, T, B).permute(1, 2, 3, 0).contiguous()
+    return _lane_reduce_state(curve, state)
+
+
+# ---------------------------------------------------------------------------
+# finish: dense buckets -> one point
+# ---------------------------------------------------------------------------
+
+
+def finish_plain(curve: CurveSpec, buckets, c: int):
+    """bucket_reduce + window_fold.  B may be smaller than 2^(c-1): c sets
+    the window weight 2^(c w), B only the number of bucket weights."""
+    return pippenger.window_fold(curve, pippenger.bucket_reduce(curve, buckets), c)
+
+
+def finish(curve: CurveSpec, buckets, c: int, impl: str = "auto"):
+    """(bx, by, bz) each (L, W, B) dense bucket sums -> ONE projective
+    point (L,) x3: sum_w 2^(c*w) sum_b (b+1) S_{w,b}.
+
+    B is a power of two <= 2^(c-1) and W*B <= FINISH_LANES.  B = 1 turns
+    this into a pure window fold — the second stage of finish_large."""
+    W, B = _check_buckets(curve, buckets)
+    if B > 1 << (c - 1) or B & (B - 1) or W * B > FINISH_LANES:
+        raise ValueError(
+            f"finish: need B a power of two <= 2^(c-1) and W*B <= {FINISH_LANES}; "
+            f"got W={W}, B={B}, c={c}"
+        )
+    if not _launch.use_kernel(impl, buckets[0]):
+        return finish_plain(curve, buckets, c)
+    lib = _build.load("reduce")
+    fn = lib.zp_finish
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    NW = curve.fq.n_words
+    dev = buckets[0].device
+    S = _launch.pack_point(buckets)
+    scratch = torch.empty((W * B, 3 * NW), dtype=torch.int32, device=dev)
+    out = torch.empty((3, NW, 1), dtype=torch.int32, device=dev)
+    err = fn(
+        NW, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p), _launch.ptr(S),
+        _launch.ptr(scratch), _launch.ptr(out), W, B, c, B.bit_length(), _launch.stream_ptr(),
+    )
+    _build.check_launch(err, "finish")
+    launches["finish"] += 1
+    return _launch.unpack_point(out, ())
+
+
+# ---------------------------------------------------------------------------
+# large-B finish: per-window weighted collapse, then the B=1 window fold
+# ---------------------------------------------------------------------------
+
+
+def collapse_plain(curve: CurveSpec, buckets):
+    """Per window sum_b (b+1) S_{w,b}: pippenger.bucket_reduce."""
+    return pippenger.bucket_reduce(curve, buckets)
+
+
+def finish_large_plain(curve: CurveSpec, buckets, c: int):
+    """The same point as finish_large through plain PyTorch ops."""
+    return pippenger.window_fold(curve, collapse_plain(curve, buckets), c)
+
+
+def collapse(curve: CurveSpec, buckets, impl: str = "auto"):
+    """(bx, by, bz) each (L, W, B) -> window sums (L, W) x3,
+    sum_b (b+1) S_{w,b}: stage A of finish_large."""
+    W, B = _check_buckets(curve, buckets)
+    if B > COLLAPSE_MAX_B or B & (B - 1):
+        raise ValueError(f"collapse: need B a power of two <= {COLLAPSE_MAX_B}, got {B}")
+    if not _launch.use_kernel(impl, buckets[0]):
+        return collapse_plain(curve, buckets)
+    lib = _build.load("reduce")
+    fn = lib.zp_collapse
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    NW = curve.fq.n_words
+    S = _launch.pack_point(buckets)
+    out = torch.empty((3, NW, W), dtype=torch.int32, device=S.device)
+    err = fn(
+        NW, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p), _launch.ptr(S),
+        _launch.ptr(out), W, B, B.bit_length(), _launch.stream_ptr(),
+    )
+    _build.check_launch(err, "collapse")
+    launches["collapse"] += 1
+    return _launch.unpack_point(out, (W,))
+
+
+def finish_large(curve: CurveSpec, buckets, c: int, impl: str = "auto"):
+    """(bx, by, bz) each (L, W, B) dense bucket sums -> ONE projective
+    point, for configurations whose W * B exceeds the one-block finish
+    (c = 7: 38 windows x 64 buckets).  Stage A: collapse every window's
+    buckets with (b+1) weights.  Stage B: finish at B = 1 folds the W window
+    sums with 2^(c*w) weights."""
+    W, B = _check_buckets(curve, buckets)
+    if B != 1 << (c - 1):
+        raise ValueError(f"finish_large: need B = 2^(c-1), got B={B}, c={c}")
+    sums = collapse(curve, buckets, impl=impl)
+    return finish(curve, tuple(a[:, :, None] for a in sums), c, impl=impl)
