@@ -8,11 +8,12 @@ What it does, in order (any failure exits non-zero and prints no result):
   2. builds every CUDA kernel from zprize_wasm_msm_tpu_torch/csrc/ with nvcc
      (all sources in parallel) into build/;
   3. holds the device functions (field and group ops of csrc/field.cuh and
-     csrc/group.cuh) bit for bit against the plain PyTorch ops, on the toy
-     field and on BLS12-381 Fq, edge values included;
+     csrc/group.cuh) and the field inversion kernel bit for bit against the
+     plain PyTorch ops, on the toy field, BN254 Fq and BLS12-381 Fq (every
+     field width the sources instantiate), edge values included;
   4. holds each kernel against its plain PyTorch version at small shapes on
-     the toy curve and on BLS12-381 (zero digits, +-B digits, (0,0) points,
-     repeated points that force the doubling case inside a bucket);
+     the toy curve, BN254 and BLS12-381 (zero digits, +-B digits, (0,0)
+     points, repeated points that force the doubling case inside a bucket);
   5. drives the main path — BLS12-381 G1 MSM, N = 2^20 distinct bases,
      full 255-bit scalars, no GLV, c = 7 — through the public API
      (build_bls12381().msm -> result_to_affine), a few timed repetitions,
@@ -134,8 +135,9 @@ def main() -> None:
 
     import zprize_wasm_msm_tpu_torch as Z
     from zprize_wasm_msm_tpu_torch import _build
-    from zprize_wasm_msm_tpu_torch.models.curves import bls12_381, toy
+    from zprize_wasm_msm_tpu_torch.models.curves import bls12_381, bn254, toy
     from zprize_wasm_msm_tpu_torch.ops.curve import device_check, group
+    from zprize_wasm_msm_tpu_torch.ops.field import kernels as field_kernels
     from zprize_wasm_msm_tpu_torch.ops.field import mont
     from zprize_wasm_msm_tpu_torch.ops.msm import _launch, pippenger, pl_bucket, pl_reduce, windows
     from zprize_wasm_msm_tpu_torch.oracle import Curve as OracleCurve
@@ -217,7 +219,7 @@ def main() -> None:
     # ---- 3. device functions, bit for bit -----------------------------------
     t0 = time.perf_counter()
     dev_fn_report = {}
-    for curve in (toy, bls12_381):
+    for curve in (toy, bn254, bls12_381):
         fq = curve.fq
         ctx = Z.build_curve(curve)
         q = fq.q
@@ -233,6 +235,12 @@ def main() -> None:
             got = device_check.field_op(curve, op, a, b)
             torch.cuda.synchronize()
             check(bool((got == ref).all()), f"{curve.name}: device fe_{op} != mont.{op}")
+        # the inversion kernel against the plain Fermat ladder: 0, 1, q-1, ...
+        inv_in = torch.cat([a[:, 0:25:6], a[:, 25:28]], dim=1).contiguous()
+        got = field_kernels.inverse(fq, inv_in)
+        torch.cuda.synchronize()
+        check(bool((got == field_kernels.inverse_plain(fq, inv_in)).all()),
+              f"{curve.name}: inverse kernel != mont.inverse")
         # group ops: generic points, identity, P = Q, P = -Q, affine (0,0)
         (PX, PY), _, _ = make_bases(ctx, 6, rng)
         QX, QY = PX.roll(1, dims=1).clone(), PY.roll(1, dims=1).clone()
@@ -256,7 +264,7 @@ def main() -> None:
             torch.cuda.synchronize()
             for g, r in zip(got, ref):
                 check(bool((g == r).all()), f"{curve.name}: device pt_{op} != group.{op}")
-        dev_fn_report[curve.name] = "mul/add/sub/neg + add_mixed/add/double bit-equal"
+        dev_fn_report[curve.name] = "mul/add/sub/neg/inverse + add_mixed/add/double bit-equal"
     emit({"device_functions": dev_fn_report, "seconds": round(time.perf_counter() - t0, 2)})
 
     # ---- 4. kernels against their plain versions, small shapes ---------------
@@ -316,6 +324,7 @@ def main() -> None:
     small = {
         "toy c=7 W=4 B=64": kernel_checks(toy, 12, 7, 16, 64, "toy c=7"),
         "toy c=4 W=5 B=8": kernel_checks(toy, 10, 4, 16, 16, "toy c=4"),
+        "bn254 c=5 W=52 B=16": kernel_checks(bn254, 10, 5, 254, 32, "bn254 c=5"),
         "bls12_381 c=7 W=38 B=64": kernel_checks(bls12_381, 12, 7, 255, 64, "bls12_381 c=7"),
         "bls12_381 c=6 W=23 B=32": kernel_checks(bls12_381, 10, 6, 132, 32, "bls12_381 c=6"),
     }
@@ -348,25 +357,27 @@ def main() -> None:
     check((impl, c, W, B) == ("kernel", 7, 38, 64), f"main path resolved to {(impl, c, W, B)}")
 
     pl_bucket.launches = 0
-    for k in pl_reduce.launches:
-        pl_reduce.launches[k] = 0
+    for counts in (pl_reduce.launches, field_kernels.launches):
+        for k in counts:
+            counts[k] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = run_msm()
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = ctx.result_to_affine(res)
+    torch.cuda.synchronize()
+    to_affine_s = time.perf_counter() - t0
     main_launches = {
         "bucket_sweep": pl_bucket.launches,
         "lane_reduce": pl_reduce.launches["lane_reduce"],
         "collapse": pl_reduce.launches["collapse"],
         "finish": pl_reduce.launches["finish"],
+        "field_inverse": field_kernels.launches["inverse"],
     }
     for name, count in main_launches.items():
         check(count > 0, f"main path never launched kernel {name}")
-    t0 = time.perf_counter()
-    got = ctx.result_to_affine(res)
-    torch.cuda.synchronize()
-    to_affine_s = time.perf_counter() - t0
     check(all(bool(torch.isfinite(r.double()).all()) and r.shape == (24,) for r in res),
           "MSM result has the wrong shape")
     check(got == expected, "MSM result does not match the oracle (sum k_i m_i mod r) G")
@@ -404,7 +415,7 @@ def main() -> None:
                 "finish_large(K2+K3)": finish_ms, "result_to_affine": to_affine_s * 1e3,
             },
             "bases_built_on_card_s": bases_s,
-            "launches": main_launches,
+            "launches": main_launches,  # one msm + one result_to_affine
             "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
         }
     })
@@ -484,12 +495,9 @@ def main() -> None:
     k2_ref, k2_plain_ms = staged(lambda: pl_reduce.collapse_plain(curve, kernel_buckets))
     k2_err = affine_err(curve, k2_out, k2_ref)
     check(k2_err == 0, f"collapse at the main path's shape disagrees with plain (max |err| {k2_err})")
-    bits = B.bit_length()
-    ladder_adds = sum(bin(b + 1).count("1") for b in range(B))
-    b_ms, b_by = bound(
-        (W * B + W) * 3 * NW * 4,
-        W * (B * bits * DOUBLE + ladder_adds * ADD + (B - 1) * ADD),
-    )
+    # cheapest known schedule of sum_b (b+1) S_b: the running-sum walk,
+    # 2 (B - 1) adds per window (not this kernel's ladder + tree)
+    b_ms, b_by = bound((W * B + W) * 3 * NW * 4, W * 2 * (B - 1) * ADD)
     kernels.append({
         "name": "collapse", "route": "cuda",
         "source": "zprize_wasm_msm_tpu_torch/csrc/reduce.cu",
@@ -508,10 +516,9 @@ def main() -> None:
     k3_err = affine_err(curve, tuple(x[:, None] for x in k3_out), tuple(x[:, None] for x in k3_ref))
     check(k3_err == 0, f"finish at the main path's shape disagrees with plain (max |err| {k3_err})")
     check(ctx.result_to_affine(k3_out) == expected, "finish's point is not the MSM result")
-    b_ms, b_by = bound(
-        (W + 1) * 3 * NW * 4,
-        W * (DOUBLE + ADD) + sum(c * w for w in range(W)) * DOUBLE + (W - 1) * ADD,
-    )
+    # cheapest known schedule at B = 1: Horner over the windows, c (W - 1)
+    # doublings and W - 1 adds (the running-sum walk over B = 1 bucket is free)
+    b_ms, b_by = bound((W + 1) * 3 * NW * 4, c * (W - 1) * DOUBLE + (W - 1) * ADD)
     kernels.append({
         "name": "finish", "route": "cuda",
         "source": "zprize_wasm_msm_tpu_torch/csrc/reduce.cu",
@@ -520,6 +527,32 @@ def main() -> None:
         "plain_ms": k3_plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": f"({L},{W},1)x3, c={c} -> ({L},)x3",
         "compared": "as affine points against bucket_reduce + window_fold, and against the oracle",
+    })
+
+    # field inversion: the one element result_to_affine inverts (the Z of the
+    # MSM's point), kernel against the plain Fermat ladder
+    fq = curve.fq
+    z_in = k3_out[2][:, None].contiguous()
+    field_kernels.inverse(fq, z_in)
+    inv_out, inv_ms = sync_ms(lambda: field_kernels.inverse(fq, z_in), 3)
+    inv_ref, inv_plain_ms = staged(lambda: field_kernels.inverse_plain(fq, z_in))
+    inv_err = int((inv_out - inv_ref).abs().max().item())
+    check(inv_err == 0, f"field inverse disagrees with its plain version (max |err| {inv_err})")
+    check(bool((mont.mont_mul(fq, inv_out, z_in) == mont.one_mont(fq, (1,), dev)).all()),
+          "field inverse times its input is not 1")
+    # cheapest known schedule: a binary extended GCD, ~2 bits(q) iterations of
+    # a shift and a conditional subtract on two NW-word values and their two
+    # cofactors (4 NW word operations), not the Fermat ladder's ~1.5 bits(q)
+    # Montgomery products
+    b_ms, b_by = bound(2 * NW * 4, 2 * fq.bits * 4 * NW)
+    kernels.append({
+        "name": "field_inverse", "route": "cuda",
+        "source": "zprize_wasm_msm_tpu_torch/csrc/field_kernels.cu",
+        "replaces": "zprize_wasm_msm_tpu/ops/field/mont.py:426",
+        "launches": main_launches["field_inverse"], "max_abs_err": inv_err, "ms": inv_ms,
+        "plain_ms": inv_plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shape": f"({L}, 1) -> ({L}, 1)",
+        "compared": "limbs bit for bit against mont.inverse (a^(q-2) by mont_mul)",
     })
 
     emit({

@@ -7,7 +7,9 @@ import pytest
 import torch
 
 from zprize_wasm_msm_tpu.ops.field import mont as ref_mont
-from zprize_wasm_msm_tpu_torch.ops.field import mont
+from zprize_wasm_msm_tpu_torch import _build
+from zprize_wasm_msm_tpu_torch.models.curves import CURVES
+from zprize_wasm_msm_tpu_torch.ops.field import kernels, mont
 from zprize_wasm_msm_tpu_torch.ops.field.tower import Fq
 
 from tests._torch_helpers import (
@@ -103,6 +105,48 @@ def test_inverse_and_batch_inverse_bls12_381_against_host():
     want = mont_limbs(fq, [pow(v, fq.q - 2, fq.q) for v in vals])
     np.testing.assert_array_equal(torch_np(mont.batch_inverse(fq, t)), want)
     np.testing.assert_array_equal(torch_np(mont.inverse(fq, t[:, :3])), want[:, :3])
+
+
+def test_inverse_wrapper_matches_reference_and_refuses_cpu_kernel():
+    """kernels.inverse on CPU tensors is the plain Fermat ladder (the value
+    of the JAX package's mont.inverse, bit for bit); it never stands in for
+    the kernel when the kernel is asked for."""
+    ref, port = CURVE_PAIRS["toy"]
+    a, _ = field_operands(ref.q, 12, seed=6)  # includes 0, 1, q-1
+    an = mont_limbs(ref.fq, a)
+    assert_same(kernels.inverse(port.fq, to_torch(an)), ref_mont.inverse(ref.fq, to_jax(an)))
+    assert_same(kernels.inverse(port.fq, to_torch(an), impl="plain"), ref_mont.inverse(ref.fq, to_jax(an)))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.inverse(port.fq, to_torch(an), impl="kernel")
+    assert kernels.launches["inverse"] == 0
+
+
+@pytest.mark.parametrize("name", sorted(CURVES))
+def test_kernel_constant_blocks(name):
+    """The host blocks the CUDA entry points copy into constant memory: q,
+    R mod q, 3b (Montgomery) as 12-word slots and np32, from a host
+    recomputation."""
+    port = CURVES[name]
+    fq = port.fq
+    nw = fq.n_words
+    if nw not in _build.SUPPORTED_WORDS:  # wider than the sources instantiate
+        with pytest.raises(NotImplementedError):
+            _build.field_consts(fq)
+        return
+
+    def words(block, slot):
+        return sum(int(w) << (32 * i) for i, w in enumerate(block[12 * slot : 12 * slot + 12]))
+
+    fb = _build.field_consts(fq)
+    assert fb.dtype == np.uint32 and fb.shape == (37,) and not fb.flags.writeable
+    assert words(fb, 0) == fq.q and words(fb, 1) == (1 << (32 * nw)) % fq.q and words(fb, 2) == 0
+    assert (int(fb[36]) * fq.q + 1) % (1 << 32) == 0
+    if port.ext == 1 and port.a == 0:
+        cb = _build.curve_consts(port)
+        assert words(cb, 2) == fq.to_mont_int(3 * port.b) and (cb[:24] == fb[:24]).all() and cb[36] == fb[36]
+    else:
+        with pytest.raises(NotImplementedError):
+            _build.curve_consts(port)
 
 
 def test_tower_fq_surface():

@@ -32,7 +32,11 @@ from tests._torch_helpers import (
 )
 
 REF_TOY, TOY = CURVE_PAIRS["toy"]
-C, T, N = 4, 4, 48  # the shapes tests/test_kernels.py compiles its kernels at
+# One small configuration for every comparison that runs a Pallas kernel in
+# interpret mode: W = 3 windows of B = 4 buckets, 2 lanes.  Each such call
+# costs 10-25 s on the CPU whatever its size (the finish kernel's grid is
+# ~c (W - 1) + 15 interpreted steps), so they are few and share their shapes.
+C, T, N, BITS = 3, 2, 12, 8
 
 
 def ref_affine(res):
@@ -48,12 +52,12 @@ def port_affine(res):
     return host_points(TOY, x, y)
 
 
-def _inputs(n, seed):
+def _inputs(n, seed, bits=16):
     rng = np.random.default_rng(seed)
     pts = random_points(TOY, n, seed, bound=TOY.r)
     pts[2] = None  # the affine identity (0,0) in the batch
     pts[5] = pts[4]  # a repeated point: the doubling case inside a bucket
-    ks = [int(rng.integers(0, TOY.r)) for _ in range(n)]
+    ks = [int(rng.integers(0, min(TOY.r, 1 << bits))) for _ in range(n)]
     ks[0] = 0
     ks[5] = ks[4]
     XY = affine_np(TOY, pts)
@@ -64,8 +68,8 @@ def _inputs(n, seed):
 @pytest.fixture(scope="module")
 def shared():
     """One run of the JAX side, shared by the stage tests below."""
-    pts, ks, XY, sc = _inputs(N, seed=31)
-    digits = ref_windows.signed_window_digits(sc, C, 16)
+    pts, ks, XY, sc = _inputs(N, seed=31, bits=BITS)
+    digits = ref_windows.signed_window_digits(sc, C, BITS)
     jXY = to_jax(XY)
     with pltpu.force_tpu_interpret_mode():
         raw = ref_pl_bucket.bucket_accumulate(REF_TOY, jXY, digits, lanes=T, c=C, raw=True)
@@ -81,7 +85,7 @@ def shared():
 
 
 def test_bucket_accumulate_matches_reference_kernel_and_jnp(shared):
-    digits = windows.signed_window_digits(to_torch(shared["sc"]), C, 16)
+    digits = windows.signed_window_digits(to_torch(shared["sc"]), C, BITS)
     np.testing.assert_array_equal(torch_np(digits), shared["digits"])
     got = pl_bucket.bucket_accumulate(TOY, to_torch(shared["XY"]), digits, lanes=T, c=C)
     assert got[0].shape == shared["buckets"][0].shape  # (L, W, B)
@@ -99,7 +103,7 @@ def test_bucket_accumulate_matches_reference_kernel_and_jnp(shared):
                     want = oc.add(want, p if d[w, i] > 0 else oc.neg(p))
             assert got_aff[w * B + b] == want
     # ragged N: padding with (0,0) points and zero digits changes nothing
-    ragged = pl_bucket.bucket_accumulate(TOY, to_torch(shared["XY"]), digits, lanes=5, c=C)
+    ragged = pl_bucket.bucket_accumulate(TOY, to_torch(shared["XY"]), digits, lanes=5, c=C)  # 12 -> 15
     assert port_affine(ragged) == got_aff
 
 
@@ -140,11 +144,12 @@ def test_collapse_and_finish_large_match_reference(shared):
 
 
 def test_msm_matches_reference_pallas_and_jnp_engines():
-    pts, ks, XY, sc = _inputs(40, seed=32)
+    pts, ks, XY, sc = _inputs(N, seed=32, bits=BITS)
+    kw = dict(c=C, max_bits=BITS, lanes=T)
     with pltpu.force_tpu_interpret_mode():
-        pallas = ref_pippenger.msm(REF_TOY, to_jax(XY), sc, c=4, max_bits=16, lanes=8, impl="pallas")
-    xla = ref_pippenger.msm(REF_TOY, to_jax(XY), sc, c=4, max_bits=16, lanes=8, impl="xla")
-    got = pippenger.msm(TOY, to_torch(XY), to_torch(sc), c=4, max_bits=16, lanes=8)
+        pallas = ref_pippenger.msm(REF_TOY, to_jax(XY), sc, impl="pallas", **kw)
+    xla = ref_pippenger.msm(REF_TOY, to_jax(XY), sc, impl="xla", **kw)
+    got = pippenger.msm(TOY, to_torch(XY), to_torch(sc), **kw)
     want = [oracle_of(TOY).msm(pts, ks)]
     assert port_affine(tuple(c[:, None] for c in got)) == want
     assert ref_affine(tuple(np.asarray(c)[:, None] for c in pallas)) == want
@@ -231,16 +236,17 @@ def test_kernel_engine_refuses_cpu_tensors():
 
 
 def test_wrapper_contracts_are_checked():
+    c = 4  # B = 8, W = 5
     pts, ks, XY, sc = _inputs(8, seed=51)
-    digits = windows.signed_window_digits(to_torch(sc), C, 16)
-    buckets = pl_bucket.bucket_accumulate(TOY, to_torch(XY), digits, lanes=2, c=C)
+    digits = windows.signed_window_digits(to_torch(sc), c, 16)
+    buckets = pl_bucket.bucket_accumulate(TOY, to_torch(XY), digits, lanes=2, c=c)
     with pytest.raises(ValueError):  # B = 8 > 2^(c-1) for c = 3
         pl_reduce.finish(TOY, buckets, 3)
     with pytest.raises(ValueError):  # B not a power of two
-        pl_reduce.finish(TOY, tuple(b[:, :, :3] for b in buckets), C)
+        pl_reduce.finish(TOY, tuple(b[:, :, :3] for b in buckets), c)
     with pytest.raises(ValueError):  # W*B > 1024
-        pl_reduce.finish(TOY, tuple(b.repeat(1, 30, 1) for b in buckets), C)
+        pl_reduce.finish(TOY, tuple(b.repeat(1, 30, 1) for b in buckets), c)
     with pytest.raises(ValueError):  # finish_large wants the full bucket row
-        pl_reduce.finish_large(TOY, tuple(b[:, :, :4] for b in buckets), C)
+        pl_reduce.finish_large(TOY, tuple(b[:, :, :4] for b in buckets), c)
     with pytest.raises(ValueError):  # wrong dtype
         pl_reduce.collapse(TOY, tuple(b.to(torch.int32) for b in buckets))

@@ -78,3 +78,20 @@ def test_resolve_config_equals_reference(name):
         pippenger.resolve_config(port, 8, 16, 4, 2, 2 << 30, "pallas")
     with pytest.raises(NotImplementedError):
         pippenger.resolve_config(port, 1 << 10, 128, 12, None, 2 << 30, "kernel")
+
+
+def test_kernel_engine_refuses_curves_it_does_not_cover():
+    """A general-a curve or an extension field asked for on the kernel
+    engine (or on "auto" with CUDA tensors) raises; it is never rewritten
+    to the plain engine.  The plain engine still resolves."""
+    from zprize_wasm_msm_tpu_torch.models.curves import CURVES
+
+    uncovered = [c for c in CURVES.values() if c.ext != 1 or c.a != 0]
+    assert uncovered
+    for curve in uncovered:
+        with pytest.raises(NotImplementedError, match="later slices"):
+            pippenger.resolve_config(curve, 64, 16, 4, 2, 2 << 30, "kernel")
+        with pytest.raises(NotImplementedError, match="later slices"):
+            pippenger.resolve_config(curve, 64, 16, None, None, 2 << 30, "auto", device="cuda")
+        assert pippenger.resolve_config(curve, 64, 16, 4, 2, 2 << 30, "plain") == ("plain", 4, 2)
+        assert pippenger.resolve_config(curve, 64, 16, 4, 2, 2 << 30, "auto", device="cpu")[0] == "plain"

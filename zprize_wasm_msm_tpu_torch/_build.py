@@ -26,7 +26,7 @@ import numpy as np
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-STEMS = ("bucket", "reduce", "check")
+STEMS = ("bucket", "reduce", "field_kernels", "check")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -114,22 +114,35 @@ def load(stem: str) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def curve_consts(curve) -> np.ndarray:
+def field_consts(spec) -> np.ndarray:
     """The host block the entry points copy into csrc/field.cuh's
-    FieldConsts: q, R mod q, 3b (Montgomery) as MAX_WORDS words each, np32."""
-    fq = curve.fq
-    nw = fq.n_words
-    if curve.ext != 1 or curve.a != 0 or nw not in SUPPORTED_WORDS:
+    FieldConsts for a bare prime field: q and R mod q as MAX_WORDS words
+    each, the curve constant's slot left zero, np32."""
+    nw = spec.n_words
+    if nw not in SUPPORTED_WORDS:
         raise NotImplementedError(
-            f"{curve.name}: the CUDA kernels cover a=0 curves over Fq with "
-            f"{SUPPORTED_WORDS} words per element"
+            f"{spec!r}: the CUDA kernels cover fields of {SUPPORTED_WORDS} "
+            "words per element"
         )
-    b3 = np.asarray(curve.b3_flat_limbs, dtype=np.uint32)
     block = np.zeros(3 * MAX_WORDS + 1, dtype=np.uint32)
-    block[:nw] = fq.q_words
-    block[MAX_WORDS : MAX_WORDS + nw] = fq.one_mont_words
-    block[2 * MAX_WORDS : 2 * MAX_WORDS + nw] = b3[0::2] | (b3[1::2] << 16)
-    block[3 * MAX_WORDS] = fq.np32
+    block[:nw] = spec.q_words
+    block[MAX_WORDS : MAX_WORDS + nw] = spec.one_mont_words
+    block[3 * MAX_WORDS] = spec.np32
+    block.setflags(write=False)
+    return block
+
+
+@functools.lru_cache(maxsize=None)
+def curve_consts(curve) -> np.ndarray:
+    """field_consts of the curve's coordinate field plus 3b (Montgomery)."""
+    if curve.ext != 1 or curve.a != 0:
+        raise NotImplementedError(
+            f"{curve.name}: the CUDA kernels cover a=0 curves over Fq"
+        )
+    fq = curve.fq
+    b3 = np.asarray(curve.b3_flat_limbs, dtype=np.uint32)
+    block = field_consts(fq).copy()
+    block[2 * MAX_WORDS : 2 * MAX_WORDS + fq.n_words] = b3[0::2] | (b3[1::2] << 16)
     block.setflags(write=False)
     return block
 
@@ -141,5 +154,6 @@ def check_launch(err: int, name: str) -> None:
         reason = {
             -1: "field width not instantiated",
             -2: "bucket count not a power of two within the block limit",
+            -3: "exponent length outside 1..32*MAX_WORDS bits",
         }.get(err, f"CUDA error {err}")
         raise KernelLaunchError(f"{name}: launch refused ({reason})")

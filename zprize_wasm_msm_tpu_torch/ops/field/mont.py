@@ -31,8 +31,7 @@ import functools
 import numpy as np
 import torch
 
-from ...utils.bigint import int_to_limbs, mod_inv
-from ...utils.limbs import limbs_to_ints
+from ...utils.bigint import int_to_limbs
 from .spec import LIMB_BITS, LIMB_MASK, FieldSpec
 
 I64 = torch.int64
@@ -251,30 +250,15 @@ def inverse(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _inverse_one_on_host(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
-    """Inverse of ONE nonzero Montgomery element, (L, 1) -> (L, 1), computed
-    on the host with Python integers.
-
-    The Fermat ladder for a single element is ~1.5 bits(q) dependent
-    mont_mul calls of a few hundred tiny tensor ops each — seconds of launch
-    overhead on a GPU for 48 bytes of data.  Bringing the limbs to the host
-    costs one synchronization and gives the same canonical value.
-    """
-    (value,) = limbs_to_ints(a.detach().cpu().numpy().astype(np.uint32))
-    # Montgomery form of (a/R)^{-1} is R^2 / a
-    inv = spec.to_mont_int(mod_inv(spec.from_mont_int(value), spec.q))
-    return torch.as_tensor(
-        int_to_limbs(inv, spec.n_limbs).astype(np.int64), device=a.device
-    )[:, None]
-
-
 def batch_inverse(spec: FieldSpec, a: torch.Tensor, axis: int = -1) -> torch.Tensor:
     """Elementwise inverse of a batch with ONE field inversion.
 
     Montgomery's trick as a product tree: log2(n) levels of pairwise
-    products up, one inversion of the root (a single element: done on the
-    host, see _inverse_one_on_host), and the mirrored pass down (each node's inverse times its sibling's product).  3 n multiplies
-    in 3 log2(n) batched calls — eager PyTorch pays per call, not per
+    products up, one inversion of the root, and the mirrored pass down (each
+    node's inverse times its sibling's product).  The root is a single
+    element and goes through ops.field.kernels.inverse: one kernel launch
+    for a tensor on the card, the plain Fermat ladder for a CPU tensor.
+    3 n multiplies in 3 log2(n) batched calls — eager PyTorch pays per call, not per
     element, so the tree replaces the reference's 2 sqrt(n)-step blocked
     scan.  Zeros pass through as 0.  Every inverse is the unique canonical
     value, so the result does not depend on the association order.
@@ -296,7 +280,9 @@ def batch_inverse(spec: FieldSpec, a: torch.Tensor, axis: int = -1) -> torch.Ten
     while levels[-1].shape[1] > 1:
         cur = levels[-1]
         levels.append(mont_mul(spec, cur[:, 0::2], cur[:, 1::2]))
-    inv = _inverse_one_on_host(spec, levels[-1])  # (L, 1)
+    from . import kernels  # kernels imports this module
+
+    inv = kernels.inverse(spec, levels[-1])  # (L, 1)
     for cur in reversed(levels[:-1]):
         m = cur.shape[1] // 2
         siblings = cur.reshape(L, m, 2).flip(2)

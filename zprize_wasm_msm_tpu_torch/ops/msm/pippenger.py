@@ -193,8 +193,12 @@ def resolve_config(
         impl = "kernel" if torch.device(device).type == "cuda" else "plain"
     if impl not in ("kernel", "plain"):
         raise ValueError(f"impl must be 'auto', 'kernel' or 'plain', got {impl!r}")
-    if curve.ext > 2 or curve.a != 0:
-        impl = "plain"
+    if impl == "kernel" and (curve.ext != 1 or curve.a != 0):
+        raise NotImplementedError(
+            f"{curve.name}: the CUDA kernels cover a=0 curves over Fq; extension "
+            "fields and general-a curves arrive with later slices of the port "
+            "(impl='plain' runs the PyTorch-op engine)"
+        )
     c_cap = 7 if curve.ext == 1 else 6
     if impl == "kernel" and c is not None and c > c_cap:
         raise NotImplementedError(
@@ -227,22 +231,16 @@ def window_sums(
     points: Tuple[torch.Tensor, torch.Tensor],
     digits: torch.Tensor,
     c: int,
-    impl: str,
     lanes: Optional[int] = None,
 ):
-    """Bucket accumulation + per-window weighted reduction: (L, W) x3."""
-    from . import pl_bucket
+    """Plain engine: bucket accumulation + per-window weighted reduction,
+    (L, W) x3."""
+    from . import pl_bucket  # pl_bucket imports this module
 
-    X, Y = points
     W, N = digits.shape
-    if impl == "kernel":
-        buckets = pl_bucket.bucket_accumulate(
-            curve, (X, Y), digits, lanes=_kernel_lanes(N, lanes), c=c, impl="kernel"
-        )
-        return bucket_reduce(curve, buckets)
     if lanes is None:
         lanes = _lane_count(N, c, W, 2 << 30, curve.field.elem_len)
-    buckets = pl_bucket.bucket_accumulate_plain(curve, (X, Y), digits, lanes=lanes, c=c)
+    buckets = pl_bucket.bucket_accumulate_plain(curve, points, digits, lanes=lanes, c=c)
     return bucket_reduce(curve, buckets)
 
 
@@ -287,5 +285,5 @@ def msm(
         # W*B exceeds the one-block finish (c = 7 full-width scalars):
         # collapse the buckets per window on a wide grid, then fold
         return pl_reduce.finish_large(curve, buckets, c, impl="kernel")
-    per_window = window_sums(curve, (X, Y), digits, c, impl, lanes)
+    per_window = window_sums(curve, (X, Y), digits, c, lanes)
     return window_fold(curve, per_window, c)
