@@ -8,21 +8,32 @@ What it does, in order (any failure exits non-zero and prints no result):
   2. builds every CUDA kernel from zprize_wasm_msm_tpu_torch/csrc/ with nvcc
      (all sources in parallel) into build/;
   3. holds the device functions (field and group ops of csrc/field.cuh and
-     csrc/group.cuh) and the field inversion kernel bit for bit against the
-     plain PyTorch ops, on the toy field, BN254 Fq and BLS12-381 Fq (every
-     field width the sources instantiate), edge values included;
+     csrc/group.cuh) and the elementwise field kernels (Montgomery product,
+     square, inversion) bit for bit against the plain PyTorch ops, on the
+     toy field, BN254 Fq and BLS12-381 Fq (every field width the sources
+     instantiate), edge values 0, 1, q-1, (q+-1)/2 included;
   4. holds each kernel against its plain PyTorch version at small shapes on
      the toy curve, BN254 and BLS12-381 (zero digits, +-B digits, (0,0)
-     points, repeated points that force the doubling case inside a bucket);
-  5. drives the main path — BLS12-381 G1 MSM, N = 2^20 distinct bases,
-     full 255-bit scalars, no GLV, c = 7 — through the public API
-     (build_bls12381().msm -> result_to_affine), a few timed repetitions,
-     with the kernels' launch counts zeroed just before and read just
-     after, and verifies the result against the host oracle as
-     (sum k_i m_i mod r) G;
-  6. calls each kernel's wrapper at the main path's shapes, compares it
-     with its plain version on the same inputs (exact equality of affine
-     coordinates: integers, tolerance 0) and times both.
+     points, repeated points that force the doubling case inside a bucket;
+     for the sorted engine also single-entry runs, a run spanning several
+     chunks, chunks that are all one bucket and an all-zero window), and the
+     collapse kernel at B = 512 and 4096 against bucket_reduce_grouped;
+  5. drives three paths of the public API on BLS12-381 G1 at N = 2^20
+     distinct bases (build_bls12381().msm -> result_to_affine), each a few
+     timed repetitions, with every kernel's launch count zeroed just before
+     and read just after, and verifies each result against the host oracle
+     as (sum k_i m_i mod r) G:
+       full  msm(P, k, use_glv=False, max_bits=255): full 255-bit scalars,
+             c = 7, bucket-sweep engine, collapse + window fold;
+       A     msm(P, k): the default — GLV split to 2^21 points and 132-bit
+             half-scalars, c = 6, bucket-sweep engine, one-block finish;
+       B     msm(P, k, c=10): GLV split, then the sorted engine (sort, sweep,
+             segmented scan, scatter), collapse at B = 512, window fold;
+     and a batch phase (ctx.batch_mul / batch_square / batch_to_mont /
+     batch_from_mont at N = 2^20) against the plain field ops;
+  6. calls each kernel's wrapper at its path's shapes, compares it with its
+     plain version on the same inputs (exact equality of affine coordinates
+     or limbs: integers, tolerance 0) and times both.
 
 Output: one JSON object per line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -30,10 +41,10 @@ Takes a few minutes on an H100, the build included.  Needs no network.
 
     python3 chip_smoke.py --profile
 
-additionally runs one MSM of the main path under torch.profiler and prints a
+additionally runs one MSM of each path under torch.profiler and prints a
 "profile" line (device time by kernel, device busy share of the profiled
 wall time); with a directory argument, --profile DIR, it also writes the
-Chrome trace there.
+Chrome traces there.
 """
 
 from __future__ import annotations
@@ -44,6 +55,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -52,6 +64,7 @@ SEED = 123
 LOG2N = 20
 REPS = 3
 PLAIN_LANES = 1024  # lanes of the plain sweep at the main path's shape
+C_SORTED = 10  # window of path B: above the bucket kernel's cap, so the sorted engine
 
 # NVIDIA H100 SXM peaks the bounds are computed against.  Memory: 3.35 TB/s
 # (data sheet).  32-bit integer multiply-add outside the tensor cores: a
@@ -91,7 +104,7 @@ def sync_ms(fn, reps: int = 1):
     return out, start.elapsed_time(end) / reps
 
 
-def profile_msm(run_msm, trace_dir):
+def profile_msm(run_msm, trace_dir, name):
     """One MSM under torch.profiler: device time by kernel and the share of
     the profiled wall time the device was busy.  The profiler's own cost is
     in the wall time, so the busy share is a lower bound."""
@@ -111,7 +124,7 @@ def profile_msm(run_msm, trace_dir):
     rows.sort(key=lambda e: -e.self_device_time_total)
     if trace_dir:
         os.makedirs(trace_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(trace_dir, "msm_trace.json"))
+        prof.export_chrome_trace(os.path.join(trace_dir, f"msm_trace_{name}.json"))
     return {
         "wall_ms_under_profiler": wall_ms,
         "device_busy_ms": busy_ms,
@@ -139,7 +152,9 @@ def main() -> None:
     from zprize_wasm_msm_tpu_torch.ops.curve import device_check, group
     from zprize_wasm_msm_tpu_torch.ops.field import kernels as field_kernels
     from zprize_wasm_msm_tpu_torch.ops.field import mont
-    from zprize_wasm_msm_tpu_torch.ops.msm import _launch, pippenger, pl_bucket, pl_reduce, windows
+    from zprize_wasm_msm_tpu_torch.ops.msm import (
+        _launch, glv, pippenger, pl_bucket, pl_reduce, pl_sorted, windows,
+    )
     from zprize_wasm_msm_tpu_torch.oracle import Curve as OracleCurve
     from zprize_wasm_msm_tpu_torch.utils.convert import unpack_words
 
@@ -235,6 +250,16 @@ def main() -> None:
             got = device_check.field_op(curve, op, a, b)
             torch.cuda.synchronize()
             check(bool((got == ref).all()), f"{curve.name}: device fe_{op} != mont.{op}")
+        # the product and square kernels, bit for bit: every pair of edge
+        # values, random values, and one constant operand for the batch
+        for got, ref, what in (
+            (field_kernels.mont_mul(fq, a, b), mont.mont_mul(fq, a, b), "mont_mul"),
+            (field_kernels.mont_mul(fq, a, b[:, 30:31]), mont.mont_mul(fq, a, b[:, 30:31]),
+             "mont_mul by one constant"),
+            (field_kernels.mont_square(fq, a), mont.mont_square(fq, a), "mont_square"),
+        ):
+            torch.cuda.synchronize()
+            check(bool((got == ref).all()), f"{curve.name}: {what} kernel != mont")
         # the inversion kernel against the plain Fermat ladder: 0, 1, q-1, ...
         inv_in = torch.cat([a[:, 0:25:6], a[:, 25:28]], dim=1).contiguous()
         got = field_kernels.inverse(fq, inv_in)
@@ -264,7 +289,9 @@ def main() -> None:
             torch.cuda.synchronize()
             for g, r in zip(got, ref):
                 check(bool((g == r).all()), f"{curve.name}: device pt_{op} != group.{op}")
-        dev_fn_report[curve.name] = "mul/add/sub/neg/inverse + add_mixed/add/double bit-equal"
+        dev_fn_report[curve.name] = (
+            "mul/add/sub/neg + mont_mul/mont_square/inverse kernels + add_mixed/add/double bit-equal"
+        )
     emit({"device_functions": dev_fn_report, "seconds": round(time.perf_counter() - t0, 2)})
 
     # ---- 4. kernels against their plain versions, small shapes ---------------
@@ -320,6 +347,65 @@ def main() -> None:
             check(e == 0, f"{tag}: kernel {name} disagrees with its plain version (max |err| {e})")
         return errs
 
+    def sorted_checks(curve, log2n, c, chunks, tag):
+        """The sorted engine's kernels against their plain versions on one
+        given sorted stream, and its dense buckets against the bucket
+        engine's plain version."""
+        ctx = Z.build_curve(curve)
+        (X, Y), _, _ = make_bases(ctx, log2n, rng)
+        N = 1 << log2n
+        B = 1 << (c - 1)
+        steps = N // chunks
+        digits = torch.as_tensor(rng.integers(-B, B + 1, size=(5, N)).astype(np.int32), device=dev)
+        digits[:, 0:8] = 0
+        digits[:, 8:12] = B
+        digits[:, 12:16] = -B
+        X[:, 16:20], Y[:, 16:20] = 0, 0  # (0,0) points
+        X[:, 25], Y[:, 25] = X[:, 24], Y[:, 24]
+        digits[:, 25] = digits[:, 24]  # same point twice in one run: the doubling case
+        digits[1, :] = 0  # an all-zero window
+        digits[2, :] = 2  # every chunk is all one bucket: ONE run spanning all chunks
+        digits[2, 5] = -1  # and a single-entry run before it
+        digits[3, : 3 * steps + 1] = -3  # a run spanning several chunks, ending inside one
+        digits[4, 1::2] = 0
+        perm, skey, meta = pl_sorted.sort_runs(digits, c, chunks)
+        slot, seg = pl_sorted.compact_index(skey, meta, c, chunks)
+        K = seg.shape[1]
+        pieces = pl_sorted.sweep(curve, (X, Y), perm, meta, slot, K, chunks)
+        pieces_plain = pl_sorted.sweep_plain(curve, (X, Y), perm, meta, slot, K, chunks)
+        errs = {"sorted_sweep": affine_err(curve, pieces, pieces_plain)}
+        errs["segscan"] = affine_err(
+            curve, pl_sorted.segscan(curve, pieces_plain, seg, chunks),
+            pl_sorted.segscan_plain(curve, pieces_plain, seg, chunks),
+        )
+        dense = pl_sorted.bucket_accumulate_sorted(curve, (X, Y), digits, c, chunks)
+        ref = pl_bucket.bucket_accumulate_plain(curve, (X, Y), digits, lanes=16, c=c)
+        errs["sort+sweep+segscan+scatter"] = affine_err(curve, dense, ref)
+        errs[f"collapse(B={B})"] = affine_err(
+            curve, pl_reduce.collapse(curve, ref), pl_reduce.collapse_plain(curve, ref)
+        )
+        torch.cuda.synchronize()
+        for name, e in errs.items():
+            check(e == 0, f"{tag}: kernel {name} disagrees with its plain version (max |err| {e})")
+        return errs
+
+    def collapse_check(curve, B):
+        """collapse_kernel above its former cap, against bucket_reduce_grouped."""
+        ctx = Z.build_curve(curve)
+        (X, Y), _, _ = make_bases(ctx, 12, rng)
+        P = group.from_affine(curve, (X, Y))
+        n = X.shape[1]
+        # three windows of B buckets cut from the 4096 points, one holding an
+        # empty (identity) bucket
+        idx = (torch.arange(3 * B, device=dev) * 7) % n
+        buckets = [a[:, idx].reshape(a.shape[0], 3, B).contiguous() for a in P]
+        for i, coord in enumerate(group.zero(curve, (), dev)):
+            buckets[i][:, 1, B - 1] = coord
+        e = affine_err(curve, pl_reduce.collapse(curve, tuple(buckets)),
+                       pl_reduce.collapse_plain(curve, tuple(buckets)))
+        check(e == 0, f"collapse at B={B} disagrees with bucket_reduce_grouped (max |err| {e})")
+        return e
+
     t0 = time.perf_counter()
     small = {
         "toy c=7 W=4 B=64": kernel_checks(toy, 12, 7, 16, 64, "toy c=7"),
@@ -327,6 +413,12 @@ def main() -> None:
         "bn254 c=5 W=52 B=16": kernel_checks(bn254, 10, 5, 254, 32, "bn254 c=5"),
         "bls12_381 c=7 W=38 B=64": kernel_checks(bls12_381, 12, 7, 255, 64, "bls12_381 c=7"),
         "bls12_381 c=6 W=23 B=32": kernel_checks(bls12_381, 10, 6, 132, 32, "bls12_381 c=6"),
+        "sorted toy c=4 T=16": sorted_checks(toy, 9, 4, 16, "sorted toy c=4"),
+        "sorted toy c=10 T=64": sorted_checks(toy, 11, 10, 64, "sorted toy c=10"),
+        "sorted bn254 c=8 T=32": sorted_checks(bn254, 9, 8, 32, "sorted bn254 c=8"),
+        "sorted bls12_381 c=10 T=64": sorted_checks(bls12_381, 10, 10, 64, "sorted bls12_381 c=10"),
+        "bls12_381 collapse B=512": collapse_check(bls12_381, 512),
+        "bls12_381 collapse B=4096": collapse_check(bls12_381, 4096),
     }
     emit({"kernels_small_shapes_max_abs_err": small, "tolerance": 0,
           "seconds": round(time.perf_counter() - t0, 2)})
@@ -348,57 +440,83 @@ def main() -> None:
     total = int((kobj * base_multiples(LOG2N, m0, ds, curve.r)).sum() % curve.r)
     expected = oc.mul(oc.g, total)
 
-    def run_msm():
-        return ctx.msm((X, Y), scalars, use_glv=False, max_bits=255)
+    def read_counts():
+        return {
+            "bucket_sweep": pl_bucket.launches,
+            "lane_reduce": pl_reduce.launches["lane_reduce"],
+            "collapse": pl_reduce.launches["collapse"],
+            "finish": pl_reduce.launches["finish"],
+            "field_inverse": field_kernels.launches["inverse"],
+            "mont_mul": field_kernels.launches["mont_mul"],
+            "mont_square": field_kernels.launches["mont_square"],
+            "sorted_sweep": pl_sorted.launches["sweep"],
+            "segscan": pl_sorted.launches["segscan"],
+        }
 
-    impl, c, _ = pippenger.resolve_config(curve, n, 255, None, None, 2 << 30, "auto", device=dev)
-    T = pippenger._kernel_lanes(n, None)
-    W, B = windows.num_windows(255, c), 1 << (c - 1)
-    check((impl, c, W, B) == ("kernel", 7, 38, 64), f"main path resolved to {(impl, c, W, B)}")
+    def reset_counts():
+        pl_bucket.launches = 0
+        for counts in (pl_reduce.launches, field_kernels.launches, pl_sorted.launches):
+            for k in counts:
+                counts[k] = 0
 
-    pl_bucket.launches = 0
-    for counts in (pl_reduce.launches, field_kernels.launches):
-        for k in counts:
-            counts[k] = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = run_msm()
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    got = ctx.result_to_affine(res)
-    torch.cuda.synchronize()
-    to_affine_s = time.perf_counter() - t0
-    main_launches = {
-        "bucket_sweep": pl_bucket.launches,
-        "lane_reduce": pl_reduce.launches["lane_reduce"],
-        "collapse": pl_reduce.launches["collapse"],
-        "finish": pl_reduce.launches["finish"],
-        "field_inverse": field_kernels.launches["inverse"],
-    }
-    for name, count in main_launches.items():
-        check(count > 0, f"main path never launched kernel {name}")
-    check(all(bool(torch.isfinite(r.double()).all()) and r.shape == (24,) for r in res),
-          "MSM result has the wrong shape")
-    check(got == expected, "MSM result does not match the oracle (sum k_i m_i mod r) G")
-
-    times = []
-    for _ in range(REPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r = run_msm()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        check(ctx.result_to_affine(r) == expected, "a repetition's MSM result is wrong")
-
-    # per-stage host-clock times (each stage ends in a synchronize)
     def staged(fn):
+        """(result, host-clock ms) of a stage that ends in a synchronize."""
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t) * 1e3
 
+    def drive(name, run, required):
+        """One path through the public API: counts zeroed just before, read
+        just after one msm + result_to_affine; the result against the
+        oracle; then REPS timed repetitions."""
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        res, first_ms = staged(run)
+        got, to_affine_ms = staged(lambda: ctx.result_to_affine(res))
+        counts = read_counts()
+        for kernel in required:
+            check(counts[kernel] > 0, f"path {name} never launched kernel {kernel}")
+        check(all(bool(torch.isfinite(r.double()).all()) and r.shape == (24,) for r in res),
+              f"path {name}: MSM result has the wrong shape")
+        check(got == expected, f"path {name}: MSM result does not match the oracle (sum k_i m_i mod r) G")
+        times = []
+        for _ in range(REPS):
+            r, ms = staged(run)
+            times.append(ms / 1e3)
+            check(ctx.result_to_affine(r) == expected, f"path {name}: a repetition's MSM result is wrong")
+        # one more run with PyTorch reporting every call that makes the host
+        # wait for the card (a warning each): the host synchronisations of
+        # one warm msm
+        torch.cuda.set_sync_debug_mode("warn")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run()
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        return {
+            "host_synchronisations_in_msm": len(caught),
+            "verified_against_oracle": True, "first_call_s": first_ms / 1e3, "msm_s": times,
+            "best_msm_s": min(times), "points_per_s": n / min(times),
+            "result_to_affine_ms": to_affine_ms,
+            "launches": {k: v for k, v in counts.items() if v},  # one msm + one result_to_affine
+            "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
+        }
+
+    paths = {
+        "full": lambda: ctx.msm((X, Y), scalars, use_glv=False, max_bits=255),
+        "A": lambda: ctx.msm((X, Y), scalars),
+        "B": lambda: ctx.msm((X, Y), scalars, c=C_SORTED),
+    }
+
+    # -- the full-scalar path: c = 7, bucket sweep, collapse + window fold
+    impl, c, _ = pippenger.resolve_config(curve, n, 255, None, None, 2 << 30, "auto", device=dev)
+    T = pippenger._kernel_lanes(n, None)
+    W, B = windows.num_windows(255, c), 1 << (c - 1)
+    check((impl, c, W, B) == ("kernel", 7, 38, 64), f"main path resolved to {(impl, c, W, B)}")
+    full = drive("full", paths["full"], ("bucket_sweep", "lane_reduce", "collapse", "finish", "field_inverse"))
+    main_launches = full["launches"]
     digits, digits_ms = staged(lambda: windows.signed_window_digits(scalars, c, 255))
     buckets, bucket_ms = staged(
         lambda: pl_bucket.bucket_accumulate(curve, (X, Y), digits, lanes=T, c=c)
@@ -407,21 +525,103 @@ def main() -> None:
     emit({
         "main_path": {
             "curve": curve.name, "n": n, "scalar_bits": 255, "glv": False, "c": c, "W": W, "B": B,
-            "lanes": T, "verified_against_oracle": True,
-            "first_call_s": first_s, "msm_s": times, "best_msm_s": min(times),
-            "points_per_s": n / min(times),
+            "lanes": T, **full,
             "stage_ms": {
                 "digits": digits_ms, "bucket_accumulate(K1+K4)": bucket_ms,
-                "finish_large(K2+K3)": finish_ms, "result_to_affine": to_affine_s * 1e3,
+                "finish_large(K2+K3)": finish_ms, "result_to_affine": full["result_to_affine_ms"],
             },
             "bases_built_on_card_s": bases_s,
-            "launches": main_launches,  # one msm + one result_to_affine
-            "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
         }
     })
+    del buckets
+
+    # -- path A: the default.  GLV split, c = 6, bucket sweep, one-block finish
+    n2 = 2 * n
+    impl, cA, _ = pippenger.resolve_config(curve, n2, glv.MAX_BITS, None, None, 2 << 30, "auto", device=dev)
+    WA, BA = windows.num_windows(glv.MAX_BITS, cA), 1 << (cA - 1)
+    check((impl, cA, WA, BA) == ("kernel", 6, 23, 32), f"path A resolved to {(impl, cA, WA, BA)}")
+    path_a = drive("A", paths["A"], ("mont_mul", "bucket_sweep", "lane_reduce", "finish", "field_inverse"))
+    check(path_a["launches"].get("collapse", 0) == 0, "path A should finish in one block")
+    (k1, _, _, _), decompose_ms = staged(lambda: glv.decompose_scalars(curve, scalars))
+    _, endo_ms = staged(lambda: glv.endomorphism(curve, (X, Y)))
+    ((X2, Y2), k2), glv_ms = staged(lambda: glv.preprocess_endomorphism(curve, (X, Y), scalars))
+    del k1
+    digits_a, digits_ms = staged(lambda: windows.signed_window_digits(k2, cA, glv.MAX_BITS))
+    buckets_a, bucket_ms = staged(
+        lambda: pl_bucket.bucket_accumulate(curve, (X2, Y2), digits_a, lanes=T, c=cA)
+    )
+    _, finish_ms = staged(lambda: pl_reduce.finish(curve, buckets_a, cA))
+    emit({
+        "path_A": {
+            "curve": curve.name, "n": n, "glv": True, "points_after_split": n2,
+            "scalar_bits": glv.MAX_BITS, "c": cA, "W": WA, "B": BA, "lanes": T, **path_a,
+            "stage_ms": {
+                "glv_split": glv_ms, "glv_split.decompose": decompose_ms,
+                "glv_split.endomorphism(K5)": endo_ms, "digits": digits_ms,
+                "bucket_accumulate(K1+K4)": bucket_ms, "finish(K3)": finish_ms,
+                "result_to_affine": path_a["result_to_affine_ms"],
+            },
+        }
+    })
+    del digits_a, buckets_a
+
+    # -- path B: the large window.  GLV split, then the sorted engine
+    impl, cB, _ = pippenger.resolve_config(curve, n2, glv.MAX_BITS, C_SORTED, None, 2 << 30, "auto", device=dev)
+    WB, BB = windows.num_windows(glv.MAX_BITS, cB), 1 << (cB - 1)
+    check((impl, cB, WB, BB) == ("kernel-sorted", 10, 15, 512), f"path B resolved to {(impl, cB, WB, BB)}")
+    check(pippenger.resolve_config(curve, n2, glv.MAX_BITS, None, None, 2 << 30, "kernel-sorted")[1] == cB,
+          "impl='kernel-sorted' with c unset should resolve to the same window")
+    path_b = drive("B", paths["B"], ("mont_mul", "sorted_sweep", "segscan", "collapse", "finish", "field_inverse"))
+    TB = pl_sorted.GRID
+    digits_b, digits_ms = staged(lambda: windows.signed_window_digits(k2, cB, glv.MAX_BITS))
+    (perm, skey, meta), sort_ms = staged(lambda: pl_sorted.sort_runs(digits_b, cB, TB))
+    (slot, seg), compact_ms = staged(lambda: pl_sorted.compact_index(skey, meta, cB, TB))
+    KB = seg.shape[1]
+    pieces, sweep_ms = staged(lambda: pl_sorted.sweep(curve, (X2, Y2), perm, meta, slot, KB, TB))
+    scanned, segscan_ms = staged(lambda: pl_sorted.segscan(curve, pieces, seg, TB))
+    dense_b, scatter_ms = staged(lambda: pl_sorted.scatter_dense(curve, scanned, seg, cB))
+    sums_b, collapse_ms = staged(lambda: pl_reduce.collapse(curve, dense_b))
+    fold_b = tuple(a[:, :, None].contiguous() for a in sums_b)
+    point_b, finish_ms = staged(lambda: pl_reduce.finish(curve, fold_b, cB))
+    check(ctx.result_to_affine(point_b) == expected, "path B's stages, run one by one, miss the oracle")
+    emit({
+        "path_B": {
+            "curve": curve.name, "n": n, "glv": True, "points_after_split": n2,
+            "scalar_bits": glv.MAX_BITS, "c": cB, "W": WB, "B": BB, "chunks": TB, "K": KB, **path_b,
+            "stage_ms": {
+                "glv_split": glv_ms, "glv_split.decompose": decompose_ms,
+                "glv_split.endomorphism(K5)": endo_ms, "digits": digits_ms, "sort": sort_ms,
+                "compact": compact_ms, "sweep(K7)": sweep_ms, "segscan(K8)": segscan_ms,
+                "scatter": scatter_ms, "collapse(K2)": collapse_ms, "finish(K3)": finish_ms,
+                "result_to_affine": path_b["result_to_affine_ms"],
+            },
+        }
+    })
+    del skey, scanned, dense_b
+
+    # -- the batch phase: the batched field surface through the context
+    fq = curve.fq
+    reset_counts()
+    batch_report = {}
+    for what, got_fn, ref_fn in (
+        ("batch_mul", lambda: ctx.batch_mul(X, Y), lambda: mont.mont_mul(fq, X, Y)),
+        ("batch_square", lambda: ctx.batch_square(X), lambda: mont.mont_square(fq, X)),
+        ("batch_to_mont", lambda: ctx.batch_to_mont(X), lambda: mont.to_mont(fq, X)),
+        ("batch_from_mont", lambda: ctx.batch_from_mont(X), lambda: mont.from_mont(fq, X)),
+    ):
+        got, ms = staged(got_fn)
+        ref, plain_ms = staged(ref_fn)
+        check(got.shape == X.shape and bool((got == ref).all()), f"ctx.{what} != its plain version at N = 2^{LOG2N}")
+        batch_report[what] = {"ms": ms, "plain_ms": plain_ms}
+        del got, ref
+    batch_launches = read_counts()
+    check(batch_launches["mont_mul"] == 3 and batch_launches["mont_square"] == 1,
+          f"the batch phase launched {batch_launches}")
+    emit({"batch_ops": {"n": n, "equal_to_plain": True, **batch_report,
+                        "launches": {k: v for k, v in batch_launches.items() if v}}})
 
     if args.profile is not None:
-        emit({"profile": profile_msm(run_msm, args.profile)})
+        emit({"profile": {name: profile_msm(run, args.profile, name) for name, run in paths.items()}})
 
     # ---- 6. each kernel at the main path's shapes ---------------------------
     NW = curve.fq.n_words
@@ -554,6 +754,121 @@ def main() -> None:
         "shape": f"({L}, 1) -> ({L}, 1)",
         "compared": "limbs bit for bit against mont.inverse (a^(q-2) by mont_mul)",
     })
+
+    # K5 / K6 at the paths' shape (N = 2^20 elements of Fq): the launch on
+    # packed words is timed (as K1's is), the public wrapper beside it; the
+    # comparison is on two full (L, N) operands, limbs bit for bit
+    ops_library = "no PyTorch call multiplies multi-word integers modulo q"
+    for kname, replaces, launch, wrapper, plain, n_in, path_count in (
+        ("mont_mul", "zprize_wasm_msm_tpu/ops/field/kernels.py:138",
+         lambda: field_kernels._mul_words(fq, words[0], words[1]),
+         lambda: field_kernels.mont_mul(fq, X, Y), lambda: field_kernels.mont_mul_plain(fq, X, Y),
+         2, path_a["launches"]["mont_mul"]),
+        ("mont_square", "zprize_wasm_msm_tpu/ops/field/kernels.py:160",
+         lambda: field_kernels._square_words(fq, words[0]),
+         lambda: field_kernels.mont_square(fq, X), lambda: field_kernels.mont_square_plain(fq, X),
+         1, batch_launches["mont_square"]),
+    ):
+        launch()
+        _, k_ms = sync_ms(launch, 10)
+        got, wrapper_ms = sync_ms(wrapper, 3)
+        ref, plain_ms = staged(plain)
+        err = int((got - ref).abs().max().item())
+        check(err == 0, f"{kname} at N = 2^{LOG2N} disagrees with its plain version (max |err| {err})")
+        del got, ref
+        b_ms, b_by = bound((n_in + 1) * 4 * NW * n, n * mul_ops)
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "zprize_wasm_msm_tpu_torch/csrc/field_kernels.cu", "replaces": replaces,
+            "launches": path_count, "max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "wrapper_ms": wrapper_ms, "no_library_because": ops_library,
+            "shape": f"({L},{n}) x{n_in} -> ({L},{n}); ms is the launch on ({NW},{n}) packed words, "
+                     "wrapper_ms includes packing limbs to words and back",
+            "compared": "limbs bit for bit against mont." + kname,
+        })
+    # the one-constant form path A and B use for beta * x
+    beta_w = _launch.pack_point((mont._int_const(fq, fq.to_mont_int(curve.glv.beta), dev)[:, None],))[0]
+    _, k5_const_ms = sync_ms(lambda: field_kernels._mul_words(fq, words[0], beta_w), 10)
+    kernels[-2]["ms_one_constant_operand"] = k5_const_ms
+
+    # K7 sorted sweep at path B's shape, all 15 windows, on the stream path B's
+    # own stages made above
+    pl_sorted.sweep(curve, (X2, Y2), perm, meta, slot, KB, TB)
+    pieces, k7_ms = sync_ms(lambda: pl_sorted.sweep(curve, (X2, Y2), perm, meta, slot, KB, TB), 2)
+    pieces_plain, k7_plain_ms = staged(
+        lambda: pl_sorted.sweep_plain(curve, (X2, Y2), perm, meta, slot, KB, TB)
+    )
+    k7_err = affine_err(curve, pieces, pieces_plain)
+    check(k7_err == 0, f"sorted sweep at path B's shape disagrees with plain (max |err| {k7_err})")
+    infinity2 = (X2 == 0).all(0) & (Y2 == 0).all(0)
+    k7_adds = int((((meta & pl_sorted.META_ZERO) == 0) & ~infinity2[perm.long()]).sum().item())
+    b_ms, b_by = bound(2 * NW * 4 * n2 + 3 * 4 * WB * n2 + 3 * NW * 4 * WB * KB, k7_adds * ADD_MIXED)
+    kernels.append({
+        "name": "sorted_sweep", "route": "cuda",
+        "source": "zprize_wasm_msm_tpu_torch/csrc/sorted.cu",
+        "replaces": "zprize_wasm_msm_tpu/ops/msm/pl_sorted.py:127",
+        "launches": path_b["launches"]["sorted_sweep"], "max_abs_err": k7_err, "ms": k7_ms,
+        "plain_ms": k7_plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "mixed_adds": k7_adds, "no_library_because": ops_library,
+        "shape": f"X,Y ({L},{n2}), perm/meta/slot ({WB},{n2}), T={TB} -> ({L},{WB},{KB})x3; "
+                 "ms is the wrapper, packing and the point-contiguous copy included",
+        "compared": f"all {WB} windows, every entry as an affine point, against sweep_plain on the same stream",
+    })
+    del pieces_plain
+
+    # K8 segmented scan on the sweep's own entries
+    pl_sorted.segscan(curve, pieces, seg, TB)
+    k8_out, k8_ms = sync_ms(lambda: pl_sorted.segscan(curve, pieces, seg, TB), 3)
+    k8_ref, k8_plain_ms = staged(lambda: pl_sorted.segscan_plain(curve, pieces, seg, TB))
+    k8_err = affine_err(curve, k8_out, k8_ref)
+    check(k8_err == 0, f"segscan at path B's shape disagrees with plain (max |err| {k8_err})")
+    used = seg < BB
+    heads = used & (seg != torch.cat([torch.full_like(seg[:, :1], -1), seg[:, :-1]], dim=1))
+    k8_adds = int(used.sum().item() - heads.sum().item())  # one per piece beyond a segment's first
+    longest = int(torch.stack([torch.bincount(row[row < BB], minlength=BB).max() for row in seg]).max().item())
+    b_ms, b_by = bound(2 * 3 * NW * 4 * WB * KB + 4 * WB * KB, k8_adds * ADD)
+    kernels.append({
+        "name": "segscan", "route": "cuda",
+        "source": "zprize_wasm_msm_tpu_torch/csrc/sorted.cu",
+        "replaces": "zprize_wasm_msm_tpu/ops/msm/pl_sorted.py:238",
+        "launches": path_b["launches"]["segscan"], "max_abs_err": k8_err, "ms": k8_ms,
+        "plain_ms": k8_plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "adds": k8_adds, "entries_in_use": int(used.sum().item()), "longest_segment": longest,
+        "no_library_because": ops_library,
+        "shape": f"({L},{WB},{KB})x3, seg ({WB},{KB}) -> ({L},{WB},{KB})x3; ms is the wrapper",
+        "compared": "every entry as an affine point against segscan_plain (Hillis-Steele rounds)",
+    })
+
+    # K2 and K3 at path B's shapes and K1, K4, K3 at path A's: times only
+    # (each is held against its plain version above at both small and full shapes)
+    dense_b = pl_sorted.scatter_dense(curve, k8_out, seg, cB)
+    sums_b, k2b_ms = sync_ms(lambda: pl_reduce.collapse(curve, dense_b), 3)
+    k2b_ref, k2b_plain_ms = staged(lambda: pl_reduce.collapse_plain(curve, dense_b))
+    k2b_err = affine_err(curve, sums_b, k2b_ref)
+    check(k2b_err == 0, f"collapse at path B's shape disagrees with plain (max |err| {k2b_err})")
+    _, k3b_ms = sync_ms(lambda: pl_reduce.finish(curve, fold_b, cB), 3)
+    digits_a = windows.signed_window_digits(k2, cA, glv.MAX_BITS)
+    words2 = _launch.pack_point((X2, Y2))
+    pl_bucket._sweep(curve, words2[0], words2[1], digits_a, T, BA)
+    state_a, k1a_ms = sync_ms(lambda: pl_bucket._sweep(curve, words2[0], words2[1], digits_a, T, BA), 2)
+    buckets_a, k4a_ms = sync_ms(lambda: pl_reduce._lane_reduce_state(curve, state_a), 2)
+    _, k3a_ms = sync_ms(lambda: pl_reduce.finish(curve, buckets_a, cA), 3)
+    other_shapes = {
+        "bucket_sweep": {"path_A": {"shape": f"digits ({WA},{n2}), B={BA}, T={T}", "ms": k1a_ms,
+                                    "digit_slots": WA * n2}},
+        "lane_reduce": {"path_A": {"shape": f"state ({WA},{T},{BA})", "ms": k4a_ms}},
+        "collapse": {"path_B": {"shape": f"({L},{WB},{BB})x3", "ms": k2b_ms, "plain_ms": k2b_plain_ms,
+                                "max_abs_err": k2b_err}},
+        "finish": {"path_A": {"shape": f"({L},{WA},{BA})x3, c={cA}", "ms": k3a_ms},
+                   "path_B": {"shape": f"({L},{WB},1)x3, c={cB}", "ms": k3b_ms}},
+    }
+    by_path = {"full": full["launches"], "A": path_a["launches"], "B": path_b["launches"],
+               "batch": batch_launches}
+    for entry in kernels:
+        entry["launches_by_path"] = {p: counts.get(entry["name"], 0) for p, counts in by_path.items()}
+        if entry["name"] in other_shapes:
+            entry["other_shapes"] = other_shapes[entry["name"]]
 
     emit({
         "peaks": {"bytes_per_s": PEAK_BYTES_PER_S, "int32_ops_per_s": PEAK_INT32_OPS_PER_S},

@@ -202,9 +202,10 @@ def test_context_device_and_glv_default():
     P = ctx.points_to_device([(ctx.spec.gx, ctx.spec.gy)])
     s = ctx.scalars_to_device([5])
     assert P[0].device.type == "cpu" and P[0].dtype == torch.int64 and s.shape == (16, 1)
-    with pytest.raises(NotImplementedError, match="GLV"):
-        ctx.msm(P, s)  # GLV is this curve's default, and is not ported yet
-    for absent in ("msm_legacy", "pairing", "fft", "batch_mul", "to_compressed", "in_group"):
+    # GLV is this curve's default: 5 * G through the split equals the oracle
+    oc = oracle_of(ctx.spec)
+    assert ctx.result_to_affine(ctx.msm(P, s)) == oc.mul(oc.g, 5)
+    for absent in ("msm_legacy", "pairing", "fft", "to_compressed", "in_group"):
         assert not hasattr(ctx, absent)
 
 

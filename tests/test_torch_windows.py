@@ -70,14 +70,16 @@ def test_resolve_config_equals_reference(name):
     # the headline configuration
     assert pippenger.resolve_config(port, 1 << 20, 255, None, None, 2 << 30, "kernel")[1] == 7
     assert windows.num_windows(255, 7) == 38
-    # auto follows the tensors' device; the sorted engine's regime is refused
+    # auto follows the tensors' device; a window above the bucket kernel's cap
+    # routes to the sorted engine, as the reference's "pallas" does
     assert pippenger.resolve_config(port, 8, 16, 4, 2, 2 << 30, "auto", device="cpu")[0] == "plain"
     with pytest.raises(ValueError):
         pippenger.resolve_config(port, 8, 16, 4, 2, 2 << 30, "auto")
     with pytest.raises(ValueError):
         pippenger.resolve_config(port, 8, 16, 4, 2, 2 << 30, "pallas")
-    with pytest.raises(NotImplementedError):
-        pippenger.resolve_config(port, 1 << 10, 128, 12, None, 2 << 30, "kernel")
+    assert pippenger.resolve_config(port, 1 << 10, 128, 12, None, 2 << 30, "kernel") == ("kernel-sorted", 12, None)
+    assert ref_pippenger.resolve_config(ref, 1 << 10, 128, 12, None, 2 << 30, "pallas") == ("pallas-sorted", 12, None)
+    assert pippenger.resolve_config(port, 1 << 10, 128, 7, None, 2 << 30, "kernel")[0] == "kernel"
 
 
 def test_kernel_engine_refuses_curves_it_does_not_cover():

@@ -7,11 +7,13 @@ It imports ``torch`` and ``numpy`` only — never ``jax`` and nothing of the
 JAX package; host-side modules it needs (field/curve specs, curve registry,
 oracle, bigint/limb helpers) are its own copies.
 
-What is here so far: the BLS12-381 / BLS12-377 / BN254 G1 full-scalar MSM
-end to end — field core (ops.field), complete projective group law
-(ops.curve), signed-window Pippenger (ops.msm) with CUDA kernels for the
-bucket sweep, lane reduction, collapse and finish (csrc/), and the
-CurveContext API (models).
+What is here so far: the BLS12-381 / BLS12-377 / BN254 G1 MSM end to end —
+field core, multi-limb integers and batched field ops (ops.field), complete
+projective group law (ops.curve), GLV endomorphism split and signed-window
+Pippenger with a bucket-sweep engine and a sorted large-window engine
+(ops.msm), CUDA kernels for the Montgomery product and square, the bucket
+sweep, lane reduction, collapse, finish, sorted sweep and segmented scan
+(csrc/), and the CurveContext API (models).
 
 Limb representation (decided once, for the whole package)
 ---------------------------------------------------------

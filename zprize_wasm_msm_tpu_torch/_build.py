@@ -26,7 +26,7 @@ import numpy as np
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-STEMS = ("bucket", "reduce", "field_kernels", "check")
+STEMS = ("bucket", "reduce", "sorted", "field_kernels", "check")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -153,7 +153,7 @@ def check_launch(err: int, name: str) -> None:
     if err != 0:
         reason = {
             -1: "field width not instantiated",
-            -2: "bucket count not a power of two within the block limit",
+            -2: "bucket count not a power of two",
             -3: "exponent length outside 1..32*MAX_WORDS bits",
         }.get(err, f"CUDA error {err}")
         raise KernelLaunchError(f"{name}: launch refused ({reason})")

@@ -10,9 +10,11 @@
 // grid step per round, to keep the compiled program small, and move data
 // between lanes with rolls.  Here the phases are written out plainly and
 // lanes meet in shared memory:
-//   collapse: one block per window, one thread per bucket b: a
-//     bit_length(B)-round double-and-add ladder scales S_{w,b} by b+1, then
-//     a log2(B) tree sums the block's B points.
+//   collapse: one block per window of min(B, 128) threads; thread i takes
+//     buckets b = i, i + 128, ...: a bit_length(B)-round double-and-add
+//     ladder scales S_{w,b} by b+1 and the thread keeps a running sum, then
+//     a tree sums the block's points.  Any power-of-two B: the sorted
+//     engine's B = 2^(c-1) for c up to 16 goes through the same kernel.
 //   finish:   one block.  Phase A: the same ladder on every (w, b) lane,
 //     results parked in a scratch buffer.  Phase B: thread w sums its
 //     window's B lanes, doubles the sum c*w times and keeps a running total
@@ -39,18 +41,23 @@ __device__ __forceinline__ void ladder(Pt<NW>& acc, const Pt<NW>& s, int k, int 
   }
 }
 
-// S [3][NW][W*B] -> out [3][NW][W]; grid = W blocks of B threads.
+// S [3][NW][W*B] -> out [3][NW][W]; grid = W blocks of min(B, 128) threads.
 template <int NW>
 __global__ void __launch_bounds__(COLLAPSE_MAX_THREADS)
     collapse_kernel(const uint32_t* __restrict__ S, uint32_t* __restrict__ out, int W, int B,
                     int bits) {
   __shared__ Pt<NW> sh[COLLAPSE_MAX_THREADS];
-  const int w = blockIdx.x, b = threadIdx.x;
-  Pt<NW> s, acc;
-  pt_load_soa<NW>(s, S, (size_t)W * B, (size_t)w * B + b);
-  ladder<NW>(acc, s, b + 1, bits);
-  block_sum<NW>(acc, sh);
-  if (b == 0) pt_store_soa<NW>(out, (size_t)W, (size_t)w, acc);
+  const int w = blockIdx.x, tid = threadIdx.x;
+  Pt<NW> s, acc, total;
+  pt_load_soa<NW>(s, S, (size_t)W * B, (size_t)w * B + tid);
+  ladder<NW>(total, s, tid + 1, bits);
+  for (int b = tid + blockDim.x; b < B; b += blockDim.x) {
+    pt_load_soa<NW>(s, S, (size_t)W * B, (size_t)w * B + b);
+    ladder<NW>(acc, s, b + 1, bits);
+    pt_add<NW>(&total, &total, &acc);
+  }
+  block_sum<NW>(total, sh);
+  if (tid == 0) pt_store_soa<NW>(out, (size_t)W, (size_t)w, total);
 }
 
 // S [3][NW][W*B] -> out [3][NW][1]; scratch [W*B][3*NW]; one block.
@@ -92,14 +99,15 @@ static int set_consts(const uint32_t* host_consts, cudaStream_t stream) {
                                       cudaMemcpyHostToDevice, stream);
 }
 
-// B a power of two <= COLLAPSE_MAX_THREADS; bits = bit_length(B).
+// B a power of two; bits = bit_length(B).
 extern "C" int zp_collapse(int nw, const uint32_t* host_consts, const uint32_t* S,
                            uint32_t* out, int W, int B, int bits, void* stream_ptr) {
-  if (B < 1 || B > COLLAPSE_MAX_THREADS || (B & (B - 1))) return -2;
+  if (B < 1 || (B & (B - 1))) return -2;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   int err = set_consts(host_consts, stream);
   if (err) return err;
-#define CALL(NW_) collapse_kernel<NW_><<<W, B, 0, stream>>>(S, out, W, B, bits)
+  const int threads = B < COLLAPSE_MAX_THREADS ? B : COLLAPSE_MAX_THREADS;
+#define CALL(NW_) collapse_kernel<NW_><<<W, threads, 0, stream>>>(S, out, W, B, bits)
   ZP_DISPATCH_NW(nw, CALL)
 #undef CALL
   return (int)cudaGetLastError();

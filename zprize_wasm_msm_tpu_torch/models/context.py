@@ -10,8 +10,8 @@ The device is explicit.  ``device=None`` means the card: it resolves to
 on its own to run on the CPU.  Pass ``device="cpu"`` to do so.
 
 Only the surface whose modules are ported exists; the rest of the JAX
-package's CurveContext (GLV, legacy engine, subgroup checks, pairings,
-batched field ops, serialization, FFT) arrives with its slices.
+package's CurveContext (legacy engine, subgroup checks, pairings,
+serialization, FFT) arrives with its slices.
 """
 
 from __future__ import annotations
@@ -24,6 +24,8 @@ import torch
 
 from ..ops.curve import group
 from ..ops.curve.spec import CurveSpec
+from ..ops.field import batch
+from ..ops.msm import glv as glv_mod
 from ..ops.msm import pippenger
 from ..utils.limbs import ints_to_limbs
 
@@ -84,21 +86,19 @@ class CurveContext:
     ):
         """points: (X, Y) device batch; scalars: device limb batch.
 
-        On a curve with a GLV endomorphism the JAX package's default is the
-        GLV-split MSM.  That preprocessing is not ported yet, and running
-        the full-scalar MSM in its place would be a different default, so
-        the caller has to say ``use_glv=False`` there.
+        Applies GLV preprocessing when the curve supports it (the
+        composition the reference leaves to the caller,
+        build_glv.js preprocessEndomorphism + multiExp): 2N points,
+        half-width scalars digitised at glv.MAX_BITS bits.
         """
         spec = self.spec
+        max_bits = kw.pop("max_bits", None)
         if use_glv is None:
             use_glv = spec.glv is not None
         if use_glv and spec.glv is not None:
-            raise NotImplementedError(
-                f"{spec.name}: the GLV-split MSM (ops.msm.glv, the default on "
-                "this curve) is the next slice of the port; pass use_glv=False "
-                "for the full-scalar MSM"
-            )
-        return pippenger.msm(spec, points, scalars, c=c, **kw)
+            points, scalars = glv_mod.preprocess_endomorphism(spec, points, scalars)
+            max_bits = glv_mod.MAX_BITS
+        return pippenger.msm(spec, points, scalars, c=c, max_bits=max_bits, **kw)
 
     def msm_host(self, pts, ks, **kw) -> Optional[Tuple[int, int]]:
         """Convenience end-to-end host API: python points/ints in, out."""
@@ -140,6 +140,34 @@ class CurveContext:
         return group.to_affine(self.spec, p)
 
     batch_to_affine = to_affine
+
+    # ---- batched field ops (ref f1m_batch*, build_f1m.js:1351-1357) -------
+    # Montgomery domain.  The multiplicative ones run the mont_mul /
+    # mont_square CUDA kernels for tensors on the card (ops.field.batch).
+
+    def batch_mul(self, a, b):
+        return batch.batch_mul(self.spec.fq, a, b)
+
+    def batch_square(self, a):
+        return batch.batch_square(self.spec.fq, a)
+
+    def batch_add(self, a, b):
+        return batch.batch_add(self.spec.fq, a, b)
+
+    def batch_sub(self, a, b):
+        return batch.batch_sub(self.spec.fq, a, b)
+
+    def batch_neg(self, a):
+        return batch.batch_neg(self.spec.fq, a)
+
+    def batch_inverse(self, a):
+        return batch.batch_inverse(self.spec.fq, a)
+
+    def batch_to_mont(self, a):
+        return batch.batch_to_mont(self.spec.fq, a)
+
+    def batch_from_mont(self, a):
+        return batch.batch_from_mont(self.spec.fq, a)
 
     @property
     def g1(self):

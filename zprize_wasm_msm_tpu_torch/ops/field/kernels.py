@@ -1,4 +1,13 @@
-"""Elementwise field kernels: so far the field inversion.
+"""Elementwise field kernels: Montgomery product, square and inversion.
+
+``mont_mul`` / ``mont_square`` are the functions of
+zprize_wasm_msm_tpu/ops/field/kernels.py ``mont_mul`` / ``mont_square``:
+a * b * R^{-1} mod q (a^2 * R^{-1} mod q) per batch element, canonical
+output.  On a CUDA tensor each is ONE launch of csrc/field_kernels.cu
+``mont_mul_kernel`` / ``mont_square_kernel`` (one thread per element, any
+batch size, no padding); on a CPU tensor the plain PyTorch ``mont.mont_mul``
+/ ``mont.mont_square``.  ops.field.batch routes the batched field surface
+(and with it the GLV endomorphism's beta * x) through them.
 
 ``inverse`` is a^(q-2) per batch element (Fermat), the function of
 zprize_wasm_msm_tpu/ops/field/mont.py ``inverse``.  On a CUDA tensor it is
@@ -8,8 +17,7 @@ the plain PyTorch ladder, ``mont.inverse``.  mont.batch_inverse inverts the
 root of its product tree through this function, so a to_affine on the card
 never leaves the card.
 
-The elementwise Montgomery product and square kernels of the JAX package's
-ops/field/kernels.py are not ported yet; they arrive with the GLV path.
+Values are canonical on both routes, so kernel and plain agree bit for bit.
 """
 
 from __future__ import annotations
@@ -26,7 +34,84 @@ from . import mont
 from .spec import FieldSpec
 
 #: times each kernel was launched (read by chip_smoke.py)
-launches = {"inverse": 0}
+launches = {"mont_mul": 0, "mont_square": 0, "inverse": 0}
+
+
+def _consts_ptr(spec: FieldSpec) -> ctypes.c_void_p:
+    return _build.field_consts(spec).ctypes.data_as(ctypes.c_void_p)
+
+
+def mont_mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version: mont.mont_mul."""
+    return mont.mont_mul(spec, a, b)
+
+
+def mont_square_plain(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version: mont.mont_square."""
+    return mont.mont_square(spec, a)
+
+
+def _mul_words(spec: FieldSpec, aw: torch.Tensor, bw: torch.Tensor) -> torch.Tensor:
+    """Launch mont_mul_kernel on packed words: aw (NW, n), bw (NW, n) or
+    (NW, 1) (one operand for the whole batch) -> (NW, n) int32."""
+    lib = _build.load("field_kernels")
+    fn = lib.zp_mont_mul
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    )
+    n = aw.shape[1]
+    out = torch.empty_like(aw)
+    err = fn(
+        spec.n_words, _consts_ptr(spec), _launch.ptr(aw), _launch.ptr(bw), _launch.ptr(out),
+        n, int(bw.shape[1] == 1 and n != 1), _launch.stream_ptr(),
+    )
+    _build.check_launch(err, "mont_mul")
+    launches["mont_mul"] += 1
+    return out
+
+
+def _square_words(spec: FieldSpec, aw: torch.Tensor) -> torch.Tensor:
+    """Launch mont_square_kernel on packed words, (NW, n) -> (NW, n) int32."""
+    lib = _build.load("field_kernels")
+    fn = lib.zp_mont_square
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
+    out = torch.empty_like(aw)
+    err = fn(
+        spec.n_words, _consts_ptr(spec), _launch.ptr(aw), _launch.ptr(out), aw.shape[1],
+        _launch.stream_ptr(),
+    )
+    _build.check_launch(err, "mont_square")
+    launches["mont_square"] += 1
+    return out
+
+
+def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    """Elementwise Montgomery product, (L, *batch) int64 x2 -> same.
+
+    ``b`` has ``a``'s shape, or is one element with every batch axis 1 (a
+    constant operand such as beta or R^2): the kernel then reads that one
+    element for the whole batch and no expanded copy is made."""
+    if not _launch.use_kernel(impl, a):
+        return mont_mul_plain(spec, a, b)
+    L = spec.n_limbs
+    batch = tuple(a.shape[1:])
+    _launch.check_limbs("a", a, (L,) + batch, a.device)
+    one_element = (L,) + (1,) * len(batch)
+    _launch.check_limbs("b", b, one_element if tuple(b.shape) == one_element else a.shape, a.device)
+    out = _mul_words(spec, _launch.pack_point((a,))[0], _launch.pack_point((b,))[0])
+    return _launch.unpack_point(out[None], batch)[0]
+
+
+def mont_square(spec: FieldSpec, a: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    """Elementwise Montgomery square, (L, *batch) int64 -> same."""
+    if not _launch.use_kernel(impl, a):
+        return mont_square_plain(spec, a)
+    batch = tuple(a.shape[1:])
+    _launch.check_limbs("a", a, (spec.n_limbs,) + batch, a.device)
+    out = _square_words(spec, _launch.pack_point((a,))[0])
+    return _launch.unpack_point(out[None], batch)[0]
 
 
 def inverse_plain(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
@@ -36,7 +121,7 @@ def inverse_plain(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
 
 def inverse(spec: FieldSpec, a: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     """Elementwise a^{-1} in Montgomery form, (L, *batch) int64 -> same;
-    0 maps to 0.  Canonical values, so kernel and plain agree bit for bit."""
+    0 maps to 0."""
     if not _launch.use_kernel(impl, a):
         return inverse_plain(spec, a)
     L = spec.n_limbs
@@ -55,7 +140,7 @@ def inverse(spec: FieldSpec, a: torch.Tensor, impl: str = "auto") -> torch.Tenso
     n = aw.shape[1]
     out = torch.empty_like(aw)
     err = fn(
-        spec.n_words, _build.field_consts(spec).ctypes.data_as(ctypes.c_void_p),
+        spec.n_words, _consts_ptr(spec),
         exp_words.ctypes.data_as(ctypes.c_void_p), e.bit_length(),
         _launch.ptr(aw), _launch.ptr(out), n, _launch.stream_ptr(),
     )

@@ -16,17 +16,24 @@ Pipeline (reference stage -> stage here):
   reduceBucketsToSinglePoint      -> bucket_reduce (running sum over buckets)
   accumulateAcrossChunks          -> window_fold (Horner over windows)
 
-Two engines, chosen by where the tensors lie (``impl="auto"``):
+Engines (``impl``), chosen by where the tensors lie when ``impl="auto"``:
 
-  "kernel"  CUDA tensors: the hand-written kernels — pl_bucket's sweep and
-            lane reduction, then pl_reduce's finish (one block) or
-            finish_large (collapse + window fold).
-  "plain"   CPU tensors: the PyTorch-op functions in this module
-            (_bucket_sweep_plain, _lane_tree_reduce, bucket_reduce,
-            window_fold).  They are also the plain versions the kernels
-            are held against.
+  "kernel"         CUDA tensors: the hand-written kernels — pl_bucket's
+                   sweep and lane reduction, then pl_reduce's finish (one
+                   block) or finish_large (collapse + window fold).  A
+                   private bucket row per (window, lane): c <= 7.
+  "kernel-sorted"  CUDA tensors, any c: pl_sorted's sort / sweep / segmented
+                   scan, then pl_reduce's collapse and the window fold
+                   (finish at B = 1).  "kernel" with c > 7 routes here.
+  "plain"          CPU tensors: the PyTorch-op functions in this module
+                   (_bucket_sweep_plain, _lane_tree_reduce, bucket_reduce,
+                   window_fold).  They are also the plain versions the
+                   kernels are held against.
+  "plain-sorted"   the sorted engine's stages with the plain sweep and scan,
+                   then bucket_reduce_grouped + window_fold.
 
-Asking for "kernel" on a CPU tensor raises; nothing falls back.
+"auto" is "kernel" for CUDA tensors and "plain" for CPU tensors.
+Asking for a kernel engine on a CPU tensor raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -41,6 +48,8 @@ from . import windows
 
 #: lanes per window of the kernel engine when the caller names none
 KERNEL_LANES = 1024
+#: the engines of msm (see the module docstring)
+ENGINES = ("kernel", "kernel-sorted", "plain", "plain-sorted")
 
 
 def _lane_count(n: int, c: int, n_windows: int, mem_budget_bytes: int, n_limbs: int) -> int:
@@ -159,6 +168,43 @@ def bucket_reduce(curve: CurveSpec, buckets):
     return acc
 
 
+def bucket_reduce_grouped(curve: CurveSpec, buckets):
+    """Weighted bucket sum for LARGE bucket counts: ~2*sqrt(B) serial steps
+    instead of bucket_reduce's B.
+
+    Split b = g*M + m (M ~ sqrt(B)):
+      sum_b (b+1)*S_b = M * sum_g g*T_g + sum_g W_g
+    with T_g = sum_m S_{g,m} (group totals) and W_g = sum_m (m+1)*S_{g,m}
+    (within-group weighted sums).  The within-group pass runs all W*G lanes
+    at once (M steps); the group pass is G-1 steps of W-wide adds; M*U is
+    log2(M) doublings.  Input (L, W, B), B a power of two; output (L, W).
+    """
+    bx = buckets[0]
+    L, W, B = bx.shape
+    if B <= 64:
+        return bucket_reduce(curve, buckets)
+    M = 1 << (B.bit_length() // 2)
+    G = B // M
+    r4 = tuple(a.reshape(L, W, G, M) for a in buckets)
+    running = group.zero(curve, (W, G), bx.device)
+    Wg = group.zero(curve, (W, G), bx.device)
+    for m in range(M - 1, -1, -1):
+        running = group.add(curve, running, tuple(a[:, :, :, m] for a in r4))
+        Wg = group.add(curve, Wg, running)
+    Tg = running
+    # U = sum_g g*T_g via a running sum from the top group down to g = 1
+    r2 = group.zero(curve, (W,), bx.device)
+    U = group.zero(curve, (W,), bx.device)
+    for g in range(G - 1, 0, -1):
+        r2 = group.add(curve, r2, tuple(a[:, :, g] for a in Tg))
+        U = group.add(curve, U, r2)
+    for _ in range(M.bit_length() - 1):
+        U = group.double(curve, U)
+    # sum_g W_g: the pairwise tree over the G axis
+    total = _lane_tree_reduce(curve, tuple(a[:, :, :, None] for a in Wg))
+    return group.add(curve, U, tuple(a[:, :, 0] for a in total))
+
+
 def window_fold(curve: CurveSpec, window_sums, c: int):
     """Horner fold over windows, MSB -> LSB (ref accumulateAcrossChunks:1710).
 
@@ -182,18 +228,20 @@ def resolve_config(
 
     The window-size rules are the reference's, unchanged: with the kernel
     engine the c <= 7 (Fq) cap and the "fewest windows rounded up to 8"
-    rule, with the plain engine the Pippenger heuristic and the
-    memory-budget lane count.  (Both kernel rules come from the TPU's
-    sublanes and on-chip memory; choosing c for this card is a later
-    change.)  ``device`` decides "auto": kernel on CUDA, plain on the CPU.
+    rule, with a sorted engine windows.sorted_engine_window_size, with the
+    plain engine the Pippenger heuristic and the memory-budget lane count.
+    (The kernel rules come from the TPU's sublanes and on-chip memory;
+    choosing c for this card is a later change.)  An explicit c above the
+    cap on the kernel engine routes to the sorted kernel engine.
+    ``device`` decides "auto": kernel on CUDA, plain on the CPU.
     """
     if impl == "auto":
         if device is None:
             raise ValueError("resolve_config: impl='auto' needs the tensors' device")
         impl = "kernel" if torch.device(device).type == "cuda" else "plain"
-    if impl not in ("kernel", "plain"):
-        raise ValueError(f"impl must be 'auto', 'kernel' or 'plain', got {impl!r}")
-    if impl == "kernel" and (curve.ext != 1 or curve.a != 0):
+    if impl not in ENGINES:
+        raise ValueError(f"impl must be 'auto' or one of {ENGINES}, got {impl!r}")
+    if impl.startswith("kernel") and (curve.ext != 1 or curve.a != 0):
         raise NotImplementedError(
             f"{curve.name}: the CUDA kernels cover a=0 curves over Fq; extension "
             "fields and general-a curves arrive with later slices of the port "
@@ -201,11 +249,12 @@ def resolve_config(
         )
     c_cap = 7 if curve.ext == 1 else 6
     if impl == "kernel" and c is not None and c > c_cap:
-        raise NotImplementedError(
-            f"c={c} > {c_cap} is the sorted engine's regime, which is not ported yet"
-        )
+        # explicit large window: the engine that has no bucket rows
+        impl = "kernel-sorted"
     if c is None:
-        if impl == "kernel":
+        if impl.endswith("sorted"):
+            c = windows.sorted_engine_window_size(N, max_bits)
+        elif impl == "kernel":
 
             def rows(cc):
                 return -(-windows.num_windows(max_bits, cc) // 8) * 8
@@ -232,11 +281,21 @@ def window_sums(
     digits: torch.Tensor,
     c: int,
     lanes: Optional[int] = None,
+    impl: str = "plain",
 ):
-    """Plain engine: bucket accumulation + per-window weighted reduction,
-    (L, W) x3."""
-    from . import pl_bucket  # pl_bucket imports this module
+    """Bucket accumulation + per-window weighted reduction, (L, W) x3, of
+    the plain engine and of the two sorted engines (the kernel engine's
+    finish takes the dense buckets and has no such stage)."""
+    from . import pl_bucket, pl_reduce, pl_sorted  # they import this module
 
+    if impl == "kernel-sorted":
+        buckets = pl_sorted.bucket_accumulate_sorted(curve, points, digits, c, impl="kernel")
+        return pl_reduce.collapse(curve, buckets, impl="kernel")
+    if impl == "plain-sorted":
+        buckets = pl_sorted.bucket_accumulate_sorted(curve, points, digits, c, impl="plain")
+        return bucket_reduce_grouped(curve, buckets)
+    if impl != "plain":
+        raise ValueError(f"window_sums: impl must be 'plain' or a sorted engine, got {impl!r}")
     W, N = digits.shape
     if lanes is None:
         lanes = _lane_count(N, c, W, 2 << 30, curve.field.elem_len)
@@ -259,8 +318,12 @@ def msm(
 
     points:  affine (X, Y), each (L, N) int64, Montgomery form.
     scalars: (Ls, N) int64 16-bit limbs, standard (non-Montgomery) domain.
-    impl:    "kernel" (CUDA kernels; c <= 7), "plain" (PyTorch ops) or
-             "auto" (kernel for CUDA tensors, plain for CPU tensors).
+    impl:    "kernel" (CUDA kernels, bucket rows; c <= 7, a larger c routes
+             to "kernel-sorted"), "kernel-sorted" (CUDA kernels, sort by
+             bucket + running sums; any c), "plain" / "plain-sorted" (the
+             same two engines in PyTorch ops) or "auto" (kernel for CUDA
+             tensors, plain for CPU tensors).  ``lanes`` is read by the
+             "kernel" and "plain" engines only.
     Returns a projective point (X, Y, Z), each (L,), Montgomery form, on the
     device the inputs lie on.
     """
@@ -285,5 +348,10 @@ def msm(
         # W*B exceeds the one-block finish (c = 7 full-width scalars):
         # collapse the buckets per window on a wide grid, then fold
         return pl_reduce.finish_large(curve, buckets, c, impl="kernel")
-    per_window = window_sums(curve, (X, Y), digits, c, lanes)
+    per_window = window_sums(curve, (X, Y), digits, c, lanes, impl)
+    if impl == "kernel-sorted":
+        from . import pl_reduce
+
+        # the window fold on the card: finish at B = 1
+        return pl_reduce.finish(curve, tuple(a[:, :, None] for a in per_window), c, impl="kernel")
     return window_fold(curve, per_window, c)

@@ -7,7 +7,8 @@ They replace the TPU kernels of zprize_wasm_msm_tpu/ops/msm/pl_reduce.py:
                 (L, W, B).  csrc/bucket.cu lane_reduce_kernel; also the
                 second launch of pl_bucket.bucket_accumulate.
   finish_large  (``_collapse_kernel``): per window sum_b (b+1) S_{w,b}
-                (csrc/reduce.cu collapse_kernel), then finish at B = 1.
+                (csrc/reduce.cu collapse_kernel, any power-of-two B), then
+                finish at B = 1.
   finish        (``_finish_kernel``): sum_w 2^(c w) sum_b (b+1) S_{w,b} ->
                 ONE point (csrc/reduce.cu finish_kernel, one block).
 
@@ -35,9 +36,6 @@ from . import _launch, pippenger
 
 #: lanes (W*B) the one-block finish takes; above it msm uses finish_large
 FINISH_LANES = 1024
-#: buckets per window the collapse kernel takes (threads of its block)
-COLLAPSE_MAX_B = 128
-
 #: times each kernel was launched (read by chip_smoke.py)
 launches = {"lane_reduce": 0, "collapse": 0, "finish": 0}
 
@@ -148,8 +146,9 @@ def finish(curve: CurveSpec, buckets, c: int, impl: str = "auto"):
 
 
 def collapse_plain(curve: CurveSpec, buckets):
-    """Per window sum_b (b+1) S_{w,b}: pippenger.bucket_reduce."""
-    return pippenger.bucket_reduce(curve, buckets)
+    """Per window sum_b (b+1) S_{w,b}: pippenger.bucket_reduce_grouped (the
+    running-sum walk of bucket_reduce, sqrt-split above 64 buckets)."""
+    return pippenger.bucket_reduce_grouped(curve, buckets)
 
 
 def finish_large_plain(curve: CurveSpec, buckets, c: int):
@@ -159,10 +158,11 @@ def finish_large_plain(curve: CurveSpec, buckets, c: int):
 
 def collapse(curve: CurveSpec, buckets, impl: str = "auto"):
     """(bx, by, bz) each (L, W, B) -> window sums (L, W) x3,
-    sum_b (b+1) S_{w,b}: stage A of finish_large."""
+    sum_b (b+1) S_{w,b}: stage A of finish_large, and the per-window
+    reduction of the sorted engine (any power-of-two B)."""
     W, B = _check_buckets(curve, buckets)
-    if B > COLLAPSE_MAX_B or B & (B - 1):
-        raise ValueError(f"collapse: need B a power of two <= {COLLAPSE_MAX_B}, got {B}")
+    if B & (B - 1):
+        raise ValueError(f"collapse: need B a power of two, got {B}")
     if not _launch.use_kernel(impl, buckets[0]):
         return collapse_plain(curve, buckets)
     lib = _build.load("reduce")

@@ -40,8 +40,9 @@ def default_window_size(n: int, max_bits: int = 256, mem_budget_bytes: int = 2 <
 
 
 def sorted_engine_window_size(n: int, max_bits: int = 132) -> int:
-    """Window size rule of the sorted-runs engine (not ported yet; the
-    rule is kept so resolve_config answers as the reference does)."""
+    """Window size of the sorted-runs engine (pl_sorted) when the caller
+    names none: the reference's rule, log2(n) - 4 capped at 10, unchanged
+    so that resolve_config answers as the reference does."""
     if n <= 0:
         return 1
     c = max(2, n.bit_length() - 1 - 4)
