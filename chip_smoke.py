@@ -6,18 +6,24 @@ What it does, in order (any failure exits non-zero and prints no result):
 
   1. refuses to run without a CUDA device;
   2. builds every CUDA kernel from zprize_wasm_msm_tpu_torch/csrc/ with nvcc
-     (all sources in parallel) into build/;
+     (all sources in parallel) into build/, prints ptxas's registers and
+     spills per kernel and fails if a sweep kernel (K1, K7) spills;
   3. holds the device functions (field and group ops of csrc/field.cuh and
-     csrc/group.cuh) and the elementwise field kernels (Montgomery product,
-     square, inversion) bit for bit against the plain PyTorch ops, on the
-     toy field, BN254 Fq and BLS12-381 Fq (every field width the sources
-     instantiate), edge values 0, 1, q-1, (q+-1)/2 included;
+     csrc/group.cuh, both product forms and the complete add on each) and
+     the elementwise field kernels (Montgomery product, square, inversion)
+     bit for bit against the plain PyTorch ops, on the toy field, BN254 Fq
+     and BLS12-381 Fq (every field width the sources instantiate), edge
+     values 0, 1, q-1, (q+-1)/2 included;
   4. holds each kernel against its plain PyTorch version at small shapes on
      the toy curve, BN254 and BLS12-381 (zero digits, +-B digits, (0,0)
      points, repeated points that force the doubling case inside a bucket;
      for the sorted engine also single-entry runs, a run spanning several
-     chunks, chunks that are all one bucket and an all-zero window), and the
-     collapse kernel at B = 512 and 4096 against bucket_reduce_grouped;
+     chunks, chunks that are all one bucket and an all-zero window), the
+     collapse kernel at B = 512 and 4096 against bucket_reduce_grouped, and
+     the two sweeps on the cases aimed at their schedules (k1_adversarial:
+     one bucket on every step, two buckets alternating; k7_adversarial:
+     runs crossing or ending on sub-chunk borders, a zero sub-chunk inside a
+     run, steps not a multiple of 32);
   5. drives three paths of the public API on BLS12-381 G1 at N = 2^20
      distinct bases (build_bls12381().msm -> result_to_affine), each a few
      timed repetitions, with every kernel's launch count zeroed just before
@@ -33,7 +39,9 @@ What it does, in order (any failure exits non-zero and prints no result):
      batch_from_mont at N = 2^20) against the plain field ops;
   6. calls each kernel's wrapper at its path's shapes, compares it with its
      plain version on the same inputs (exact equality of affine coordinates
-     or limbs: integers, tolerance 0) and times both.
+     or limbs: integers, tolerance 0) and times both; K1 and K7 also report
+     registers, resident warps per SM, ns per add and their time over their
+     bound.
 
 Output: one JSON object per line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -137,6 +145,120 @@ def profile_msm(run_msm, trace_dir, name):
     }
 
 
+def affine_err(curve, a, b) -> int:
+    """max |difference| of the affine limbs of two point batches."""
+    from zprize_wasm_msm_tpu_torch.ops.curve import group
+
+    fa = group.to_affine(curve, tuple(x.reshape(x.shape[0], -1) for x in a))
+    fb = group.to_affine(curve, tuple(x.reshape(x.shape[0], -1) for x in b))
+    return int(max((u - v).abs().max().item() for u, v in zip(fa, fb)))
+
+
+def _make_bases(ctx, log2n: int, rng, dev):
+    """N = 2^log2n bases [m_i]G as subset sums, built on the device with
+    the port's own group ops: seeds [m_0]G, [d_k]G by times_scalar, then
+    log2n rounds S <- S u (S + [d_k]G) (one batched complete mixed add
+    each) and ONE batched to_affine.  m_i = m_0 + sum_k bit_k(i) d_k."""
+    from zprize_wasm_msm_tpu_torch.ops.curve import group
+
+    curve = ctx.spec
+    bound = min(1 << 62, curve.r)
+    ms = [int(v) for v in rng.integers(1, bound, size=(log2n + 1,), dtype=np.uint64)]
+    g = group.generator(curve, (log2n + 1,), dev)
+    seeds = group.to_affine(curve, ctx.times_scalar(g, ctx._limbs(ms, 4)))
+    S = group.from_affine(curve, (seeds[0][:, :1], seeds[1][:, :1]))
+    for k in range(log2n):
+        n = S[0].shape[1]
+        dk = (seeds[0][:, k + 1 : k + 2].expand(-1, n), seeds[1][:, k + 1 : k + 2].expand(-1, n))
+        more = group.add_mixed(curve, S, dk)
+        S = tuple(torch.cat([a, b], dim=1) for a, b in zip(S, more))
+    X, Y = group.to_affine(curve, S)
+    return (X.contiguous(), Y.contiguous()), ms[0], ms[1:]
+
+
+def k1_adversarial(curve, dev, rng, log2n=10, c=5, lanes=32):
+    """K1 (+ K4) against its plain version on digit patterns aimed at the
+    sweep's prefetch: every digit of a window in one bucket (the next
+    step's prefetched bucket is always stale: forwarding on every step),
+    one bucket with alternating signs, a lane alternating between two
+    buckets (a bucket stored at step s is read again at step s+2), one
+    bucket with zero digits between its hits, random digits with (0,0)
+    points.  Returns {case: max |err|}."""
+    import zprize_wasm_msm_tpu_torch as Z
+    from zprize_wasm_msm_tpu_torch.ops.msm import pl_bucket
+
+    ctx = Z.build_curve(curve, device=dev)
+    (X, Y), _, _ = _make_bases(ctx, log2n, rng, dev)
+    N, B = 1 << log2n, 1 << (c - 1)
+    step = torch.arange(N, device=dev) // lanes  # lane t's step s holds point t + s*T
+    rows = {
+        "one bucket every step": torch.full((N,), 3, device=dev),
+        "one bucket, alternating signs": torch.where(step % 2 == 0, B, -B),
+        "alternating two buckets": torch.where(step % 2 == 0, 5, -7),
+        "one bucket, zero digits between": torch.where(step % 2 == 0, 2, 0),
+        "two buckets, runs of three": torch.where(step % 6 < 3, -1, 1 + (step % 2)),
+        "random": torch.as_tensor(rng.integers(-B, B + 1, size=N), device=dev),
+    }
+    digits = torch.stack(list(rows.values())).to(torch.int32).contiguous()
+    X, Y = X.clone(), Y.clone()
+    X[:, 3 * lanes : 3 * lanes + 5], Y[:, 3 * lanes : 3 * lanes + 5] = 0, 0  # (0,0) points
+    X[:, 5 * lanes + 1], Y[:, 5 * lanes + 1] = X[:, 1], Y[:, 1]  # lane 1 adds one point twice
+    got = pl_bucket.bucket_accumulate(curve, (X, Y), digits, lanes=lanes, c=c)
+    ref = pl_bucket.bucket_accumulate_plain(curve, (X, Y), digits, lanes=lanes, c=c)
+    return {name: affine_err(curve, tuple(a[:, w] for a in got), tuple(a[:, w] for a in ref))
+            for w, name in enumerate(rows)}
+
+
+def k7_adversarial(curve, dev, rng, chunks=16, steps=37, n_points=96):
+    """K7 against sweep_plain on streams aimed at the split schedule (S = 32
+    lanes per chunk, lane k walking ceil(steps / S) positions): one run
+    crossing every sub-chunk border, runs ending on the last position of a
+    sub-chunk, runs ending on the first position of the next sub-chunk, a
+    sub-chunk of zero digits between two halves of one run, singletons,
+    and a sorted random window; steps need not be a multiple of 32.  The
+    streams are built directly (perm, meta, slot), not by sorting, so every
+    pattern lands where it is aimed.  Returns {case: max |err|}."""
+    import zprize_wasm_msm_tpu_torch as Z
+    from zprize_wasm_msm_tpu_torch.ops.msm import pl_sorted
+
+    ctx = Z.build_curve(curve, device=dev)
+    (X, Y), _, _ = _make_bases(ctx, 7, rng, dev)
+    X, Y = X[:, :n_points].clone(), Y[:, :n_points].clone()
+    X[:, 5], Y[:, 5] = 0, 0  # a (0,0) point
+    N = chunks * steps
+    sub = -(-steps // 32)
+    c = max(10, N.bit_length() + 1)  # K = B + chunks slots hold every flush, singletons included
+    pos = torch.arange(N, device=dev) % steps  # position inside its chunk
+    zero_lane = (pos >= sub) & (pos < 2 * sub)
+    keys = {
+        "one run crossing every sub-chunk": torch.full((N,), 7, device=dev),
+        "runs ending on a sub-chunk's last position": pos // sub,
+        "runs ending on a sub-chunk's first position": (pos + sub - 1) // sub,
+        "runs ending one before a sub-chunk's last": (pos + 1) // sub,
+        "zero sub-chunk inside one run": torch.full((N,), 3, device=dev),
+        "singletons": pos,
+        "sorted random": torch.sort(torch.as_tensor(rng.integers(0, 40, size=N), device=dev))[0],
+    }
+    skey = torch.stack([k.to(torch.int32) for k in keys.values()])
+    W = skey.shape[0]
+    nxt = torch.cat([skey[:, 1:], torch.full_like(skey[:, :1], -1)], dim=1)
+    boundary = (skey != nxt) | (pos == steps - 1)[None]
+    zero = torch.zeros_like(boundary)
+    zero[4] = zero_lane & (pos != steps - 1)  # the run's last position stays nonzero
+    zero[6] = torch.as_tensor(rng.random(N) < 0.2, device=dev)
+    neg = torch.as_tensor(rng.random((W, N)) < 0.5, device=dev)
+    meta = (boundary.to(torch.int32) * pl_sorted.META_BOUNDARY + zero.to(torch.int32) * pl_sorted.META_ZERO
+            + neg.to(torch.int32) * pl_sorted.META_NEG)
+    perm = torch.as_tensor(rng.integers(0, n_points, size=(W, N)), device=dev).to(torch.int32)
+    perm[:, 1::7] = perm[:, 0:-1:7]  # the same point twice in a row: the doubling case
+    slot, seg = pl_sorted.compact_index(skey, meta, c, chunks)
+    K = seg.shape[1]
+    got = pl_sorted.sweep(curve, (X, Y), perm, meta, slot, K, chunks)
+    ref = pl_sorted.sweep_plain(curve, (X, Y), perm, meta, slot, K, chunks)
+    return {name: affine_err(curve, tuple(a[:, w] for a in got), tuple(a[:, w] for a in ref))
+            for w, name in enumerate(keys)}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", nargs="?", const="", default=None, metavar="DIR",
@@ -174,16 +296,20 @@ def main() -> None:
     build_s = time.perf_counter() - t0
     for stem in _build.STEMS:
         _build.load(stem)
-    ptxas = []
-    for stem, log in logs.items():
-        (_build.BUILD_DIR / f"nvcc_{stem}.log").write_text(log)
-        lines = log.splitlines()
+    ptxas, ptxas_by_kernel = [], {}
+    for stem in _build.STEMS:
+        # the log of the library that was loaded: its name carries the
+        # sources' hash, as the library's does
+        log_path = _build.log_path(stem)
+        check(log_path.exists(), f"no compiler log {log_path.name} beside the loaded library")
+        lines = log_path.read_text().splitlines()
         for i, line in enumerate(lines):
             if "Compiling entry function" in line:
                 used = next((l for l in lines[i + 1 : i + 6] if "Used" in l), "")
                 spill = next((l for l in lines[i + 1 : i + 6] if "spill" in l), "")
                 name = line.split("'")[1]
                 ptxas.append(f"{stem}:{name[:48]}: {used.split(':')[-1].strip()} | {spill.strip()}")
+                ptxas_by_kernel[name] = {"used": used.split(":")[-1].strip(), "spill": spill.strip()}
     emit({
         "env": {
             "torch": torch.__version__, "cuda": torch.version.cuda, "nvcc": nvcc_version,
@@ -194,33 +320,36 @@ def main() -> None:
         "ptxas": ptxas,
     })
 
+    def sweep_resources(stem, kernel, entry, nw):
+        """ptxas's registers and spills of kernel<nw> and what the runtime
+        says of it (registers, local bytes, blocks per SM); fails on a spill."""
+        tag = f"{kernel}ILi{nw}E"
+        found = [v for k, v in ptxas_by_kernel.items() if tag in k]
+        check(len(found) == 1, f"no ptxas report for {tag}")
+        spill = [int(w) for w in found[0]["spill"].split() if w.isdigit()]
+        check(len(spill) == 3 and spill[1] == 0 and spill[2] == 0,
+              f"{tag} spills: {found[0]['spill']}")
+        info = _build.kernel_info(stem, entry, nw)
+        threads = {"bucket": 64, "sorted": 64}[stem]
+        return {"ptxas": found[0], "spill_store_bytes": spill[1], "spill_load_bytes": spill[2],
+                **info, "threads_per_block": threads,
+                "resident_warps_per_sm": info["blocks_per_sm"] * threads // 32}
+
+    sweep_res = {
+        (name, nw): sweep_resources(stem, kernel, entry, nw)
+        for name, stem, kernel, entry in (
+            ("bucket_sweep", "bucket", "bucket_sweep_kernel", "zp_bucket_sweep_info"),
+            ("sorted_sweep", "sorted", "sorted_sweep_kernel", "zp_sorted_sweep_info"),
+        )
+        for nw in _build.SUPPORTED_WORDS
+    }
+    emit({"sweep_resources": {f"{k[0]} NW={k[1]}": v for k, v in sweep_res.items()}})
+
     def oracle_of(curve):
         return OracleCurve(q=curve.q, a=0, b=curve.b, r=curve.r, gx=curve.gx, gy=curve.gy)
 
-    def affine_err(curve, a, b) -> int:
-        """max |difference| of the affine limbs of two point batches."""
-        fa = group.to_affine(curve, tuple(x.reshape(x.shape[0], -1) for x in a))
-        fb = group.to_affine(curve, tuple(x.reshape(x.shape[0], -1) for x in b))
-        return int(max((u - v).abs().max().item() for u, v in zip(fa, fb)))
-
     def make_bases(ctx, log2n: int, rng):
-        """N = 2^log2n bases [m_i]G as subset sums, built on the card with
-        the port's own group ops: seeds [m_0]G, [d_k]G by times_scalar, then
-        log2n rounds S <- S u (S + [d_k]G) (one batched complete mixed add
-        each) and ONE batched to_affine.  m_i = m_0 + sum_k bit_k(i) d_k."""
-        curve = ctx.spec
-        bound = min(1 << 62, curve.r)
-        ms = [int(v) for v in rng.integers(1, bound, size=(log2n + 1,), dtype=np.uint64)]
-        g = group.generator(curve, (log2n + 1,), dev)
-        seeds = group.to_affine(curve, ctx.times_scalar(g, ctx._limbs(ms, 4)))
-        S = group.from_affine(curve, (seeds[0][:, :1], seeds[1][:, :1]))
-        for k in range(log2n):
-            n = S[0].shape[1]
-            dk = (seeds[0][:, k + 1 : k + 2].expand(-1, n), seeds[1][:, k + 1 : k + 2].expand(-1, n))
-            more = group.add_mixed(curve, S, dk)
-            S = tuple(torch.cat([a, b], dim=1) for a, b in zip(S, more))
-        X, Y = group.to_affine(curve, S)
-        return (X.contiguous(), Y.contiguous()), ms[0], ms[1:]
+        return _make_bases(ctx, log2n, rng, dev)
 
     def base_multiples(log2n, m0, ds, mod):
         idx = np.arange(1 << log2n)
@@ -243,13 +372,14 @@ def main() -> None:
         Bv = [y for _ in edges for y in edges] + [int.from_bytes(rng.bytes(48), "little") % q for _ in range(999)]
         a = ctx._limbs([fq.to_mont_int(v) for v in A], fq.n_limbs)
         b = ctx._limbs([fq.to_mont_int(v) for v in Bv], fq.n_limbs)
+        mul_ref = mont.mont_mul(fq, a, b)
         for op, ref in (
-            ("mul", mont.mont_mul(fq, a, b)), ("add", mont.add(fq, a, b)),
+            ("mul", mul_ref), ("mul_cc", mul_ref), ("add", mont.add(fq, a, b)),
             ("sub", mont.sub(fq, a, b)), ("neg", mont.neg(fq, a)),
         ):
             got = device_check.field_op(curve, op, a, b)
             torch.cuda.synchronize()
-            check(bool((got == ref).all()), f"{curve.name}: device fe_{op} != mont.{op}")
+            check(bool((got == ref).all()), f"{curve.name}: device fe_{op} != mont")
         # the product and square kernels, bit for bit: every pair of edge
         # values, random values, and one constant operand for the batch
         for got, ref, what in (
@@ -280,17 +410,19 @@ def main() -> None:
         for i, coord in enumerate(group.zero(curve, (4,), dev)):
             P[i][:, 12:16] = coord  # projective identity
         Q = group.from_affine(curve, (QX, QY))
+        add_ref = group.add(curve, P, Q)
         for op, ref, qin in (
-            ("add", group.add(curve, P, Q), Q),
+            ("add", add_ref, Q), ("add_cc", add_ref, Q),
             ("add_mixed", group.add_mixed(curve, P, (QX, QY)), (QX, QY, Q[2])),
             ("double", group.double(curve, P), Q),
         ):
             got = device_check.group_op(curve, op, P, qin)
             torch.cuda.synchronize()
             for g, r in zip(got, ref):
-                check(bool((g == r).all()), f"{curve.name}: device pt_{op} != group.{op}")
+                check(bool((g == r).all()), f"{curve.name}: device pt_{op} != group")
         dev_fn_report[curve.name] = (
-            "mul/add/sub/neg + mont_mul/mont_square/inverse kernels + add_mixed/add/double bit-equal"
+            "mul/mul_cc/add/sub/neg + mont_mul/mont_square/inverse kernels"
+            " + add_mixed/add/add_cc/double bit-equal"
         )
     emit({"device_functions": dev_fn_report, "seconds": round(time.perf_counter() - t0, 2)})
 
@@ -423,6 +555,22 @@ def main() -> None:
     emit({"kernels_small_shapes_max_abs_err": small, "tolerance": 0,
           "seconds": round(time.perf_counter() - t0, 2)})
 
+    # the sweeps' schedules on the cases aimed at them: K1's prefetch and its
+    # same-bucket forwarding, K7's sub-chunk split and segmented combine
+    t0 = time.perf_counter()
+    adversarial = {}
+    for c_curve in (toy, bn254, bls12_381):
+        for case, e in k1_adversarial(c_curve, dev, rng).items():
+            adversarial[f"K1 {c_curve.name} c=5 T=32: {case}"] = e
+        for chunks, steps in ((16, 37), (4, 5), (8, 71), (4, 100), (2, 64)):
+            for case, e in k7_adversarial(c_curve, dev, rng, chunks, steps).items():
+                adversarial[f"K7 {c_curve.name} T={chunks} steps={steps}: {case}"] = e
+    torch.cuda.synchronize()
+    for case, e in adversarial.items():
+        check(e == 0, f"{case}: kernel disagrees with its plain version (max |err| {e})")
+    emit({"sweeps_adversarial_max_abs_err": adversarial, "tolerance": 0,
+          "seconds": round(time.perf_counter() - t0, 2)})
+
     # ---- 5. the main path ---------------------------------------------------
     curve = bls12_381
     ctx = Z.build_bls12381()
@@ -512,8 +660,8 @@ def main() -> None:
 
     # -- the full-scalar path: c = 7, bucket sweep, collapse + window fold
     impl, c, _ = pippenger.resolve_config(curve, n, 255, None, None, 2 << 30, "auto", device=dev)
-    T = pippenger._kernel_lanes(n, None)
     W, B = windows.num_windows(255, c), 1 << (c - 1)
+    T = pippenger._kernel_lanes(curve, W, n, None, dev)  # the lanes ctx.msm runs
     check((impl, c, W, B) == ("kernel", 7, 38, 64), f"main path resolved to {(impl, c, W, B)}")
     full = drive("full", paths["full"], ("bucket_sweep", "lane_reduce", "collapse", "finish", "field_inverse"))
     main_launches = full["launches"]
@@ -539,6 +687,7 @@ def main() -> None:
     n2 = 2 * n
     impl, cA, _ = pippenger.resolve_config(curve, n2, glv.MAX_BITS, None, None, 2 << 30, "auto", device=dev)
     WA, BA = windows.num_windows(glv.MAX_BITS, cA), 1 << (cA - 1)
+    TA = pippenger._kernel_lanes(curve, WA, n2, None, dev)
     check((impl, cA, WA, BA) == ("kernel", 6, 23, 32), f"path A resolved to {(impl, cA, WA, BA)}")
     path_a = drive("A", paths["A"], ("mont_mul", "bucket_sweep", "lane_reduce", "finish", "field_inverse"))
     check(path_a["launches"].get("collapse", 0) == 0, "path A should finish in one block")
@@ -548,13 +697,13 @@ def main() -> None:
     del k1
     digits_a, digits_ms = staged(lambda: windows.signed_window_digits(k2, cA, glv.MAX_BITS))
     buckets_a, bucket_ms = staged(
-        lambda: pl_bucket.bucket_accumulate(curve, (X2, Y2), digits_a, lanes=T, c=cA)
+        lambda: pl_bucket.bucket_accumulate(curve, (X2, Y2), digits_a, lanes=TA, c=cA)
     )
     _, finish_ms = staged(lambda: pl_reduce.finish(curve, buckets_a, cA))
     emit({
         "path_A": {
             "curve": curve.name, "n": n, "glv": True, "points_after_split": n2,
-            "scalar_bits": glv.MAX_BITS, "c": cA, "W": WA, "B": BA, "lanes": T, **path_a,
+            "scalar_bits": glv.MAX_BITS, "c": cA, "W": WA, "B": BA, "lanes": TA, **path_a,
             "stage_ms": {
                 "glv_split": glv_ms, "glv_split.decompose": decompose_ms,
                 "glv_split.endomorphism(K5)": endo_ms, "digits": digits_ms,
@@ -634,7 +783,8 @@ def main() -> None:
 
     kernels = []
 
-    # K1 sweep: wrapper pl_bucket._sweep on packed words
+    # K1 sweep: wrapper pl_bucket._sweep on packed words, at the lane count
+    # ctx.msm runs
     words = _launch.pack_point((X, Y))
     pl_bucket._sweep(curve, words[0], words[1], digits, T, B)  # warm-up
     state, k1_ms = sync_ms(lambda: pl_bucket._sweep(curve, words[0], words[1], digits, T, B), 2)
@@ -662,6 +812,9 @@ def main() -> None:
         "plain_ms": k1_plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": f"digits ({W},{n}) X,Y ({2 * NW},{n}) -> state ({W},{T},{B},3x{NW}w)",
         "compared": "after lane reduction, as affine points, against the plain sweep + tree",
+        "x_bound": k1_ms / b_ms, "mixed_adds": nonzero, "ns_per_add": k1_ms * 1e6 / nonzero,
+        **sweep_res[("bucket_sweep", NW)],
+        "kernel_lanes": T, "threads": W * T,
     })
 
     # K4 lane reduce: the sweep's own state, on K4's contract layout for plain
@@ -793,9 +946,14 @@ def main() -> None:
     kernels[-2]["ms_one_constant_operand"] = k5_const_ms
 
     # K7 sorted sweep at path B's shape, all 15 windows, on the stream path B's
-    # own stages made above
+    # own stages made above: the public wrapper (CUDA events; packing and the
+    # point-contiguous copy included), and the launch on words beside it
     pl_sorted.sweep(curve, (X2, Y2), perm, meta, slot, KB, TB)
     pieces, k7_ms = sync_ms(lambda: pl_sorted.sweep(curve, (X2, Y2), perm, meta, slot, KB, TB), 2)
+    pts_b = _launch.point_words((X2, Y2))
+    stream_b = (perm.contiguous(), meta.contiguous(), slot.contiguous())
+    _, k7_launch_ms = sync_ms(lambda: pl_sorted._sweep_words(curve, pts_b, *stream_b, KB, TB), 3)
+    del pts_b
     pieces_plain, k7_plain_ms = staged(
         lambda: pl_sorted.sweep_plain(curve, (X2, Y2), perm, meta, slot, KB, TB)
     )
@@ -810,9 +968,11 @@ def main() -> None:
         "replaces": "zprize_wasm_msm_tpu/ops/msm/pl_sorted.py:127",
         "launches": path_b["launches"]["sorted_sweep"], "max_abs_err": k7_err, "ms": k7_ms,
         "plain_ms": k7_plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "mixed_adds": k7_adds, "no_library_because": ops_library,
+        "launch_ms": k7_launch_ms, "x_bound": k7_ms / b_ms, "mixed_adds": k7_adds,
+        "ns_per_add": k7_ms * 1e6 / k7_adds, "threads": WB * TB * 32,
+        **sweep_res[("sorted_sweep", NW)], "no_library_because": ops_library,
         "shape": f"X,Y ({L},{n2}), perm/meta/slot ({WB},{n2}), T={TB} -> ({L},{WB},{KB})x3; "
-                 "ms is the wrapper, packing and the point-contiguous copy included",
+                 "ms is the wrapper, launch_ms the launch on point-contiguous words",
         "compared": f"all {WB} windows, every entry as an affine point, against sweep_plain on the same stream",
     })
     del pieces_plain
@@ -850,14 +1010,34 @@ def main() -> None:
     _, k3b_ms = sync_ms(lambda: pl_reduce.finish(curve, fold_b, cB), 3)
     digits_a = windows.signed_window_digits(k2, cA, glv.MAX_BITS)
     words2 = _launch.pack_point((X2, Y2))
-    pl_bucket._sweep(curve, words2[0], words2[1], digits_a, T, BA)
-    state_a, k1a_ms = sync_ms(lambda: pl_bucket._sweep(curve, words2[0], words2[1], digits_a, T, BA), 2)
+    pl_bucket._sweep(curve, words2[0], words2[1], digits_a, TA, BA)
+    state_a, k1a_ms = sync_ms(lambda: pl_bucket._sweep(curve, words2[0], words2[1], digits_a, TA, BA), 2)
+    nonzero_a = int(((digits_a != 0) & ~infinity2[None]).sum().item())
+    k1a_bound, k1a_by = bound(WA * n2 * 4 + 2 * NW * 4 * n2 + WA * TA * BA * 3 * NW * 4, nonzero_a * ADD_MIXED)
     buckets_a, k4a_ms = sync_ms(lambda: pl_reduce._lane_reduce_state(curve, state_a), 2)
     _, k3a_ms = sync_ms(lambda: pl_reduce.finish(curve, buckets_a, cA), 3)
+    del state_a
+    # the same sweep and lane reduction at KERNEL_LANES lanes, the count
+    # path A ran before the engine raised it to one wave: K1 and K4 like
+    # for like with earlier runs
+    T0 = pippenger.KERNEL_LANES
+    state_a0, k1a0_ms = sync_ms(lambda: pl_bucket._sweep(curve, words2[0], words2[1], digits_a, T0, BA), 2)
+    buckets_a0, k4a0_ms = sync_ms(lambda: pl_reduce._lane_reduce_state(curve, state_a0), 2)
+    k1a0_err = affine_err(curve, buckets_a0, buckets_a)
+    check(k1a0_err == 0, f"path A's buckets at {T0} and {TA} lanes differ (max |err| {k1a0_err})")
+    del words2, state_a0, buckets_a0
     other_shapes = {
-        "bucket_sweep": {"path_A": {"shape": f"digits ({WA},{n2}), B={BA}, T={T}", "ms": k1a_ms,
-                                    "digit_slots": WA * n2}},
-        "lane_reduce": {"path_A": {"shape": f"state ({WA},{T},{BA})", "ms": k4a_ms}},
+        "bucket_sweep": {"path_A": {"shape": f"digits ({WA},{n2}), B={BA}, T={TA}", "ms": k1a_ms,
+                                    "digit_slots": WA * n2, "mixed_adds": nonzero_a,
+                                    "bound_ms": k1a_bound, "bound_by": k1a_by,
+                                    "x_bound": k1a_ms / k1a_bound, "ns_per_add": k1a_ms * 1e6 / nonzero_a,
+                                    "kernel_lanes": TA, "threads": WA * TA},
+                         f"path_A_T{T0}": {"ms": k1a0_ms, "threads": WA * T0,
+                                           "ns_per_add": k1a0_ms * 1e6 / nonzero_a,
+                                           "k1_plus_k4_ms": k1a0_ms + k4a0_ms, "max_abs_err": k1a0_err}},
+        "lane_reduce": {"path_A": {"shape": f"state ({WA},{TA},{BA})", "ms": k4a_ms,
+                                   "k1_plus_k4_ms": k1a_ms + k4a_ms},
+                        f"path_A_T{T0}": {"shape": f"state ({WA},{T0},{BA})", "ms": k4a0_ms}},
         "collapse": {"path_B": {"shape": f"({L},{WB},{BB})x3", "ms": k2b_ms, "plain_ms": k2b_plain_ms,
                                 "max_abs_err": k2b_err}},
         "finish": {"path_A": {"shape": f"({L},{WA},{BA})x3, c={cA}", "ms": k3a_ms},

@@ -251,3 +251,17 @@ def test_wrapper_contracts_are_checked():
         pl_reduce.finish_large(TOY, tuple(b[:, :, :4] for b in buckets), c)
     with pytest.raises(ValueError):  # wrong dtype
         pl_reduce.collapse(TOY, tuple(b.to(torch.int32) for b in buckets))
+
+
+def test_kernel_lanes_fill_one_wave(monkeypatch):
+    """The kernel engine's sweep runs the largest power-of-two multiple of
+    KERNEL_LANES that is still one wave of resident threads and leaves every
+    lane a point; lanes the caller names are run as given (the card's
+    resident count stands in for the runtime's)."""
+    monkeypatch.setattr(pl_bucket, "_resident_threads", lambda nw, index: 50688)
+    bls = ZT.models.curves.bls12_381
+    assert pippenger._kernel_lanes(bls, 38, 1 << 20, None, "cpu") == 1024  # full path
+    assert pippenger._kernel_lanes(bls, 23, 1 << 21, None, "cpu") == 2048  # path A
+    assert pippenger._kernel_lanes(bls, 4, 100, None, "cpu") == 64  # at least one point per lane
+    assert pippenger._kernel_lanes(bls, 100, 1 << 20, None, "cpu") == 1024  # never fewer
+    assert pippenger._kernel_lanes(bls, 23, 1 << 21, 16, "cpu") == 16  # named lanes as given

@@ -322,3 +322,129 @@ def test_sorted_kernels_refuse_cpu_tensors_and_bad_streams(stream):
         pl_sorted.segscan(TOY, pieces, seg[:, :-1], T)
     with pytest.raises(ValueError):
         pippenger.msm(TOY, tXY, sc, c=C, max_bits=16, impl="sorted")
+
+
+# ---------------------------------------------------------------------------
+# CPU rehearsal of the sweep kernel's split schedule (csrc/sorted.cu)
+# ---------------------------------------------------------------------------
+
+
+def split_walk(curve, points, perm, meta, slot, K, chunks, S):
+    """The CUDA sweep's schedule on the port's plain group ops, for tests:
+    each chunk split across S lanes, lane k walking ceil(steps / S)
+    consecutive positions; a run inside a lane is flushed by it, a lane
+    parks its head piece (up to its first boundary) and carries the rest;
+    a segmented Hillis-Steele scan of the carries over the S lanes (segments
+    start at lanes holding a boundary) gives each lane the incoming part of
+    its head's run, and that lane makes the run's one flush.  Every lane
+    step is one batched add over all (window, chunk, lane) triples."""
+    F = curve.field
+    X, Y = points
+    W, N = perm.shape
+    steps = N // chunks
+    sub = -(-steps // S)
+    lanes = W * chunks * S
+    lane = torch.arange(S).repeat(W * chunks)
+    lo = torch.clamp(lane * sub, max=steps)
+    n = torch.clamp(lo + sub, max=steps) - lo
+    first = torch.arange(W * chunks).repeat_interleave(S) * steps + lo  # flat stream index
+    row = torch.arange(W).repeat_interleave(chunks * S) * (K + 1)
+    out = torch.stack(group.zero(curve, (W * (K + 1),)))
+    identity = group.zero(curve, (lanes,))
+    acc, head = identity, identity
+    has_b = torch.zeros(lanes, dtype=torch.bool)
+    first_slot = torch.full((lanes,), -1, dtype=torch.int64)
+    flat = lambda t: t.reshape(-1)
+    for j in range(sub):
+        live = j < n
+        p = torch.where(live, first + j, 0)
+        m = torch.where(live, flat(meta)[p], pl_sorted.META_ZERO)
+        sl = flat(slot)[p].to(torch.int64)
+        idx = flat(perm)[p].to(torch.int64)
+        zero, neg = (m & pl_sorted.META_ZERO) != 0, (m & pl_sorted.META_NEG) != 0
+        bnd = live & ((m & pl_sorted.META_BOUNDARY) != 0)
+        px, py = X[:, idx], Y[:, idx]
+        py = F.select(neg, F.neg(py), py)
+        px = F.select(zero, torch.zeros_like(px), px)
+        py = F.select(zero, torch.zeros_like(py), py)
+        acc = group.add_mixed(curve, acc, (px, py))
+        is_head = bnd & ~has_b
+        head = group.select(is_head, acc, head)
+        first_slot = torch.where(is_head, sl, first_slot)
+        inner = bnd & has_b & (sl >= 0)
+        out[:, :, row + torch.where(inner, sl, K)] = torch.stack(acc)
+        has_b = has_b | bnd
+        acc = group.select(bnd, identity, acc)
+    # segmented inclusive scan of the carries over each chunk's S lanes
+    v, f = acc, has_b.clone()
+    d = 1
+    while d < S:
+        src = torch.arange(lanes) - d
+        ok = lane >= d
+        o = tuple(a[:, src.clamp(min=0)] for a in v)
+        fo = f[src.clamp(min=0)]
+        take = ok & ~f
+        v = group.select(take, group.add(curve, o, v), v)
+        f = torch.where(ok, f | fo, f)
+        d *= 2
+    prev = torch.arange(lanes) - 1
+    incoming = group.select(lane == 0, identity, tuple(a[:, prev.clamp(min=0)] for a in v))
+    total = group.add(curve, incoming, head)
+    flush = has_b & (first_slot >= 0)
+    out[:, :, row + torch.where(flush, first_slot, K)] = torch.stack(total)
+    out = out.reshape(3, -1, W, K + 1)[..., :K]
+    return (out[0], out[1], out[2])
+
+
+def adversarial_stream(chunks, steps, S, seed):
+    """Streams aimed at the split schedule, built directly (not sorted):
+    one run crossing every sub-chunk border, runs ending on a sub-chunk's
+    last position, on the next sub-chunk's first position, one before a
+    sub-chunk's last, a sub-chunk of zero digits between two halves of one
+    run, singletons, and a sorted random window."""
+    rng = np.random.default_rng(seed)
+    N = chunks * steps
+    sub = -(-steps // S)
+    pos = np.arange(N) % steps
+    keys = np.stack([
+        np.full(N, 7), pos // sub, (pos + sub - 1) // sub, (pos + 1) // sub, np.full(N, 3), pos,
+        np.sort(rng.integers(0, 40, size=N)),
+    ]).astype(np.int32)
+    W = keys.shape[0]
+    nxt = np.concatenate([keys[:, 1:], np.full((W, 1), -1)], axis=1)
+    boundary = (keys != nxt) | (pos == steps - 1)[None]
+    zero = np.zeros((W, N), dtype=bool)
+    zero[4] = (pos >= sub) & (pos < 2 * sub) & (pos != steps - 1)
+    zero[6] = rng.random(N) < 0.2
+    neg = rng.random((W, N)) < 0.5
+    meta = (boundary * pl_sorted.META_BOUNDARY + zero * pl_sorted.META_ZERO + neg * pl_sorted.META_NEG).astype(np.int32)
+    perm = rng.integers(0, 96, size=(W, N)).astype(np.int32)
+    perm[:, 1::7] = perm[:, 0:-1:7]  # one point twice in a row: the doubling case
+    c = max(10, N.bit_length() + 1)  # K = B + chunks holds every flush, singletons included
+    skey, meta = torch.as_tensor(keys), torch.as_tensor(meta)
+    slot, seg = pl_sorted.compact_index(skey, meta, c, chunks)
+    return torch.as_tensor(perm), meta, slot, seg.shape[1]
+
+
+@pytest.mark.parametrize("chunks,steps,S", [(16, 37, 4), (16, 37, 32), (64, 5, 4), (64, 5, 32), (16, 71, 32), (64, 64, 32)])
+def test_split_walk_matches_sweep_plain_on_adversarial_streams(chunks, steps, S):
+    _, XY = _points(96, seed=chunks + steps)
+    tXY = to_torch(XY)
+    perm, meta, slot, K = adversarial_stream(chunks, steps, S, seed=S + steps)
+    got = split_walk(TOY, tXY, perm, meta, slot, K, chunks, S)
+    want = pl_sorted.sweep_plain(TOY, tXY, perm, meta, slot, K, chunks)
+    for w in range(perm.shape[0]):
+        assert port_affine(tuple(a[:, w] for a in got)) == port_affine(tuple(a[:, w] for a in want)), w
+
+
+@pytest.mark.parametrize("S", [4, 32])
+def test_split_walk_matches_reference_kernel(stream, S):
+    """The split schedule on the stream the JAX package's sweep kernel ran
+    (interpret mode, window 0): every flushed entry equals its slot there."""
+    tXY = to_torch(stream["XY"])
+    perm, meta, slot, K = (stream[k] for k in ("perm", "meta", "slot", "K"))
+    got = split_walk(TOY, tXY, perm, meta, slot, K, T, S)
+    flush = slot[0].numpy() >= 0
+    want = ref_affine(tuple(o[:, flush] for o in stream["ref_slots"]))
+    assert port_affine(tuple(a[:, 0, : flush.sum()] for a in got)) == want
+    assert port_affine(got) == port_affine(stream["pieces"])

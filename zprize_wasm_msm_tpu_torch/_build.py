@@ -35,6 +35,9 @@ NVCC_FLAGS = (
 SUPPORTED_WORDS = (2, 8, 12)
 #: words per constant array in csrc/field.cuh's FieldConsts
 MAX_WORDS = 12
+#: the no-carry Montgomery product of csrc/field.cuh needs q[NW-1] below this
+#: (zp_set_consts refuses the launch otherwise, error -4)
+TOP_WORD_LIMIT = 0x7FFFFFFF
 
 
 class KernelCompileError(RuntimeError):
@@ -72,10 +75,17 @@ def library_path(stem: str) -> Path:
     return BUILD_DIR / f"libzp_{stem}-{_source_hash()}.so"
 
 
+def log_path(stem: str) -> Path:
+    """nvcc's output (ptxas's registers and spills per kernel) for the
+    library at library_path(stem), written beside it by the build."""
+    return BUILD_DIR / f"nvcc_{stem}-{_source_hash()}.log"
+
+
 def build(stems: Iterable[str] = STEMS) -> Dict[str, str]:
     """Compile the named sources that are not built yet, all nvcc processes
-    started together.  Returns {stem: compiler output} for those it built.
-    Raises KernelCompileError with nvcc's output if any fails."""
+    started together, each compiler output kept at log_path(stem).  Returns
+    {stem: compiler output} for those it built.  Raises KernelCompileError
+    with nvcc's output if any fails."""
     todo = [s for s in stems if not library_path(s).exists()]
     if not todo:
         return {}
@@ -97,6 +107,7 @@ def build(stems: Iterable[str] = STEMS) -> Dict[str, str]:
             failed.append(stem)
             tmp.unlink(missing_ok=True)
         else:
+            log_path(stem).write_text(out)
             os.replace(tmp, library_path(stem))
     if failed:
         raise KernelCompileError(
@@ -124,6 +135,11 @@ def field_consts(spec) -> np.ndarray:
             f"{spec!r}: the CUDA kernels cover fields of {SUPPORTED_WORDS} "
             "words per element"
         )
+    if int(spec.q_words[nw - 1]) >= TOP_WORD_LIMIT:
+        raise NotImplementedError(
+            f"{spec!r}: the CUDA field core's no-carry product needs the top "
+            f"bit of q free (top word below {TOP_WORD_LIMIT:#x})"
+        )
     block = np.zeros(3 * MAX_WORDS + 1, dtype=np.uint32)
     block[:nw] = spec.q_words
     block[MAX_WORDS : MAX_WORDS + nw] = spec.one_mont_words
@@ -147,6 +163,19 @@ def curve_consts(curve) -> np.ndarray:
     return block
 
 
+def kernel_info(stem: str, entry: str, nw: int) -> Dict[str, int]:
+    """What the CUDA runtime says of one kernel of ``csrc/<stem>.cu`` at
+    field width nw: registers per thread, local (stack and spill) bytes per
+    thread, static shared bytes per block and resident blocks per SM
+    (``<entry>(nw, int out[4])``, csrc/async.cuh zp_kernel_info)."""
+    fn = getattr(load(stem), entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    out = (ctypes.c_int * 4)()
+    check_launch(fn(nw, ctypes.cast(out, ctypes.c_void_p)), entry)
+    return dict(zip(("registers", "local_bytes", "shared_bytes", "blocks_per_sm"), out))
+
+
 def check_launch(err: int, name: str) -> None:
     """Raise if an entry point reported a refused launch (the kernel then
     never ran, and a later synchronize would not say so)."""
@@ -155,5 +184,6 @@ def check_launch(err: int, name: str) -> None:
             -1: "field width not instantiated",
             -2: "bucket count not a power of two",
             -3: "exponent length outside 1..32*MAX_WORDS bits",
+            -4: "modulus top bit not free",
         }.get(err, f"CUDA error {err}")
         raise KernelLaunchError(f"{name}: launch refused ({reason})")

@@ -5,13 +5,26 @@
 // kis_zero / kselect, and ops/field/ktower.py KFq).  That core works on
 // 16-bit limbs in 32-bit lanes with lazy carries because the TPU's vector
 // unit has no 64-bit integers and no carry flag.  A CUDA thread has 32x32->64
-// multiplies, so an element here is NW = n_limbs/2 little-endian 32-bit
-// words: the same integer, the same Montgomery radix R = 2^(32 NW), hence
-// the same canonical value bit for bit once re-packed to 16-bit limbs.
+// multiplies and a carry flag, so an element here is NW = n_limbs/2
+// little-endian 32-bit words: the same integer, the same Montgomery radix
+// R = 2^(32 NW), hence the same canonical value bit for bit once re-packed
+// to 16-bit limbs.
 //
 // One element lives in one thread's registers (Fe<NW>::w, every loop fully
 // unrolled so indices are static).  Every function takes canonical inputs
 // (< q) and returns a canonical output.
+//
+// What bounds it on the H100: integer issue where many threads run, the
+// latency of one dependent chain where few do.  A product is ~2 NW^2
+// 32x32->64 multiplies plus their carry adds.  Every carry of a sum or a
+// difference is a PTX carry chain (chains.cuh: add.cc / addc, sub.cc /
+// subc), one asm statement per chain because the carry flag does not
+// survive from one asm statement to the next.  The product comes in two
+// forms, carry chains (mad.lo.cc / madc.hi.cc) and 64-bit C rows, each where
+// it was measured faster (see fe_mul).  Both are the no-carry CIOS, which
+// needs the top bit of q free: zp_set_consts refuses a modulus whose top
+// word is 2^31 - 1 or more.  The toy field (14 bits of 64), BN254 (254 of
+// 256) and BLS12-381 (381 of 384) all qualify.
 //
 // Field constants (q, R mod q, 3b in Montgomery form, -q^{-1} mod 2^32) sit
 // in __constant__ memory, written by the host entry point on the launch's
@@ -20,7 +33,10 @@
 // overlap on two streams.
 #pragma once
 
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "chains.cuh"
 
 #define ZP_MAX_NW 12
 
@@ -33,6 +49,16 @@ struct FieldConsts {
 
 // One copy per translation unit; each .cu file is built into its own library.
 static __constant__ FieldConsts c_fc;
+
+// Host side of every entry point: refuse a modulus whose top bit is not
+// free (the no-carry product needs q[NW-1] < 2^31 - 1; returns -4), then
+// copy the constants on the launch's stream.
+static int zp_set_consts(int nw, const uint32_t* host_consts, cudaStream_t stream) {
+  if (nw < 1 || nw > ZP_MAX_NW) return -1;
+  if (host_consts[nw - 1] >= 0x7FFFFFFFu) return -4;
+  return (int)cudaMemcpyToSymbolAsync(c_fc, host_consts, sizeof(FieldConsts), 0,
+                                      cudaMemcpyHostToDevice, stream);
+}
 
 template <int NW>
 struct Fe {
@@ -72,102 +98,102 @@ __device__ __forceinline__ void fe_select(Fe<NW>& r, bool take_a, const Fe<NW>& 
   for (int i = 0; i < NW; ++i) r.w[i] = take_a ? a.w[i] : b.w[i];
 }
 
-// r = s - q if (carry_in or s >= q) else s, for a value s + carry_in * R < 2q.
 template <int NW>
-__device__ __forceinline__ void fe_cond_sub_q(Fe<NW>& r, const uint32_t* s,
-                                              uint32_t carry_in) {
-  uint32_t d[NW];
-  uint64_t borrow = 0;
+__device__ __forceinline__ void fe_q(uint32_t (&q)[NW]) {
 #pragma unroll
-  for (int i = 0; i < NW; ++i) {
-    uint64_t t = (uint64_t)s[i] - c_fc.q[i] - borrow;
-    d[i] = (uint32_t)t;
-    borrow = t >> 63;  // the 64-bit difference wrapped: borrow out
-  }
-  bool ge = (carry_in != 0u) || (borrow == 0);
-#pragma unroll
-  for (int i = 0; i < NW; ++i) r.w[i] = ge ? d[i] : s[i];
+  for (int i = 0; i < NW; ++i) q[i] = c_fc.q[i];
 }
 
-// (a + b) mod q
+// r = s - q if s >= q else s, for s < 2q.
+template <int NW>
+__device__ __forceinline__ void fe_reduce_once(Fe<NW>& r, const uint32_t (&s)[NW]) {
+  uint32_t q[NW], d[NW];
+  fe_q<NW>(q);
+#pragma unroll
+  for (int i = 0; i < NW; ++i) d[i] = s[i];
+  const uint32_t borrow = Chains<NW>::sub(d, q);
+#pragma unroll
+  for (int i = 0; i < NW; ++i) r.w[i] = borrow ? s[i] : d[i];
+}
+
+// (a + b) mod q.  a + b < 2q < R: the sum has no carry out.
 template <int NW>
 __device__ __forceinline__ void fe_add(Fe<NW>& r, const Fe<NW>& a, const Fe<NW>& b) {
   uint32_t s[NW];
-  uint64_t c = 0;
 #pragma unroll
-  for (int i = 0; i < NW; ++i) {
-    c += (uint64_t)a.w[i] + b.w[i];
-    s[i] = (uint32_t)c;
-    c >>= 32;
-  }
-  fe_cond_sub_q<NW>(r, s, (uint32_t)c);
+  for (int i = 0; i < NW; ++i) s[i] = a.w[i];
+  Chains<NW>::add(s, b.w);
+  fe_reduce_once<NW>(r, s);
 }
 
-// (a - b) mod q
+// (a - b) mod q: on a borrow, q is added back (its carry out cancels the borrow).
 template <int NW>
 __device__ __forceinline__ void fe_sub(Fe<NW>& r, const Fe<NW>& a, const Fe<NW>& b) {
-  uint32_t d[NW];
-  uint64_t borrow = 0;
+  uint32_t d[NW], qm[NW];
 #pragma unroll
-  for (int i = 0; i < NW; ++i) {
-    uint64_t t = (uint64_t)a.w[i] - b.w[i] - borrow;
-    d[i] = (uint32_t)t;
-    borrow = t >> 63;
-  }
-  // underflow: add q back (the carry out of that sum cancels the borrow)
-  uint32_t mask = borrow ? 0xFFFFFFFFu : 0u;
-  uint64_t c = 0;
+  for (int i = 0; i < NW; ++i) d[i] = a.w[i];
+  const uint32_t borrow = Chains<NW>::sub(d, b.w);
 #pragma unroll
-  for (int i = 0; i < NW; ++i) {
-    c += (uint64_t)d[i] + (c_fc.q[i] & mask);
-    r.w[i] = (uint32_t)c;
-    c >>= 32;
-  }
+  for (int i = 0; i < NW; ++i) qm[i] = c_fc.q[i] & borrow;
+  Chains<NW>::add(d, qm);
+#pragma unroll
+  for (int i = 0; i < NW; ++i) r.w[i] = d[i];
 }
 
 // (-a) mod q, with -0 = 0
 template <int NW>
 __device__ __forceinline__ void fe_neg(Fe<NW>& r, const Fe<NW>& a) {
-  uint32_t keep = fe_is_zero<NW>(a) ? 0u : 0xFFFFFFFFu;
-  uint64_t borrow = 0;
+  const uint32_t keep = fe_is_zero<NW>(a) ? 0u : 0xFFFFFFFFu;
+  uint32_t d[NW];
+  fe_q<NW>(d);
+  Chains<NW>::sub(d, a.w);  // a < q: no borrow
 #pragma unroll
-  for (int i = 0; i < NW; ++i) {
-    uint64_t t = (uint64_t)c_fc.q[i] - a.w[i] - borrow;
-    r.w[i] = (uint32_t)t & keep;
-    borrow = t >> 63;
-  }
+  for (int i = 0; i < NW; ++i) r.w[i] = d[i] & keep;
 }
 
-// Montgomery product a * b * R^{-1} mod q: coarsely integrated operand
-// scanning (CIOS) over 32-bit words with a (NW+2)-word accumulator.  The
-// two extra words make it hold for ANY modulus q < R (a, b < q gives an
-// accumulator < 2q before the final conditional subtract), so the toy
-// field (14 bits of 64), BN254 (254 of 256) and BLS12-381 (381 of 384)
-// need no separate carry argument.  64-bit C arithmetic compiles to
-// IMAD.WIDE.U32 plus carry adds; each step's sum
-// a*b + t + carry <= (2^32-1)^2 + 2(2^32-1) = 2^64 - 1 cannot overflow.
+// Montgomery product a * b * R^{-1} mod q: CIOS with the "no-carry"
+// accumulator of NW + 1 words, in two forms with one result.  Row i adds
+// a * b_i, then m * q with m = t_0 * np, which clears t_0, and shifts one
+// word down.  With a < q and the accumulator t < 2q before a row,
+// t + a b_i + m q < 2^33 q <= 2^32 R because the top bit of q is free
+// (q < R/2, checked on the host): no (NW+2)-th word and no carry word out of
+// a row, and t < 2q again after the shift.  One conditional subtract makes
+// the result canonical.
+//
+// fe_mul writes the rows in 64-bit C: ptxas makes each step
+// a_j * b_i + t_j + c one IMAD.WIDE.U32 and a carry add, and the NW
+// IMAD.WIDEs of a row do not wait on one another: the shortest dependent
+// path, at the price of 64-bit register pairs.  fe_mul_cc writes them as
+// PTX carry chains (Chains::mac, Chains::reduce: mad.lo.cc / madc.hi.cc,
+// four chains a row): ptxas makes each step IMAD + IADD3.X waiting on the
+// step before, a longer path in fewer registers (32 against 44 in a loop
+// of products).  Measured on the H100 (csrc/diag/mul_variants.cu, numbers
+// in PERF.md): one product alone, fe_mul is 29 % faster; under load the two
+// are within 4 %; inside the sweeps fe_mul's register pairs cost resident
+// warps, and the sweeps' threads are few (see bucket.cu).  So the
+// sweeps' inlined mixed add (group.cuh pt_add_mixed) and K7's combine take
+// fe_mul_cc, and everything else (the out-of-line group ops of K2-K4 and
+// K8, whose chains run nearly alone, and the elementwise kernels) takes
+// fe_mul.
 // r may alias a or b.
 template <int NW>
 __device__ __forceinline__ void fe_mul(Fe<NW>& r, const Fe<NW>& a, const Fe<NW>& b) {
-  uint32_t t[NW + 2];
+  uint32_t t[NW + 1];
 #pragma unroll
-  for (int i = 0; i < NW + 2; ++i) t[i] = 0u;
+  for (int i = 0; i < NW + 1; ++i) t[i] = 0u;
 #pragma unroll
   for (int i = 0; i < NW; ++i) {
     uint64_t c = 0;
     const uint32_t bi = b.w[i];
 #pragma unroll
     for (int j = 0; j < NW; ++j) {
-      uint64_t s = (uint64_t)a.w[j] * bi + t[j] + c;
+      const uint64_t s = (uint64_t)a.w[j] * bi + t[j] + c;  // <= 2^64 - 1
       t[j] = (uint32_t)s;
       c = s >> 32;
     }
-    uint64_t s = (uint64_t)t[NW] + c;
-    t[NW] = (uint32_t)s;
-    t[NW + 1] = (uint32_t)(s >> 32);
-
+    t[NW] = (uint32_t)c;
     const uint32_t m = t[0] * c_fc.np;
-    s = (uint64_t)m * c_fc.q[0] + t[0];  // low word becomes 0
+    uint64_t s = (uint64_t)m * c_fc.q[0] + t[0];  // low word becomes 0
     c = s >> 32;
 #pragma unroll
     for (int j = 1; j < NW; ++j) {
@@ -175,9 +201,32 @@ __device__ __forceinline__ void fe_mul(Fe<NW>& r, const Fe<NW>& a, const Fe<NW>&
       t[j - 1] = (uint32_t)s;
       c = s >> 32;
     }
-    s = (uint64_t)t[NW] + c;
-    t[NW - 1] = (uint32_t)s;
-    t[NW] = t[NW + 1] + (uint32_t)(s >> 32);
+    t[NW - 1] = t[NW] + (uint32_t)c;  // no carry out: the sum is < 2^32 R
   }
-  fe_cond_sub_q<NW>(r, t, t[NW]);
+  uint32_t s[NW];
+#pragma unroll
+  for (int i = 0; i < NW; ++i) s[i] = t[i];
+  fe_reduce_once<NW>(r, s);
+}
+
+// The same product as fe_mul, its rows as PTX carry chains.
+template <int NW>
+__device__ __forceinline__ void fe_mul_cc(Fe<NW>& r, const Fe<NW>& a, const Fe<NW>& b) {
+  uint32_t q[NW], t[NW + 1];
+  fe_q<NW>(q);
+  const uint32_t np = c_fc.np;
+#pragma unroll
+  for (int i = 0; i < NW + 1; ++i) t[i] = 0u;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    Chains<NW>::mac(t, a.w, b.w[i]);
+    Chains<NW>::reduce(t, q, np);
+#pragma unroll
+    for (int j = 0; j < NW; ++j) t[j] = t[j + 1];
+    t[NW] = 0u;
+  }
+  uint32_t s[NW];
+#pragma unroll
+  for (int i = 0; i < NW; ++i) s[i] = t[i];
+  fe_reduce_once<NW>(r, s);
 }

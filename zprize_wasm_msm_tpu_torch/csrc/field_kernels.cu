@@ -90,17 +90,12 @@ __global__ void __launch_bounds__(MUL_THREADS)
   fe_store_soa<NW>(r, n, i, x);
 }
 
-static int set_consts(const uint32_t* host_consts, cudaStream_t stream) {
-  return (int)cudaMemcpyToSymbolAsync(c_fc, host_consts, sizeof(FieldConsts), 0,
-                                      cudaMemcpyHostToDevice, stream);
-}
-
 extern "C" int zp_mont_mul(int nw, const uint32_t* host_consts, const uint32_t* a,
                            const uint32_t* b, uint32_t* r, long long n, int b_broadcast,
                            void* stream_ptr) {
   if (n <= 0) return 0;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  int err = set_consts(host_consts, stream);
+  int err = zp_set_consts(nw, host_consts, stream);
   if (err) return err;
   const unsigned blocks = (unsigned)((n + MUL_THREADS - 1) / MUL_THREADS);
 #define CALL(NW_) \
@@ -114,7 +109,7 @@ extern "C" int zp_mont_square(int nw, const uint32_t* host_consts, const uint32_
                               uint32_t* r, long long n, void* stream_ptr) {
   if (n <= 0) return 0;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  int err = set_consts(host_consts, stream);
+  int err = zp_set_consts(nw, host_consts, stream);
   if (err) return err;
   const unsigned blocks = (unsigned)((n + MUL_THREADS - 1) / MUL_THREADS);
 #define CALL(NW_) mont_square_kernel<NW_><<<blocks, MUL_THREADS, 0, stream>>>(a, r, (size_t)n)
@@ -128,7 +123,7 @@ extern "C" int zp_field_pow(int nw, const uint32_t* host_consts, const uint32_t*
                             int bits, const uint32_t* a, uint32_t* r, int n, void* stream_ptr) {
   if (bits < 1 || bits > 32 * ZP_MAX_NW) return -3;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  int err = set_consts(host_consts, stream);
+  int err = zp_set_consts(nw, host_consts, stream);
   if (err) return err;
   Exponent e;
   for (int k = 0; k < ZP_MAX_NW; ++k) e.w[k] = exp_words[k];

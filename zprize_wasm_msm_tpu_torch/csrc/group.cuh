@@ -9,11 +9,15 @@
 // canonical field values: outputs equal the plain PyTorch group ops
 // (ops/curve/group.py) bit for bit.
 //
-// The three group ops are __noinline__: one body each per field width in a
-// library, called from every kernel phase, which keeps nvcc's work (twelve
-// fully unrolled Montgomery products per body) bounded.  Points cross the
-// call through pointers, i.e. through the thread's local memory: 36 words
-// each way against ~4000 multiply-adds inside.  r may alias p or q.
+// pt_add_mixed, the per-step operation of both sweeps (bucket.cu K1,
+// sorted.cu K7), is inlined and takes its operands by reference: the
+// point, the accumulator and every temporary stay in registers, and nvcc
+// schedules its 11 products (fe_mul_cc, the carry-chain form that leaves
+// the sweeps the most resident warps) into the sweep's loop.  pt_add and
+// pt_double run a few thousand times per MSM (K2-K4, K8, the combine of
+// K7's sub-chunks) and stay __noinline__: one body each per field width
+// and library keeps nvcc's time in check (twelve fully unrolled products
+// per body); their operands cross the call through the thread's stack.
 #pragma once
 
 #include "field.cuh"
@@ -23,6 +27,12 @@ struct __align__(16) Pt {
   Fe<NW> x, y, z;
 };
 
+// An affine point as the sweeps read it: x words, then y words.
+template <int NW>
+struct __align__(16) AffinePt {
+  Fe<NW> x, y;
+};
+
 template <int NW>
 __device__ __forceinline__ void pt_identity(Pt<NW>& r) {
   fe_zero<NW>(r.x);
@@ -30,10 +40,18 @@ __device__ __forceinline__ void pt_identity(Pt<NW>& r) {
   fe_zero<NW>(r.z);
 }
 
+// The product of the group ops: carry chains in the sweeps (CC), 64-bit
+// rows elsewhere (field.cuh fe_mul says why).
+template <int NW, bool CC>
+__device__ __forceinline__ void mul(Fe<NW>& r, const Fe<NW>& a, const Fe<NW>& b) {
+  if constexpr (CC) fe_mul_cc<NW>(r, a, b);
+  else fe_mul<NW>(r, a, b);
+}
+
 // Shared tail of algorithms 7 and 8: from t0, t1, t3, t4, Yr (= X1Z2 + X2Z1)
 // and t2b (= 3b Z1Z2) to (X3, Y3, Z3).
-template <int NW>
-__device__ __forceinline__ void pt_add_tail(Pt<NW>* r, const Fe<NW>& t0, const Fe<NW>& t1,
+template <int NW, bool CC>
+__device__ __forceinline__ void pt_add_tail(Pt<NW>& r, const Fe<NW>& t0, const Fe<NW>& t1,
                                             const Fe<NW>& t3, const Fe<NW>& t4,
                                             const Fe<NW>& Yr, const Fe<NW>& t2b) {
   Fe<NW> b3, t0_3, Z3l, t1l, Yb, u, v;
@@ -42,74 +60,71 @@ __device__ __forceinline__ void pt_add_tail(Pt<NW>* r, const Fe<NW>& t0, const F
   fe_add<NW>(t0_3, t0_3, t0);
   fe_add<NW>(Z3l, t1, t2b);
   fe_sub<NW>(t1l, t1, t2b);
-  fe_mul<NW>(Yb, b3, Yr);
+  mul<NW, CC>(Yb, b3, Yr);
 
-  fe_mul<NW>(u, t3, t1l);
-  fe_mul<NW>(v, t4, Yb);
-  fe_sub<NW>(r->x, u, v);
-  fe_mul<NW>(u, t1l, Z3l);
-  fe_mul<NW>(v, Yb, t0_3);
-  fe_add<NW>(r->y, u, v);
-  fe_mul<NW>(u, Z3l, t4);
-  fe_mul<NW>(v, t0_3, t3);
-  fe_add<NW>(r->z, u, v);
+  mul<NW, CC>(u, t3, t1l);
+  mul<NW, CC>(v, t4, Yb);
+  fe_sub<NW>(r.x, u, v);
+  mul<NW, CC>(u, t1l, Z3l);
+  mul<NW, CC>(v, Yb, t0_3);
+  fe_add<NW>(r.y, u, v);
+  mul<NW, CC>(u, Z3l, t4);
+  mul<NW, CC>(v, t0_3, t3);
+  fe_add<NW>(r.z, u, v);
 }
 
-// r = p + (x2, y2): projective + affine, RCB16 algorithm 8 (11 products).
+// acc += (X2, Y2): projective + affine, RCB16 algorithm 8 (11 products).
+// Inlined; X2, Y2 may not alias acc.
 template <int NW>
-__device__ __noinline__ void pt_add_mixed(Pt<NW>* r, const Pt<NW>* p, const Fe<NW>* x2p,
-                                          const Fe<NW>* y2p) {
-  const Fe<NW> X1 = p->x, Y1 = p->y, Z1 = p->z, X2 = *x2p, Y2 = *y2p;
-  if (fe_is_zero<NW>(X2) && fe_is_zero<NW>(Y2)) {
-    r->x = X1;
-    r->y = Y1;
-    r->z = Z1;
-    return;
-  }
-  Fe<NW> b3, t0, t1, A, t3, t4, Yr, t2b, u, v;
-  fe_b3<NW>(b3);
-  fe_mul<NW>(t0, X1, X2);
-  fe_mul<NW>(t1, Y1, Y2);
-  fe_add<NW>(u, X1, Y1);
-  fe_add<NW>(v, X2, Y2);
-  fe_mul<NW>(A, u, v);
-  fe_mul<NW>(t4, Y2, Z1);
-  fe_add<NW>(t4, t4, Y1);
-  fe_mul<NW>(Yr, X2, Z1);
-  fe_add<NW>(Yr, Yr, X1);
-  fe_mul<NW>(t2b, b3, Z1);
-  fe_sub<NW>(t3, A, t0);
+__device__ __forceinline__ void pt_add_mixed(Pt<NW>& acc, const Fe<NW>& X2, const Fe<NW>& Y2) {
+  if (fe_is_zero<NW>(X2) && fe_is_zero<NW>(Y2)) return;
+  Fe<NW> b3, t0, t1, t3, t4, Yr, t2b, u;
+  fe_mul_cc<NW>(t0, acc.x, X2);
+  fe_mul_cc<NW>(t1, acc.y, Y2);
+  fe_add<NW>(u, acc.x, acc.y);
+  fe_add<NW>(t3, X2, Y2);
+  fe_mul_cc<NW>(t3, u, t3);
+  fe_sub<NW>(t3, t3, t0);
   fe_sub<NW>(t3, t3, t1);
-  pt_add_tail<NW>(r, t0, t1, t3, t4, Yr, t2b);
+  fe_mul_cc<NW>(t4, Y2, acc.z);
+  fe_add<NW>(t4, t4, acc.y);
+  fe_mul_cc<NW>(Yr, X2, acc.z);
+  fe_add<NW>(Yr, Yr, acc.x);
+  fe_b3<NW>(b3);
+  fe_mul_cc<NW>(t2b, b3, acc.z);
+  pt_add_tail<NW, true>(acc, t0, t1, t3, t4, Yr, t2b);
 }
 
 // r = p + q: complete projective addition, RCB16 algorithm 7 (12 products).
-template <int NW>
+// CC picks the product (see mul); K7 calls the carry-chain form from the
+// sweep: a callee of fewer registers leaves the sweep's live registers in
+// place across the call, where the 64-bit form makes ptxas spill them.
+template <int NW, bool CC = false>
 __device__ __noinline__ void pt_add(Pt<NW>* r, const Pt<NW>* p, const Pt<NW>* q) {
   const Fe<NW> X1 = p->x, Y1 = p->y, Z1 = p->z;
   const Fe<NW> X2 = q->x, Y2 = q->y, Z2 = q->z;
   Fe<NW> b3, t0, t1, t2, A, t3, t4, Yr, t2b, u, v;
   fe_b3<NW>(b3);
-  fe_mul<NW>(t0, X1, X2);
-  fe_mul<NW>(t1, Y1, Y2);
-  fe_mul<NW>(t2, Z1, Z2);
+  mul<NW, CC>(t0, X1, X2);
+  mul<NW, CC>(t1, Y1, Y2);
+  mul<NW, CC>(t2, Z1, Z2);
   fe_add<NW>(u, X1, Y1);
   fe_add<NW>(v, X2, Y2);
-  fe_mul<NW>(A, u, v);
+  mul<NW, CC>(A, u, v);
   fe_sub<NW>(t3, A, t0);
   fe_sub<NW>(t3, t3, t1);
   fe_add<NW>(u, Y1, Z1);
   fe_add<NW>(v, Y2, Z2);
-  fe_mul<NW>(A, u, v);
+  mul<NW, CC>(A, u, v);
   fe_sub<NW>(t4, A, t1);
   fe_sub<NW>(t4, t4, t2);
   fe_add<NW>(u, X1, Z1);
   fe_add<NW>(v, X2, Z2);
-  fe_mul<NW>(A, u, v);
+  mul<NW, CC>(A, u, v);
   fe_sub<NW>(Yr, A, t0);
   fe_sub<NW>(Yr, Yr, t2);
-  fe_mul<NW>(t2b, b3, t2);
-  pt_add_tail<NW>(r, t0, t1, t3, t4, Yr, t2b);
+  mul<NW, CC>(t2b, b3, t2);
+  pt_add_tail<NW, CC>(*r, t0, t1, t3, t4, Yr, t2b);
 }
 
 // r = 2p: complete projective doubling, RCB16 algorithm 9 (8 products).

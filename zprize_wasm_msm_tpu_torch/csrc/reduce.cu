@@ -94,17 +94,12 @@ __global__ void __launch_bounds__(FINISH_THREADS)
   if (tid == 0) pt_store_soa<NW>(out, (size_t)1, (size_t)0, total);
 }
 
-static int set_consts(const uint32_t* host_consts, cudaStream_t stream) {
-  return (int)cudaMemcpyToSymbolAsync(c_fc, host_consts, sizeof(FieldConsts), 0,
-                                      cudaMemcpyHostToDevice, stream);
-}
-
 // B a power of two; bits = bit_length(B).
 extern "C" int zp_collapse(int nw, const uint32_t* host_consts, const uint32_t* S,
                            uint32_t* out, int W, int B, int bits, void* stream_ptr) {
   if (B < 1 || (B & (B - 1))) return -2;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  int err = set_consts(host_consts, stream);
+  int err = zp_set_consts(nw, host_consts, stream);
   if (err) return err;
   const int threads = B < COLLAPSE_MAX_THREADS ? B : COLLAPSE_MAX_THREADS;
 #define CALL(NW_) collapse_kernel<NW_><<<W, threads, 0, stream>>>(S, out, W, B, bits)
@@ -117,7 +112,7 @@ extern "C" int zp_finish(int nw, const uint32_t* host_consts, const uint32_t* S,
                          uint32_t* scratch, uint32_t* out, int W, int B, int c, int bits,
                          void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  int err = set_consts(host_consts, stream);
+  int err = zp_set_consts(nw, host_consts, stream);
   if (err) return err;
 #define CALL(NW_) \
   finish_kernel<NW_><<<1, FINISH_THREADS, 0, stream>>>(S, scratch, out, W, B, c, bits)

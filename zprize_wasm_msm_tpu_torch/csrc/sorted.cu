@@ -6,20 +6,19 @@
 //
 // The engine sorts every window's points by bucket, so equal buckets form
 // contiguous runs, cuts the sorted stream of a window into T chunks, and
-// gives every (window, chunk) ONE running accumulator: no bucket array, so
-// the bucket count is unbounded (c = 10..16).  What the TPU versions are
+// gives every (window, chunk) ONE running sum: no bucket array, so the
+// bucket count is unbounded (c = 10..16).  What the TPU versions are
 // shaped by, and what takes its place here:
 //   * sweep: a sequential grid, one step per stream position, 1024 lanes
 //     wide, the accumulators carried in on-chip memory, one window per call,
 //     every slot of an (N,)-slot output written (dead writes included), the
-//     sorted points gathered into a copy per window beforehand  ->  thread
-//     (w, t) walks its chunk itself with the accumulator in registers, all
-//     windows in one launch; it reads each point THROUGH the sort
-//     permutation (no gathered copy), takes the sign from a bit of meta
-//     (no negated copy of Y), and writes a partial sum only at a run
-//     boundary, straight into its compacted slot (the host numbers the
-//     flushes with a cumulative sum before the launch), so no (N,)-slot
-//     output exists;
+//     sorted points gathered into a copy per window beforehand  ->  a warp
+//     per (window, chunk), all windows in one launch; points are read
+//     THROUGH the sort permutation (no gathered copy), the sign comes from
+//     a bit of meta (no negated copy of Y), and a partial sum is written
+//     only at a run boundary, straight into its compacted slot (the host
+//     numbers the flushes with a cumulative sum before the launch), so no
+//     (N,)-slot output exists;
 //   * segscan: ceil(log2 T) Hillis-Steele rounds of a masked complete add
 //     over ALL K entries, a grid step per round, lanes shifted with rolls,
 //     the whole array resident on chip (hence a size cap and a fallback
@@ -28,67 +27,159 @@
 //     per piece beyond the first, no rounds, any K.  The host gives every
 //     unused entry a segment id of its own, so padding costs a copy.
 //
-// Bound: operations.  The sweep does one mixed add (11 Montgomery products
-// of 2 NW^2 + NW multiply-adds) per nonzero digit against ~100 + 8 bytes
-// read; the points are stored point-contiguous ([N][2 NW] words, 16-byte
-// loads) because the permutation makes every read a random one and a whole
-// point then fills whole 32-byte sectors.  The scan is a few thousand adds
-// with a short serial depth: latency.
+// What bounds the sweep on the H100, and what the design does about it.
+// The work is one mixed add (11 Montgomery products) per nonzero digit:
+// integer issue.  One thread per chunk gives only W*T threads (15 360 at
+// path B's shape, under one warp per scheduler), each step of which waits
+// on meta, then perm, then a random 96-byte point.  Hence:
+//   * each chunk is split across the S = 32 lanes of a warp: lane k walks
+//     ceil(steps / S) consecutive positions (the ragged end masked), 32x the
+//     threads;
+//   * a run that lies wholly inside a lane's sub-chunk is flushed by that
+//     lane, as before.  A run that crosses sub-chunk borders is combined
+//     after the walk: every lane holds its carry (the sum after its last
+//     boundary, or of its whole sub-chunk when it has none) and the sum up
+//     to its first boundary (its head piece, parked in shared memory).  A
+//     segmented inclusive scan of the carries over the warp (5 rounds of
+//     shuffles and one complete add each, segments starting at lanes with a
+//     boundary) gives every lane the sum of the crossing run before it, and
+//     the lane adds its head piece to that and makes the run's one flush.
+//     The scan has log2(S) depth, not S-1: at path B's shape a run spans
+//     ~4 096 positions and crosses every lane of a chunk, so a serial
+//     combine would take as long as the walk;
+//   * prefetch: each lane stages its next TILE positions of perm / meta /
+//     slot into shared memory with cp.async (one tile ahead), and copies its
+//     next point through perm with cp.async one step ahead (double
+//     buffered), so a step's add runs while the next step's data arrive.
+// Points are point-contiguous ([n][2 NW] words): a permuted read is whole
+// 16-byte copies and 32-byte sectors.  The adds are the inlined mixed add
+// of group.cuh; the combine's complete adds (6 per lane, against ~64 mixed
+// adds per lane at path B's shape) are group.cuh's out-of-line pt_add, in
+// its carry-chain form (see pt_add).
 
 #include <cuda_runtime.h>
 
+#include "async.cuh"
 #include "group.cuh"
 
-#define SORTED_THREADS 64
+#define SORTED_THREADS 64  // two warps: two (window, chunk) pairs per block
+#define SUBCHUNKS 32       // S: lanes per chunk, one warp
+#define TILE 8             // stream positions a lane stages per copy group
 
 #define META_BOUNDARY 1  // run (or chunk) ends after this position
 #define META_ZERO 2      // zero digit: the point contributes nothing
 #define META_NEG 4       // negative digit: add (x, -y)
 
 template <int NW>
-struct __align__(16) AffinePt {
-  Fe<NW> x, y;
-};
+__device__ __forceinline__ void pt_shfl_up(Pt<NW>& r, const Pt<NW>& a, int d) {
+  const uint32_t* s = reinterpret_cast<const uint32_t*>(&a);
+  uint32_t* o = reinterpret_cast<uint32_t*>(&r);
+#pragma unroll
+  for (int k = 0; k < 3 * NW; ++k) o[k] = __shfl_up_sync(0xFFFFFFFFu, s[k], d);
+}
 
 // pts [N][2*NW] words (x words, y words per point); perm, meta, slot [W][N]
 // in sorted stream order; out [3][NW][W*K] words, pre-filled by the caller
-// (identity) because only flushed slots are written.  Thread (w, t) walks
-// positions [t*steps, (t+1)*steps) of window w, N = T * steps.
+// (identity) because only flushed slots are written.  Warp (w, t) owns
+// positions [t*steps, (t+1)*steps) of window w, N = T * steps; its lane k
+// walks the k-th sub-chunk of ceil(steps / S) positions.
 template <int NW>
 __global__ void __launch_bounds__(SORTED_THREADS)
     sorted_sweep_kernel(const uint32_t* __restrict__ pts, const int32_t* __restrict__ perm,
                         const int32_t* __restrict__ meta, const int32_t* __restrict__ slot,
                         uint32_t* __restrict__ out, int W, int T, int steps, int K) {
-  const size_t gid = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= (size_t)W * T) return;
-  const int w = (int)(gid / T), t = (int)(gid % T);
-  const size_t base = (size_t)w * T * steps + (size_t)t * steps;
+  constexpr int PC = (2 * NW) / 4;  // 16-byte chunks of a point
+  __shared__ uint4 sh_pt[2][PC][SORTED_THREADS];
+  __shared__ int32_t sh_ix[2][3][TILE][SORTED_THREADS];  // perm, meta, slot
+  __shared__ uint32_t sh_head[3 * NW][SORTED_THREADS];
+
+  const int tid = threadIdx.x, lane = tid % SUBCHUNKS;
+  const size_t chunk = ((size_t)blockIdx.x * blockDim.x + tid) / SUBCHUNKS;
+  if (chunk >= (size_t)W * T) return;  // whole warps only
+  const int w = (int)(chunk / T);
+  const int sub = (steps + SUBCHUNKS - 1) / SUBCHUNKS;
+  const int lo = min(lane * sub, steps), n = min(lo + sub, steps) - lo;
+  const size_t p0 = chunk * steps + lo;
+  const size_t nout = (size_t)W * K;
+
+  auto stage = [&](int buf, int j0) {
+    for (int i = 0; i < TILE && j0 + i < n; ++i) {
+      cp_async4(&sh_ix[buf][0][i][tid], perm + p0 + j0 + i);
+      cp_async4(&sh_ix[buf][1][i][tid], meta + p0 + j0 + i);
+      cp_async4(&sh_ix[buf][2][i][tid], slot + p0 + j0 + i);
+    }
+  };
+  auto fetch = [&](int buf, int idx) {
+    const uint32_t* src = pts + (size_t)idx * (2 * NW);
+#pragma unroll
+    for (int k = 0; k < PC; ++k) cp_async16(&sh_pt[buf][k][tid], src + 4 * k);
+  };
 
   Pt<NW> acc;
   pt_identity<NW>(acc);
-  for (int j = 0; j < steps; ++j) {
-    const int m = meta[base + j];
+  bool has_b = false;  // a boundary lies in this sub-chunk
+  int first_slot = -1;
+  if (n > 0) {
+    stage(0, 0);
+    cp_async_wait_all();
+    if (!(sh_ix[0][1][0][tid] & META_ZERO)) fetch(0, sh_ix[0][0][0][tid]);
+    cp_async_wait_all();
+  }
+  for (int j = 0; j < n; ++j) {
+    const int tb = (j / TILE) & 1, ti = j % TILE, cb = j & 1;
+    const int m = sh_ix[tb][1][ti][tid], sl = sh_ix[tb][2][ti][tid];
+    // the next tile lands by the end of this step, before any step reads it
+    if (ti == 0 && j + TILE < n) stage(tb ^ 1, j + TILE);
+    if (j + 1 < n) {
+      const int tb1 = ((j + 1) / TILE) & 1, ti1 = (j + 1) % TILE;
+      if (!(sh_ix[tb1][1][ti1][tid] & META_ZERO)) fetch(cb ^ 1, sh_ix[tb1][0][ti1][tid]);
+    }
+    cp_async_commit();
     if (!(m & META_ZERO)) {
       AffinePt<NW> p;
-      const uint32_t* src = pts + (size_t)perm[base + j] * (2 * NW);
-      if constexpr ((2 * NW) % 4 == 0) {
-        const uint4* s4 = reinterpret_cast<const uint4*>(src);
-        uint4* d4 = reinterpret_cast<uint4*>(&p);
+      uint4* p4 = reinterpret_cast<uint4*>(&p);
 #pragma unroll
-        for (int k = 0; k < (2 * NW) / 4; ++k) d4[k] = s4[k];
-      } else {
-        uint32_t* d = reinterpret_cast<uint32_t*>(&p);
-#pragma unroll
-        for (int k = 0; k < 2 * NW; ++k) d[k] = src[k];
-      }
+      for (int k = 0; k < PC; ++k) p4[k] = sh_pt[cb][k][tid];
       if (m & META_NEG) fe_neg<NW>(p.y, p.y);
-      pt_add_mixed<NW>(&acc, &acc, &p.x, &p.y);
+      pt_add_mixed<NW>(acc, p.x, p.y);
     }
     if (m & META_BOUNDARY) {
-      const int s = slot[base + j];
-      if (s >= 0) pt_store_soa<NW>(out, (size_t)W * K, (size_t)w * K + s, acc);
+      if (!has_b) {  // the head piece: its run may have begun in an earlier lane
+        has_b = true;
+        first_slot = sl;
+        const uint32_t* a = reinterpret_cast<const uint32_t*>(&acc);
+#pragma unroll
+        for (int k = 0; k < 3 * NW; ++k) sh_head[k][tid] = a[k];
+      } else if (sl >= 0) {
+        pt_store_soa<NW>(out, nout, (size_t)w * K + sl, acc);
+      }
       pt_identity<NW>(acc);
     }
+    cp_async_wait_all();
+  }
+
+  // Segmented inclusive scan of the carries over the warp: a segment starts
+  // at every lane with a boundary (its carry begins a new run).
+  Pt<NW> v = acc, o;
+  bool f = has_b;
+  for (int d = 1; d < SUBCHUNKS; d <<= 1) {
+    pt_shfl_up<NW>(o, v, d);
+    const bool fo = __shfl_up_sync(0xFFFFFFFFu, (int)f, d) != 0;
+    if (lane >= d) {
+      if (!f) pt_add<NW, true>(&v, &o, &v);
+      f = f || fo;
+    }
+  }
+  // lane k's incoming run: the scan up to lane k - 1
+  pt_shfl_up<NW>(o, v, 1);
+  if (lane == 0) pt_identity<NW>(o);
+  if (has_b && first_slot >= 0) {
+    Pt<NW> h;
+    uint32_t* a = reinterpret_cast<uint32_t*>(&h);
+#pragma unroll
+    for (int k = 0; k < 3 * NW; ++k) a[k] = sh_head[k][tid];
+    pt_add<NW, true>(&h, &o, &h);
+    pt_store_soa<NW>(out, nout, (size_t)w * K + first_slot, h);
   }
 }
 
@@ -115,20 +206,15 @@ __global__ void __launch_bounds__(SORTED_THREADS)
   }
 }
 
-static int set_consts(const uint32_t* host_consts, cudaStream_t stream) {
-  return (int)cudaMemcpyToSymbolAsync(c_fc, host_consts, sizeof(FieldConsts), 0,
-                                      cudaMemcpyHostToDevice, stream);
-}
-
 // Returns the CUDA error code of the launch (0 = launched).
 extern "C" int zp_sorted_sweep(int nw, const uint32_t* host_consts, const uint32_t* pts,
                                const int32_t* perm, const int32_t* meta, const int32_t* slot,
                                uint32_t* out, int W, int T, int steps, int K,
                                void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  int err = set_consts(host_consts, stream);
+  int err = zp_set_consts(nw, host_consts, stream);
   if (err) return err;
-  const size_t threads = (size_t)W * T;
+  const size_t threads = (size_t)W * T * SUBCHUNKS;
   const unsigned blocks = (unsigned)((threads + SORTED_THREADS - 1) / SORTED_THREADS);
 #define CALL(NW_)                                                                         \
   sorted_sweep_kernel<NW_><<<blocks, SORTED_THREADS, 0, stream>>>(pts, perm, meta, slot, \
@@ -138,10 +224,19 @@ extern "C" int zp_sorted_sweep(int nw, const uint32_t* host_consts, const uint32
   return (int)cudaGetLastError();
 }
 
+// out[0..4]: registers, local bytes, static shared bytes, resident blocks
+// per SM of sorted_sweep_kernel<nw> (zp_kernel_info).
+extern "C" int zp_sorted_sweep_info(int nw, int* out) {
+#define CALL(NW_) return zp_kernel_info(sorted_sweep_kernel<NW_>, SORTED_THREADS, out)
+  ZP_DISPATCH_NW(nw, CALL)
+#undef CALL
+  return -1;
+}
+
 extern "C" int zp_segscan(int nw, const uint32_t* host_consts, const uint32_t* P,
                           const int32_t* seg, uint32_t* out, int W, int K, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  int err = set_consts(host_consts, stream);
+  int err = zp_set_consts(nw, host_consts, stream);
   if (err) return err;
   const size_t threads = (size_t)W * K;
   const unsigned blocks = (unsigned)((threads + SORTED_THREADS - 1) / SORTED_THREADS);

@@ -19,12 +19,15 @@ from ... import _build
 from ..msm import _launch
 from .spec import CurveSpec
 
-FIELD_OPS = {"mul": 0, "add": 1, "sub": 2, "neg": 3}
-GROUP_OPS = {"add_mixed": 0, "add": 1, "double": 2}
+#: fe_mul / fe_add / fe_sub / fe_neg, and fe_mul_cc (the carry-chain product)
+FIELD_OPS = {"mul": 0, "add": 1, "sub": 2, "neg": 3, "mul_cc": 4}
+#: pt_add_mixed / pt_add / pt_double, and pt_add on the carry-chain product
+GROUP_OPS = {"add_mixed": 0, "add": 1, "double": 2, "add_cc": 3}
 
 
 def field_op(curve: CurveSpec, op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """fe_mul / fe_add / fe_sub / fe_neg (of a) on (L, n) int64 batches."""
+    """fe_mul / fe_add / fe_sub / fe_neg (of a) / fe_mul_cc on (L, n) int64
+    batches."""
     _launch.use_kernel("kernel", a)
     lib = _build.load("check")
     fn = lib.zp_field_op
@@ -50,7 +53,8 @@ def field_op(curve: CurveSpec, op: str, a: torch.Tensor, b: torch.Tensor) -> tor
 
 def group_op(curve: CurveSpec, op: str, p, q):
     """pt_add_mixed (q's X, Y as the affine operand) / pt_add / pt_double
-    (of p) on projective batches, each coordinate (L, n) int64."""
+    (of p) / pt_add<NW, true> on projective batches, each coordinate (L, n)
+    int64."""
     _launch.use_kernel("kernel", p[0])
     lib = _build.load("check")
     fn = lib.zp_group_op

@@ -45,6 +45,13 @@ def pack_point(coords) -> torch.Tensor:
     return torch.stack([pack_words(c.reshape(L, -1)) for c in coords]).contiguous()
 
 
+def point_words(points) -> torch.Tensor:
+    """Affine (X, Y), each (L, N) int64 -> the sweeps' point-contiguous
+    (N, 2, NW) int32 words: one point is 2 NW consecutive words, so a point
+    read at a random index is whole 16-byte loads and 32-byte sectors."""
+    return pack_point(points).permute(2, 0, 1).contiguous()
+
+
 def unpack_point(words: torch.Tensor, batch_shape):
     """(3, NW, n) int32 words -> (X, Y, Z), each (2 NW, *batch) int64."""
     limbs = unpack_words(words.reshape((-1,) + tuple(words.shape[2:])))

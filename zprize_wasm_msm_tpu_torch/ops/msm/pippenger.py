@@ -46,7 +46,8 @@ from ..curve import group
 from ..curve.spec import CurveSpec
 from . import windows
 
-#: lanes per window of the kernel engine when the caller names none
+#: lanes per window of the kernel engine when the caller names none, before
+#: _kernel_lanes raises them to fill one wave of the sweep's resident threads
 KERNEL_LANES = 1024
 #: the engines of msm (see the module docstring)
 ENGINES = ("kernel", "kernel-sorted", "plain", "plain-sorted")
@@ -268,11 +269,23 @@ def resolve_config(
     return impl, c, lanes
 
 
-def _kernel_lanes(N: int, lanes: Optional[int]) -> int:
+def _kernel_lanes(curve, W: int, N: int, lanes: Optional[int], device) -> int:
+    """Lanes per window of the bucket-sweep kernel for W windows of N
+    digits: ``lanes`` if the caller names them, else KERNEL_LANES (a power
+    of two, no more than the points) doubled while W times the lanes is
+    still one wave of the sweep's resident threads on the card and every
+    lane keeps a point.  A sweep thread's time is its own chain's latency
+    (csrc/bucket.cu), so lanes beyond one wave only queue and lanes short of
+    it leave the card idle; the lane reduction then sums the extra lanes."""
     if lanes is not None:
         return lanes
-    # no more lanes than points; a power of two
-    return min(KERNEL_LANES, 1 << max(0, N.bit_length() - 1))
+    from . import pl_bucket  # it imports this module
+
+    T = min(KERNEL_LANES, 1 << max(0, N.bit_length() - 1))
+    resident = pl_bucket.resident_threads(curve, device)
+    while W * 2 * T <= resident and 2 * T <= N:
+        T *= 2
+    return T
 
 
 def window_sums(
@@ -336,13 +349,13 @@ def msm(
     )
     digits = windows.signed_window_digits(scalars, c, max_bits)
     if impl == "kernel":
-        from . import pl_bucket, pl_reduce
+        from . import _launch, pl_bucket, pl_reduce
 
+        _launch.use_kernel(impl, X)  # a CPU tensor raises here
         W = digits.shape[0]
         B = 1 << (c - 1)
-        buckets = pl_bucket.bucket_accumulate(
-            curve, (X, Y), digits, lanes=_kernel_lanes(N, lanes), c=c, impl="kernel"
-        )
+        lanes = _kernel_lanes(curve, W, N, lanes, X.device)
+        buckets = pl_bucket.bucket_accumulate(curve, (X, Y), digits, lanes=lanes, c=c, impl="kernel")
         if W <= pl_reduce.FINISH_LANES // B:
             return pl_reduce.finish(curve, buckets, c, impl="kernel")
         # W*B exceeds the one-block finish (c = 7 full-width scalars):

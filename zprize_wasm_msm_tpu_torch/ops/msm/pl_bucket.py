@@ -10,7 +10,9 @@ addition; then sum the lanes into dense (L, W, B) bucket sums.
 On the card this is two launches from csrc/bucket.cu: the sweep (one thread
 per (window, lane), a private bucket row per thread in device memory,
 direct indexing, no atomics) and the lane reduction (pl_reduce.lane_reduce's
-kernel, one block per (window, bucket)).  What bounds them and why the
+kernel, one block per (window, bucket)).  The kernel engine of
+pippenger.msm picks the lane count (pippenger._kernel_lanes: one wave of
+``resident_threads``); this module runs the lanes it is given.  What bounds them and why the
 state is laid out as it is stands at the top of csrc/bucket.cu.
 
 Lane t of the kernel takes points t, t+T, t+2T, ... (interleaved, so a
@@ -23,6 +25,7 @@ elements (compare after to_affine), not as projective limbs.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -65,9 +68,25 @@ def bucket_accumulate_plain(
     return pippenger._bucket_accumulate_impl(curve, (X, Y), digits, lanes, c)
 
 
+#: threads per block of the sweep kernel (csrc/bucket.cu SWEEP_THREADS)
+SWEEP_THREADS = 64
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_threads(nw: int, device_index: int) -> int:
+    blocks = _build.kernel_info("bucket", "zp_bucket_sweep_info", nw)["blocks_per_sm"]
+    return blocks * SWEEP_THREADS * torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def resident_threads(curve: CurveSpec, device) -> int:
+    """Sweep threads the card keeps resident at once (all SMs), as the CUDA
+    runtime reports the kernel's occupancy for this curve's field width."""
+    return _resident_threads(curve.fq.n_words, torch.device(device).index or 0)
+
+
 def _sweep(curve: CurveSpec, Xw, Yw, digits, lanes: int, B: int) -> torch.Tensor:
-    """Launch the sweep kernel; returns the lane-unreduced bucket state,
-    (W, T, B, 3*NW) int32 words."""
+    """Launch the sweep kernel on (NW, N) word arrays; returns the
+    lane-unreduced bucket state, (W, T, B, 3*NW) int32 words."""
     global launches
     lib = _build.load("bucket")
     fn = lib.zp_bucket_sweep

@@ -217,24 +217,31 @@ def sweep(
     L = curve.field.elem_len
     _launch.check_limbs("points X", X, (L, X.shape[1]), X.device)
     _launch.check_limbs("points Y", Y, (L, X.shape[1]), X.device)
+    # point-contiguous [n][x words, y words]: a permuted read fetches one
+    # point as whole sectors
+    pts = _launch.point_words((X, Y))
+    out = _sweep_words(curve, pts, perm.contiguous(), meta.contiguous(), slot.contiguous(), K, chunks)
+    return _launch.unpack_point(out, (W, K))
+
+
+def _sweep_words(curve: CurveSpec, pts, perm, meta, slot, K: int, chunks: int) -> torch.Tensor:
+    """Launch the sweep kernel on point-contiguous words pts (n, 2, NW) and
+    contiguous (W, N) stream tensors; returns the (3, NW, W*K) int32 words
+    of the K entries per window."""
     lib = _build.load("sorted")
     fn = lib.zp_sorted_sweep
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    NW = curve.fq.n_words
-    # point-contiguous [n][x words, y words]: a permuted read fetches one
-    # point as whole sectors
-    pts = _launch.pack_point((X, Y)).permute(2, 0, 1).contiguous()
-    out = _launch.pack_point(group.zero(curve, (W * K,), X.device))
+    W, N = perm.shape
+    out = _launch.pack_point(group.zero(curve, (W * K,), pts.device))
     err = fn(
-        NW, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p), _launch.ptr(pts),
-        _launch.ptr(perm.contiguous()), _launch.ptr(meta.contiguous()),
-        _launch.ptr(slot.contiguous()), _launch.ptr(out), W, chunks, N // chunks, K,
-        _launch.stream_ptr(),
+        curve.fq.n_words, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p),
+        _launch.ptr(pts), _launch.ptr(perm), _launch.ptr(meta), _launch.ptr(slot),
+        _launch.ptr(out), W, chunks, N // chunks, K, _launch.stream_ptr(),
     )
     _build.check_launch(err, "sorted_sweep")
     launches["sweep"] += 1
-    return _launch.unpack_point(out, (W, K))
+    return out
 
 
 # ---------------------------------------------------------------------------
