@@ -7,13 +7,18 @@ What it does, in order (any failure exits non-zero and prints no result):
   1. refuses to run without a CUDA device;
   2. builds every CUDA kernel from zprize_wasm_msm_tpu_torch/csrc/ with nvcc
      (all sources in parallel) into build/, prints ptxas's registers and
-     spills per kernel and fails if a sweep kernel (K1, K7) spills;
+     spills per kernel and fails if a sweep kernel (K1, K7) or a reduction
+     kernel (K3's two launches, K4's two) spills;
   3. holds the device functions (field and group ops of csrc/field.cuh and
-     csrc/group.cuh, both product forms and the complete add on each) and
-     the elementwise field kernels (Montgomery product, square, inversion)
-     bit for bit against the plain PyTorch ops, on the toy field, BN254 Fq
-     and BLS12-381 Fq (every field width the sources instantiate), edge
-     values 0, 1, q-1, (q+-1)/2 included;
+     csrc/group.cuh, both product forms and the complete add on each, and
+     the window fold's level-parallel doubling and addition of
+     csrc/par.cuh with their product by 3b as additions, a product to a
+     lane or shared by several (csrc/coop.cuh)) and the
+     elementwise field kernels (Montgomery product, square, inversion) bit
+     for bit against the plain PyTorch ops, on the toy field, BN254 Fq and
+     BLS12-381 Fq (every field width the sources instantiate), edge values
+     0, 1, q-1, (q+-1)/2 and words of all ones (long carry ripples)
+     included;
   4. holds each kernel against its plain PyTorch version at small shapes on
      the toy curve, BN254 and BLS12-381 (zero digits, +-B digits, (0,0)
      points, repeated points that force the doubling case inside a bucket;
@@ -23,7 +28,12 @@ What it does, in order (any failure exits non-zero and prints no result):
      the two sweeps on the cases aimed at their schedules (k1_adversarial:
      one bucket on every step, two buckets alternating; k7_adversarial:
      runs crossing or ending on sub-chunk borders, a zero sub-chunk inside a
-     run, steps not a multiple of 32);
+     run, steps not a multiple of 32), and the two reductions on theirs
+     (k3_adversarial: identity buckets, equal buckets, only the top window,
+     P and -P, a fold ending on Q + (-Q), W*B = 1024, B = 1;
+     k4_adversarial: identity partials, equal partials, P, -P pairs, T not
+     a multiple of the warp, lane counts that end buckets inside lanes, on
+     lane ends and across warps);
   5. drives three paths of the public API on BLS12-381 G1 at N = 2^20
      distinct bases (build_bls12381().msm -> result_to_affine), each a few
      timed repetitions, with every kernel's launch count zeroed just before
@@ -41,7 +51,9 @@ What it does, in order (any failure exits non-zero and prints no result):
      plain version on the same inputs (exact equality of affine coordinates
      or limbs: integers, tolerance 0) and times both; K1 and K7 also report
      registers, resident warps per SM, ns per add and their time over their
-     bound.
+     bound; K3 its bound and its depth floor (c (W-1) doublings and W-1
+     additions at the latency of one level-parallel doubling and addition,
+     timed here) at all three paths' shapes.
 
 Output: one JSON object per line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -259,6 +271,106 @@ def k7_adversarial(curve, dev, rng, chunks=16, steps=37, n_points=96):
             for w, name in enumerate(keys)}
 
 
+def k3_adversarial(curve, dev, rng):
+    """K3 (both launches) against finish_plain, as affine points, on inputs
+    aimed at its ladder, tree and fold: every bucket the identity; every
+    bucket the same point (the weighting tree and the fold add equal
+    points); only the top window nonzero; P and -P in one window; a fold
+    that ends on Q + (-Q); W*B exactly FINISH_LANES; B = 1.  Returns
+    {case: max |err|}."""
+    import zprize_wasm_msm_tpu_torch as Z
+    from zprize_wasm_msm_tpu_torch.ops.curve import group
+    from zprize_wasm_msm_tpu_torch.ops.msm import pl_reduce
+
+    ctx = Z.build_curve(curve, device=dev)
+    (X, Y), _, _ = _make_bases(ctx, 10, rng, dev)
+    P = group.from_affine(curve, (X, Y))
+    n = X.shape[1]
+
+    def take(W, B, idx=None):
+        idx = torch.as_tensor(rng.integers(0, n, size=W * B), device=dev) if idx is None else idx
+        return tuple(a[:, idx].reshape(a.shape[0], W, B).contiguous() for a in P)
+
+    def ident(W, B):
+        return tuple(z.contiguous() for z in group.zero(curve, (W, B), dev))
+
+    cases = {}
+    cases["all buckets the identity"] = (ident(5, 8), 4)
+    cases["every bucket one point"] = (take(6, 16, torch.full((96,), 7, device=dev)), 5)
+    cases["every bucket one point, B = 1"] = (take(9, 1, torch.full((9,), 7, device=dev)), 4)
+    top = ident(7, 8)
+    for i, a in enumerate(take(1, 8)):
+        top[i][:, 6:] = a
+    cases["only the top window nonzero"] = (top, 4)
+    pm = take(4, 8)
+    neg = group.neg(curve, tuple(a[:, 2, 0] for a in pm))
+    for i in range(3):
+        pm[i][:, 2, 1] = neg[i]  # bucket weights 1 and 2: P - 2P, and P, -P in one window
+        pm[i][:, 3, 5] = neg[i]
+        pm[i][:, 3, 4] = pm[i][:, 2, 0]
+    cases["P and -P in one window"] = (pm, 4)
+    c = 3
+    p1 = tuple(a[:, 5] for a in P)
+    q = p1
+    for _ in range(c):
+        q = group.double(curve, q)
+    fold = tuple(torch.stack([x, y], dim=1)[:, :, None].contiguous()
+                 for x, y in zip(group.neg(curve, q), p1))  # S_0 = -2^c P, S_1 = P
+    cases["fold ending on Q + (-Q)"] = (fold, c)
+    cases["W*B = 1024"] = (take(32, 32), 6)
+    cases["B = 1, W = 38"] = (take(38, 1), 7)
+    out = {}
+    for name, (bk, cc) in cases.items():
+        got = pl_reduce.finish(curve, bk, cc)
+        ref = pl_reduce.finish_plain(curve, bk, cc)
+        out[name] = affine_err(curve, tuple(x[:, None] for x in got), tuple(x[:, None] for x in ref))
+    return out
+
+
+def k4_adversarial(curve, dev, rng):
+    """K4 (even split + combine) against lane_reduce_plain on inputs aimed
+    at its schedule: identity partials; all T partials of a bucket equal;
+    P, -P pairs; T not a multiple of the warp; lane counts that end
+    buckets inside a lane, on a lane's end and across warps (a bucket over
+    several warps), and lanes left empty.  Returns {case: max |err|}."""
+    import zprize_wasm_msm_tpu_torch as Z
+    from zprize_wasm_msm_tpu_torch.ops.curve import group
+    from zprize_wasm_msm_tpu_torch.ops.msm import _launch, pl_reduce
+
+    ctx = Z.build_curve(curve, device=dev)
+    (X, Y), _, _ = _make_bases(ctx, 10, rng, dev)
+    P = group.from_affine(curve, (X, Y))
+    npts = X.shape[1]
+    NW = curve.fq.n_words
+    out = {}
+    for W, B, T, lanes in ((3, 4, 37, (32, 64, 160, 448)), (2, 2, 100, (32, 64, 96)),
+                           (2, 4, 64, (32, 256, 512)), (1, 1, 5, (32,))):
+        idx = torch.as_tensor(rng.integers(0, npts, size=(B, W, T)), device=dev)
+        base = tuple(a[:, idx].permute(1, 0, 2, 3).contiguous() for a in P)  # (B, L, W, T)
+        zero = group.zero(curve, (B, W, T), dev)
+        ident = tuple(z.permute(1, 0, 2, 3).contiguous() for z in zero)
+        same = tuple(a[:, :, :, :1].expand(-1, -1, -1, T).contiguous() for a in base)
+        pairs = tuple(a.clone() for a in base)
+        neg = group.neg(curve, tuple(a[:, :, :, 0::2].permute(1, 0, 2, 3) for a in base))
+        for i in range(3):
+            pairs[i][:, :, :, 1::2] = neg[i].permute(1, 0, 2, 3)[:, :, :, : T // 2]
+        mixed = tuple(a.clone() for a in base)
+        for i in range(3):
+            mixed[i][:, :, :, 3::4] = ident[i][:, :, :, 3::4]
+        for case, lanes_in in (("identity partials", ident), ("all partials equal", same),
+                               ("P, -P pairs", pairs), ("random, identities", mixed)):
+            want = pl_reduce.lane_reduce_plain(curve, lanes_in)
+            got = pl_reduce.lane_reduce(curve, lanes_in)
+            out[f"{case}, W={W} B={B} T={T}"] = affine_err(curve, got, want)
+            words = _launch.pack_point(tuple(b.permute(1, 2, 3, 0) for b in lanes_in))
+            state = words.reshape(3 * NW, W, T, B).permute(1, 2, 3, 0).contiguous()
+            for N in lanes:
+                if N >= W * B:
+                    got = pl_reduce._lane_reduce_state(curve, state, lanes=N)
+                    out[f"{case}, W={W} B={B} T={T}, {N} lanes"] = affine_err(curve, got, want)
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", nargs="?", const="", default=None, metavar="DIR",
@@ -320,23 +432,23 @@ def main() -> None:
         "ptxas": ptxas,
     })
 
-    def sweep_resources(stem, kernel, entry, nw):
-        """ptxas's registers and spills of kernel<nw> and what the runtime
-        says of it (registers, local bytes, blocks per SM); fails on a spill."""
+    def kernel_resources(stem, kernel, entry, nw, threads, *args):
+        """ptxas's registers, stack frame and spills of kernel<nw> and what
+        the runtime says of it (registers, local bytes, blocks per SM;
+        entry None: ptxas only); fails on a spill."""
         tag = f"{kernel}ILi{nw}E"
         found = [v for k, v in ptxas_by_kernel.items() if tag in k]
         check(len(found) == 1, f"no ptxas report for {tag}")
         spill = [int(w) for w in found[0]["spill"].split() if w.isdigit()]
         check(len(spill) == 3 and spill[1] == 0 and spill[2] == 0,
               f"{tag} spills: {found[0]['spill']}")
-        info = _build.kernel_info(stem, entry, nw)
-        threads = {"bucket": 64, "sorted": 64}[stem]
-        return {"ptxas": found[0], "spill_store_bytes": spill[1], "spill_load_bytes": spill[2],
-                **info, "threads_per_block": threads,
-                "resident_warps_per_sm": info["blocks_per_sm"] * threads // 32}
+        info = _build.kernel_info(stem, entry, nw, *args) if entry else {}
+        return {"ptxas": found[0], "stack_frame_bytes": spill[0], "spill_store_bytes": spill[1],
+                "spill_load_bytes": spill[2], **info, "threads_per_block": threads,
+                **({"resident_warps_per_sm": info["blocks_per_sm"] * threads // 32} if info else {})}
 
     sweep_res = {
-        (name, nw): sweep_resources(stem, kernel, entry, nw)
+        (name, nw): kernel_resources(stem, kernel, entry, nw, 64)
         for name, stem, kernel, entry in (
             ("bucket_sweep", "bucket", "bucket_sweep_kernel", "zp_bucket_sweep_info"),
             ("sorted_sweep", "sorted", "sorted_sweep_kernel", "zp_sorted_sweep_info"),
@@ -344,6 +456,17 @@ def main() -> None:
         for nw in _build.SUPPORTED_WORDS
     }
     emit({"sweep_resources": {f"{k[0]} NW={k[1]}": v for k, v in sweep_res.items()}})
+    reduce_res = {
+        (name, nw): kernel_resources(stem, kernel, entry, nw, threads, *args)
+        for name, stem, kernel, entry, threads, args in (
+            ("finish (fold)", "reduce", "finish_kernel", "zp_finish_info", 32, (0,)),
+            ("finish (weighting)", "reduce", "finish_weight_kernel", "zp_finish_info", 128, (1,)),
+            ("lane_reduce", "bucket", "lane_reduce_kernel", "zp_lane_reduce_info", 128, ()),
+            ("lane_reduce (combine)", "bucket", "lane_combine_kernel", None, 128, ()),
+        )
+        for nw in _build.SUPPORTED_WORDS
+    }
+    emit({"reduce_resources": {f"{k[0]} NW={k[1]}": v for k, v in reduce_res.items()}})
 
     def oracle_of(curve):
         return OracleCurve(q=curve.q, a=0, b=curve.b, r=curve.r, gx=curve.gx, gy=curve.gy)
@@ -372,10 +495,19 @@ def main() -> None:
         Bv = [y for _ in edges for y in edges] + [int.from_bytes(rng.bytes(48), "little") % q for _ in range(999)]
         a = ctx._limbs([fq.to_mont_int(v) for v in A], fq.n_limbs)
         b = ctx._limbs([fq.to_mont_int(v) for v in Bv], fq.n_limbs)
+        # stored words that make long carry ripples: all ones below the top
+        # word, q with a borrow through its low word, the top bit below q's
+        nw = fq.n_words
+        ripple = [v % q for v in ((1 << (32 * (nw - 1))) - 1, q - (1 << 32), 1 << (32 * nw - 2))]
+        rw = ctx._limbs([x for x in ripple + edges for _ in ripple + edges], fq.n_limbs)
+        rv = ctx._limbs([y for _ in ripple + edges for y in ripple + edges], fq.n_limbs)
+        a, b = torch.cat([a, rw], dim=1), torch.cat([b, rv], dim=1)
         mul_ref = mont.mont_mul(fq, a, b)
+        b3 = mont._int_const(fq, fq.to_mont_int(3 * curve.b), dev)[:, None].expand_as(a)
         for op, ref in (
             ("mul", mul_ref), ("mul_cc", mul_ref), ("add", mont.add(fq, a, b)),
             ("sub", mont.sub(fq, a, b)), ("neg", mont.neg(fq, a)),
+            ("mul_b3", mont.mont_mul(fq, b3, a)), ("mul_coop", mul_ref),
         ):
             got = device_check.field_op(curve, op, a, b)
             torch.cuda.synchronize()
@@ -415,14 +547,28 @@ def main() -> None:
             ("add", add_ref, Q), ("add_cc", add_ref, Q),
             ("add_mixed", group.add_mixed(curve, P, (QX, QY)), (QX, QY, Q[2])),
             ("double", group.double(curve, P), Q),
+            ("add_par", add_ref, Q), ("double_par", group.double(curve, P), Q),
+            ("add_coop", add_ref, Q), ("double_coop", group.double(curve, P), Q),
         ):
             got = device_check.group_op(curve, op, P, qin)
             torch.cuda.synchronize()
             for g, r in zip(got, ref):
                 check(bool((g == r).all()), f"{curve.name}: device pt_{op} != group")
+        # the fold's ops on coordinates that are any field values: the edge
+        # and ripple operands above, three to a point
+        m = a.shape[1] // 3
+        Pr = tuple(a[:, i * m : (i + 1) * m].contiguous() for i in range(3))
+        Qr = tuple(b[:, i * m : (i + 1) * m].contiguous() for i in range(3))
+        add_r, dbl_r = group.add(curve, Pr, Qr), group.double(curve, Pr)
+        for op, ref in (("add_par", add_r), ("double_par", dbl_r), ("add_coop", add_r),
+                        ("double_coop", dbl_r), ("add", add_r), ("double", dbl_r)):
+            got = device_check.group_op(curve, op, Pr, Qr)
+            torch.cuda.synchronize()
+            for g, r in zip(got, ref):
+                check(bool((g == r).all()), f"{curve.name}: device pt_{op} != group on edge coordinates")
         dev_fn_report[curve.name] = (
-            "mul/mul_cc/add/sub/neg + mont_mul/mont_square/inverse kernels"
-            " + add_mixed/add/add_cc/double bit-equal"
+            "mul/mul_cc/mul_b3/mul_coop/add/sub/neg + mont_mul/mont_square/inverse kernels"
+            " + add_mixed/add/add_cc/double/add_par/double_par/add_coop/double_coop bit-equal"
         )
     emit({"device_functions": dev_fn_report, "seconds": round(time.perf_counter() - t0, 2)})
 
@@ -569,6 +715,25 @@ def main() -> None:
     for case, e in adversarial.items():
         check(e == 0, f"{case}: kernel disagrees with its plain version (max |err| {e})")
     emit({"sweeps_adversarial_max_abs_err": adversarial, "tolerance": 0,
+          "seconds": round(time.perf_counter() - t0, 2)})
+
+    # the reductions' schedules on the cases aimed at them: K3's ladder, tree
+    # and fold, K4's even split, warp scan and combine across warps.  Their
+    # inputs come from a generator of their own, so the paths below get the
+    # same bases and scalars as before these cases existed (K8's time, for
+    # one, follows the longest segment that data makes)
+    t0 = time.perf_counter()
+    adversarial = {}
+    red_rng = np.random.default_rng(SEED + 1)
+    for c_curve in (toy, bn254, bls12_381):
+        for case, e in k3_adversarial(c_curve, dev, red_rng).items():
+            adversarial[f"K3 {c_curve.name}: {case}"] = e
+        for case, e in k4_adversarial(c_curve, dev, red_rng).items():
+            adversarial[f"K4 {c_curve.name}: {case}"] = e
+    torch.cuda.synchronize()
+    for case, e in adversarial.items():
+        check(e == 0, f"{case}: kernel disagrees with its plain version (max |err| {e})")
+    emit({"reductions_adversarial_max_abs_err": adversarial, "tolerance": 0,
           "seconds": round(time.perf_counter() - t0, 2)})
 
     # ---- 5. the main path ---------------------------------------------------
@@ -830,14 +995,38 @@ def main() -> None:
     k4_err = affine_err(curve, kernel_buckets, k4_plain)
     check(k4_err == 0, f"lane_reduce at the main path's shape disagrees with plain (max |err| {k4_err})")
     del contract, k4_plain
-    b_ms, b_by = bound(W * T * B * 3 * NW * 4 + W * B * 3 * NW * 4, W * B * (T - 1) * ADD)
+    def k4_bound(W_, T_, B_):
+        return bound(W_ * T_ * B_ * 3 * NW * 4 + W_ * B_ * 3 * NW * 4, W_ * B_ * (T_ - 1) * ADD)
+
+    def k4_lane_sweep(state_, W_, T_, B_):
+        """K4 (its wrapper) at the lane counts it did not choose: one full
+        wave, one warp and two warps per bucket."""
+        resident = pl_reduce._reduce_resident_threads(NW, 0)
+        chosen = pl_reduce._reduce_lanes(W_ * B_, T_, resident)
+        out = {}
+        for name, N_ in (("one wave", -(-min(resident, W_ * B_ * T_) // 32) * 32),
+                         ("1 warp per bucket", 32 * W_ * B_), ("2 warps per bucket", 64 * W_ * B_)):
+            if N_ != chosen:
+                pl_reduce._lane_reduce_state(curve, state_, lanes=N_)
+                _, out[f"{N_} lanes ({name})"] = sync_ms(
+                    lambda: pl_reduce._lane_reduce_state(curve, state_, lanes=N_), 2)
+        return out
+
+    b_ms, b_by = k4_bound(W, T, B)
+    k4_lanes = pl_reduce._reduce_lanes(W * B, T, pl_reduce._reduce_resident_threads(NW, 0))
+    k4_sweep = k4_lane_sweep(state, W, T, B)
     kernels.append({
         "name": "lane_reduce", "route": "cuda",
         "source": "zprize_wasm_msm_tpu_torch/csrc/bucket.cu",
         "replaces": "zprize_wasm_msm_tpu/ops/msm/pl_reduce.py:93",
         "launches": main_launches["lane_reduce"], "max_abs_err": k4_err, "ms": k4_ms,
         "plain_ms": k4_plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "shape": f"state ({W},{T},{B},3x{NW}w) -> ({L},{W},{B})x3",
+        "x_bound": k4_ms / b_ms, "lanes": k4_lanes, "partials_per_lane": W * B * T / k4_lanes,
+        "ms_at_other_lane_counts": k4_sweep,
+        **reduce_res[("lane_reduce", NW)],
+        "combine_ptxas": reduce_res[("lane_reduce (combine)", NW)]["ptxas"],
+        "shape": f"state ({W},{T},{B},3x{NW}w) -> ({L},{W},{B})x3; two launches (even split, "
+                 "combine across warps); ms is _lane_reduce_state on the sweep's state",
         "compared": "as affine points against the plain lane tree on the same state",
     })
     del state
@@ -869,16 +1058,41 @@ def main() -> None:
     k3_err = affine_err(curve, tuple(x[:, None] for x in k3_out), tuple(x[:, None] for x in k3_ref))
     check(k3_err == 0, f"finish at the main path's shape disagrees with plain (max |err| {k3_err})")
     check(ctx.result_to_affine(k3_out) == expected, "finish's point is not the MSM result")
-    # cheapest known schedule at B = 1: Horner over the windows, c (W - 1)
-    # doublings and W - 1 adds (the running-sum walk over B = 1 bucket is free)
-    b_ms, b_by = bound((W + 1) * 3 * NW * 4, c * (W - 1) * DOUBLE + (W - 1) * ADD)
+    # cheapest known schedule: the running-sum walk per window, 2 (B - 1)
+    # adds (free at B = 1), then Horner over the windows, c (W - 1)
+    # doublings and W - 1 adds
+    def k3_bound(W_, B_, c_):
+        return bound((W_ * B_ + 1) * 3 * NW * 4,
+                     W_ * 2 * (B_ - 1) * ADD + c_ * (W_ - 1) * DOUBLE + (W_ - 1) * ADD)
+
+    # the fold's links: one level-parallel doubling and addition, each timed
+    # as a chain of 2 000 in one warp (csrc/check.cu group_chain_kernel),
+    # with a product to a lane ("_par") and with cooperative products
+    # ("_coop", what finish_kernel runs)
+    pt1 = tuple(x[:, None].contiguous() for x in k3_out)
+    pt2 = tuple(x[:, :1, 0].contiguous() for x in fold_in)
+    link_us = {}
+    for op in device_check.CHAIN_OPS:
+        device_check.group_chain(curve, op, pt1, pt2, 10)
+        _, ms = sync_ms(lambda: device_check.group_chain(curve, op, pt1, pt2, 2000), 2)
+        link_us[op] = ms / 2000 * 1e3
+
+    def k3_floor(W_, c_):
+        """c (W-1) doublings and W-1 additions at the fold's links' measured latency."""
+        return (c_ * (W_ - 1) * link_us["double_coop"] + (W_ - 1) * link_us["add_coop"]) / 1e3
+
+    b_ms, b_by = k3_bound(W, 1, c)
     kernels.append({
         "name": "finish", "route": "cuda",
         "source": "zprize_wasm_msm_tpu_torch/csrc/reduce.cu",
         "replaces": "zprize_wasm_msm_tpu/ops/msm/pl_reduce.py:246",
         "launches": main_launches["finish"], "max_abs_err": k3_err, "ms": k3_ms,
         "plain_ms": k3_plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "shape": f"({L},{W},1)x3, c={c} -> ({L},)x3",
+        "depth_floor_ms": k3_floor(W, c), "link_us": link_us,
+        "fold_resources": reduce_res[("finish (fold)", NW)],
+        "weighting_resources": reduce_res[("finish (weighting)", NW)],
+        "shape": f"({L},{W},1)x3, c={c} -> ({L},)x3; at B = 1 one launch (the fold), at B > 1 "
+                 "two (weighting, fold); ms is the pl_reduce.finish wrapper",
         "compared": "as affine points against bucket_reduce + window_fold, and against the oracle",
     })
 
@@ -1007,7 +1221,11 @@ def main() -> None:
     k2b_ref, k2b_plain_ms = staged(lambda: pl_reduce.collapse_plain(curve, dense_b))
     k2b_err = affine_err(curve, sums_b, k2b_ref)
     check(k2b_err == 0, f"collapse at path B's shape disagrees with plain (max |err| {k2b_err})")
-    _, k3b_ms = sync_ms(lambda: pl_reduce.finish(curve, fold_b, cB), 3)
+    pl_reduce.finish(curve, fold_b, cB)
+    k3b_out, k3b_ms = sync_ms(lambda: pl_reduce.finish(curve, fold_b, cB), 3)
+    k3b_ref, k3b_plain_ms = staged(lambda: pl_reduce.finish_plain(curve, fold_b, cB))
+    k3b_err = affine_err(curve, tuple(x[:, None] for x in k3b_out), tuple(x[:, None] for x in k3b_ref))
+    check(k3b_err == 0, f"finish at path B's shape disagrees with plain (max |err| {k3b_err})")
     digits_a = windows.signed_window_digits(k2, cA, glv.MAX_BITS)
     words2 = _launch.pack_point((X2, Y2))
     pl_bucket._sweep(curve, words2[0], words2[1], digits_a, TA, BA)
@@ -1015,7 +1233,13 @@ def main() -> None:
     nonzero_a = int(((digits_a != 0) & ~infinity2[None]).sum().item())
     k1a_bound, k1a_by = bound(WA * n2 * 4 + 2 * NW * 4 * n2 + WA * TA * BA * 3 * NW * 4, nonzero_a * ADD_MIXED)
     buckets_a, k4a_ms = sync_ms(lambda: pl_reduce._lane_reduce_state(curve, state_a), 2)
-    _, k3a_ms = sync_ms(lambda: pl_reduce.finish(curve, buckets_a, cA), 3)
+    k4a_sweep = k4_lane_sweep(state_a, WA, TA, BA)
+    pl_reduce.finish(curve, buckets_a, cA)
+    k3a_out, k3a_ms = sync_ms(lambda: pl_reduce.finish(curve, buckets_a, cA), 3)
+    k3a_ref, k3a_plain_ms = staged(lambda: pl_reduce.finish_plain(curve, buckets_a, cA))
+    k3a_err = affine_err(curve, tuple(x[:, None] for x in k3a_out), tuple(x[:, None] for x in k3a_ref))
+    check(k3a_err == 0, f"finish at path A's shape disagrees with plain (max |err| {k3a_err})")
+    check(ctx.result_to_affine(k3a_out) == expected, "finish at path A's shape is not the MSM result")
     del state_a
     # the same sweep and lane reduction at KERNEL_LANES lanes, the count
     # path A ran before the engine raised it to one wave: K1 and K4 like
@@ -1036,12 +1260,24 @@ def main() -> None:
                                            "ns_per_add": k1a0_ms * 1e6 / nonzero_a,
                                            "k1_plus_k4_ms": k1a0_ms + k4a0_ms, "max_abs_err": k1a0_err}},
         "lane_reduce": {"path_A": {"shape": f"state ({WA},{TA},{BA})", "ms": k4a_ms,
+                                   **dict(zip(("bound_ms", "bound_by"), k4_bound(WA, TA, BA))),
+                                   "lanes": pl_reduce._reduce_lanes(WA * BA, TA, pl_reduce._reduce_resident_threads(NW, 0)),
+                                   "ms_at_other_lane_counts": k4a_sweep,
                                    "k1_plus_k4_ms": k1a_ms + k4a_ms},
-                        f"path_A_T{T0}": {"shape": f"state ({WA},{T0},{BA})", "ms": k4a0_ms}},
+                        f"path_A_T{T0}": {"shape": f"state ({WA},{T0},{BA})", "ms": k4a0_ms,
+                                          **dict(zip(("bound_ms", "bound_by"), k4_bound(WA, T0, BA)))}},
         "collapse": {"path_B": {"shape": f"({L},{WB},{BB})x3", "ms": k2b_ms, "plain_ms": k2b_plain_ms,
-                                "max_abs_err": k2b_err}},
-        "finish": {"path_A": {"shape": f"({L},{WA},{BA})x3, c={cA}", "ms": k3a_ms},
-                   "path_B": {"shape": f"({L},{WB},1)x3, c={cB}", "ms": k3b_ms}},
+                                "max_abs_err": k2b_err,
+                                **dict(zip(("bound_ms", "bound_by"), bound((WB * BB + WB) * 3 * NW * 4,
+                                                                           WB * 2 * (BB - 1) * ADD)))}},
+        "finish": {"path_A": {"shape": f"({L},{WA},{BA})x3, c={cA}", "ms": k3a_ms,
+                              "plain_ms": k3a_plain_ms, "max_abs_err": k3a_err,
+                              **dict(zip(("bound_ms", "bound_by"), k3_bound(WA, BA, cA))),
+                              "depth_floor_ms": k3_floor(WA, cA)},
+                   "path_B": {"shape": f"({L},{WB},1)x3, c={cB}", "ms": k3b_ms,
+                              "plain_ms": k3b_plain_ms, "max_abs_err": k3b_err,
+                              **dict(zip(("bound_ms", "bound_by"), k3_bound(WB, 1, cB))),
+                              "depth_floor_ms": k3_floor(WB, cB)}},
     }
     by_path = {"full": full["launches"], "A": path_a["launches"], "B": path_b["launches"],
                "batch": batch_launches}

@@ -265,3 +265,178 @@ def test_kernel_lanes_fill_one_wave(monkeypatch):
     assert pippenger._kernel_lanes(bls, 4, 100, None, "cpu") == 64  # at least one point per lane
     assert pippenger._kernel_lanes(bls, 100, 1 << 20, None, "cpu") == 1024  # never fewer
     assert pippenger._kernel_lanes(bls, 23, 1 << 21, 16, "cpu") == 16  # named lanes as given
+
+
+# ---------------------------------------------------------------------------
+# The schedules of the two reduction kernels, on the port's plain group ops:
+# csrc/reduce.cu finish_weight_kernel + finish_kernel (K3) and
+# csrc/bucket.cu lane_reduce_kernel (K4).  They add in other orders than the
+# plain versions, so results are compared as affine points.
+# ---------------------------------------------------------------------------
+
+WEIGHT_GROUPS = 16  # csrc/reduce.cu WEIGHT_THREADS / PAR_LANES
+
+
+def _take(points, idx):
+    return tuple(a[..., idx] for a in points)
+
+
+def _where(mask, a, b):
+    return tuple(torch.where(mask, x, y) for x, y in zip(a, b))
+
+
+def finish_schedule(curve, buckets, c):
+    """K3: at B > 1 the weighting launch -- group g of window w's block
+    takes buckets g, g + 16, ...; each a bit_length(B)-round ladder (double,
+    add, keep the sum where the bit is set), every group the same rounds;
+    the 16 groups summed as the kernel does (partners g^1, then g^2 inside a
+    warp, then the four warps in turn) -- then the fold, Horner from the top
+    window down."""
+    L, W, B = buckets[0].shape
+    if B == 1:
+        sums = tuple(a[:, :, 0] for a in buckets)
+    else:
+        bits = B.bit_length()
+        g = torch.arange(WEIGHT_GROUPS)
+        zero = group.zero(curve, (W, WEIGHT_GROUPS), "cpu")
+        acc = None
+        for b0 in range(0, B, WEIGHT_GROUPS):
+            b = b0 + g
+            s = _where(b < B, _take(buckets, b.clamp(max=B - 1)), zero)
+            lad = zero
+            for i in range(bits - 1, -1, -1):
+                lad = group.double(curve, lad)
+                t = group.add(curve, lad, s)
+                lad = _where(((b + 1) >> i) & 1 == 1, t, lad)
+            acc = lad if b0 == 0 else group.add(curve, acc, lad)
+        for off in (1, 2):
+            acc = group.add(curve, acc, _take(acc, g ^ off))
+        sums = _take(acc, 0)
+        for j in range(1, WEIGHT_GROUPS // 4):
+            sums = group.add(curve, sums, _take(acc, 4 * j))
+    return pippenger.window_fold(curve, sums, c)
+
+
+def lane_reduce_schedule(curve, raw, N):
+    """K4 over N lanes: (B, L, W, T) partials -> (L, W, B).  Lane g sums the
+    partials [g F / N, (g+1) F / N) in bucket-major order, a head piece and,
+    past its bucket's end, a tail piece (the head parked meanwhile), each
+    from its first partial; a segmented inclusive scan of the lanes' last
+    pieces over each warp of 32 (a segment starts at every piece that starts
+    a bucket; each lane adds its neighbour's piece to its own); runs that
+    start and end in one warp are written out, the others leave the warp's
+    first and last pieces, which the combine adds across warps."""
+    B, L, W, T = raw[0].shape
+    nb, F = W * B, W * B * T
+    P = tuple(a.permute(1, 2, 0, 3).reshape(L, F) for a in raw)  # bucket-major
+    g = torch.arange(N)
+    s, e = g * F // N, (g + 1) * F // N
+    n = e - s
+    hb = torch.where(s < F, s // T, nb - 1)
+    split = (hb + 1) * T
+    crossed, h_start, last_end = e > split, (n > 0) & (s % T == 0), (n > 0) & (e % T == 0)
+    zero = group.zero(curve, (N,), "cpu")
+    acc = _where(n > 0, _take(P, s.clamp(max=F - 1)), zero)
+    park = zero
+    for i in range(1, int(n.max())):
+        f = s + i
+        at_split = (i < n) & (f == split)
+        park = _where(at_split, acc, park)
+        acc = _where(at_split, zero, acc)
+        acc = _where(i < n, group.add(curve, acc, _take(P, f.clamp(max=F - 1))), acc)
+    flag = h_start | crossed
+    lane = g % 32
+    V, fl = acc, flag.clone()
+    for d in (1, 2, 4, 8, 16):
+        src = (g - d).clamp(min=0)
+        o, fo, up = _take(V, src), fl[src], lane >= d
+        V = _where(up & ~fl, group.add(curve, V, o), V)
+        fl = torch.where(up, fl | fo, fl)
+    o = _where(lane == 0, zero, _take(V, (g - 1).clamp(min=0)))
+    warp_flags = flag.reshape(-1, 32).to(torch.int64)
+    started_here = ((warp_flags.cumsum(1) - warp_flags) > 0).reshape(-1)
+    hv = _where(crossed, _where(h_start | (lane == 0), park, group.add(curve, park, o)), V)
+    out = {}
+    slot = {}
+    for k in range(N):
+        if crossed[k] or last_end[k]:
+            val = tuple(c[:, k] for c in hv)
+            if h_start[k] or started_here[k]:
+                out[int(hb[k])] = val
+            else:
+                slot[(k // 32, 0)] = val
+        if crossed[k] and last_end[k]:
+            out[int(hb[k]) + 1] = tuple(c[:, k] for c in V)
+        if k % 32 == 31 and not last_end[k]:
+            slot[(k // 32, 1)] = tuple(c[:, k] for c in V)
+
+    def lane_of(x):
+        return ((x + 1) * N - 1) // F
+
+    for b in range(nb):
+        i0, i1 = lane_of(b * T) // 32, lane_of((b + 1) * T - 1) // 32
+        if i0 == i1:
+            continue
+        tot = slot[(i0, 1)]
+        for i in range(i0 + 1, i1):
+            tot = group.add(curve, tot, slot[(i, 1)])
+        out[b] = group.add(curve, tot, slot[(i1, 0)])
+    return tuple(torch.stack([out[b][c] for b in range(nb)], dim=1).reshape(L, W, B) for c in range(3))
+
+
+def test_finish_schedule_matches_reference(shared):
+    """K3's schedule against the JAX package's finish kernel (interpret
+    mode) at B = 4, and at B = 1 (finish_large's fold); against finish_plain
+    at B = 32 (two rounds of the 16 groups) and B = 1."""
+    tb = to_torch(shared["buckets"])
+    got = finish_schedule(TOY, tb, C)
+    assert port_affine(tuple(x[:, None] for x in got)) == ref_affine(
+        tuple(c[:, None] for c in shared["finish_pt"])) == [shared["expected"]]
+    sums = pl_reduce.collapse_plain(TOY, tb)
+    got = finish_schedule(TOY, tuple(a[:, :, None] for a in sums), C)
+    assert port_affine(tuple(x[:, None] for x in got)) == ref_affine(
+        tuple(c[:, None] for c in shared["large_pt"]))
+    pts = random_points(TOY, 64, seed=60)
+    pts[5] = None
+    XY = to_torch(affine_np(TOY, pts))
+    P = group.from_affine(TOY, XY)
+    for W, B, c in ((2, 32, 6), (5, 1, 4), (1, 1, 4)):
+        bk = tuple(a[:, : W * B].reshape(a.shape[0], W, B) for a in P)
+        want = pl_reduce.finish_plain(TOY, bk, c)
+        got = finish_schedule(TOY, bk, c)
+        assert port_affine(tuple(x[:, None] for x in got)) == port_affine(tuple(x[:, None] for x in want))
+
+
+@pytest.mark.parametrize("N", [32, 64, 160])
+def test_lane_reduce_schedule_matches_reference(shared, N):
+    """K4's even split over N lanes against the JAX package's lane reduction
+    (interpret mode; T = 2, 12 buckets: lanes left empty at N > 24), and
+    against lane_reduce_plain at T = 37, 100, 200 (not multiples of the
+    warp; buckets ending inside a lane, on a lane's end, across warps),
+    with identity partials and P, -P pairs among them."""
+    assert port_affine(lane_reduce_schedule(TOY, to_torch(shared["raw"]), N)) == ref_affine(
+        shared["buckets"])
+    oc = oracle_of(TOY)
+    for T in (37, 100, 200):
+        pts = random_points(TOY, 3 * 2 * T, seed=61 + T)
+        for i in range(0, len(pts), 7):
+            pts[i] = None
+        pts[1] = oc.neg(pts[2])
+        raw = tuple(a.reshape(a.shape[0], 3, 2, T).permute(2, 0, 1, 3)  # (B=2, L, W=3, T)
+                    for a in group.from_affine(TOY, to_torch(affine_np(TOY, pts))))
+        want = pl_reduce.lane_reduce_plain(TOY, raw)
+        assert port_affine(lane_reduce_schedule(TOY, raw, N)) == port_affine(want)
+
+
+def test_reduce_lanes_follow_the_shape():
+    """Lanes of K4 from the shape (the card's resident count stands in for
+    the runtime's): whole warps per bucket where they fill three quarters of
+    a wave, else one wave of evenly loaded lanes; whole warps, at least a
+    lane per bucket, no more lanes than partials where that leaves a warp."""
+    assert pl_reduce._reduce_lanes(38 * 64, 1024, 50688) == 50688  # full: 49 partials a lane
+    assert pl_reduce._reduce_lanes(23 * 32, 2048, 50688) == 47104  # path A: 2 warps a bucket
+    assert pl_reduce._reduce_lanes(23 * 32, 2048, 33792) == 33792  # 1 warp a bucket: 70 %
+    assert pl_reduce._reduce_lanes(3000, 4, 2000) == 3008  # a lane per bucket at least
+    assert pl_reduce._reduce_lanes(12, 2, 50688) == 32  # 24 partials: one warp
+    assert pl_reduce._reduce_lanes(6, 100, 50688) == 608
+    assert pl_reduce._reduce_lanes(4, 4096, 50688) == 16384  # 4 warps a bucket: no more than T/32

@@ -163,16 +163,31 @@ def curve_consts(curve) -> np.ndarray:
     return block
 
 
-def kernel_info(stem: str, entry: str, nw: int) -> Dict[str, int]:
+@functools.lru_cache(maxsize=None)
+def b3_small(curve) -> int:
+    """3b as an integer, the curve constant of the level-parallel group ops
+    (csrc/par.cuh multiplies by it with additions): 12 on BLS12-381, 9 on
+    BN254.  Raises for a curve whose 3b does not fit one 32-bit word."""
+    curve_consts(curve)  # the same coverage as every kernel
+    k = 3 * curve.b
+    if not 0 < k < 1 << 32:
+        raise NotImplementedError(
+            f"{curve.name}: the window fold's group ops need 3b below 2^32"
+        )
+    return k
+
+
+def kernel_info(stem: str, entry: str, nw: int, *args: int) -> Dict[str, int]:
     """What the CUDA runtime says of one kernel of ``csrc/<stem>.cu`` at
     field width nw: registers per thread, local (stack and spill) bytes per
     thread, static shared bytes per block and resident blocks per SM
-    (``<entry>(nw, int out[4])``, csrc/async.cuh zp_kernel_info)."""
+    (``<entry>(nw, *args, int out[4])``, csrc/async.cuh zp_kernel_info;
+    ``args`` pick one kernel where an entry reports several)."""
     fn = getattr(load(stem), entry)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * (1 + len(args)) + [ctypes.c_void_p]
     out = (ctypes.c_int * 4)()
-    check_launch(fn(nw, ctypes.cast(out, ctypes.c_void_p)), entry)
+    check_launch(fn(nw, *args, ctypes.cast(out, ctypes.c_void_p)), entry)
     return dict(zip(("registers", "local_bytes", "shared_bytes", "blocks_per_sm"), out))
 
 
@@ -182,8 +197,9 @@ def check_launch(err: int, name: str) -> None:
     if err != 0:
         reason = {
             -1: "field width not instantiated",
-            -2: "bucket count not a power of two",
+            -2: "bucket count not a power of two, or lanes not whole warps covering every bucket",
             -3: "exponent length outside 1..32*MAX_WORDS bits",
             -4: "modulus top bit not free",
+            -5: "curve constant 3b does not fit a word",
         }.get(err, f"CUDA error {err}")
         raise KernelLaunchError(f"{name}: launch refused ({reason})")

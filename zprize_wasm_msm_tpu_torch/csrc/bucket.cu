@@ -16,7 +16,8 @@
 //   * u16 packing and passes of 8 windows to fit on-chip memory  ->  the
 //     state lives in device memory, W*T*B*3*NW*4 bytes, all windows in one
 //     launch;
-//   * roll-based tail steps  ->  a second kernel, one block per (w, b).
+//   * roll-based tail steps  ->  a second kernel over evenly split lanes
+//     (lane_reduce_kernel, its design below the sweep).
 //
 // What bounds the sweep on the H100, and what the design does about it.
 // The work is one mixed add (11 Montgomery products) per nonzero digit.
@@ -70,7 +71,7 @@
 #include "group.cuh"
 
 #define SWEEP_THREADS 64
-#define REDUCE_THREADS 64
+#define REDUCE_THREADS 128
 
 // digits [W][N] int32, X / Y [NW][N] words, state [W][T][B][3*NW] words.
 // Thread (w, t) takes points t, t+T, ... of window w into its row.
@@ -158,22 +159,170 @@ __global__ void __launch_bounds__(SWEEP_THREADS)
   }
 }
 
-// One block per (w, b): thread i sums lanes i, i+64, ... of that bucket, then
-// the block's partial sums are added through shared memory.
+// Lane reduction: state [W][T][B][3*NW] -> out [3][NW][W*B], the sum over T
+// of each (w, b).  Bound: operations (T-1 complete adds per bucket, 2.5 M
+// at the full path); the state is read once (358 MB at the full path,
+// 0.11 ms at 3.35 TB/s).  Like the sweep, each thread's adds are one
+// dependent chain whose rate hardly depends on how many warps share the SM
+// (chip_smoke.py times this kernel at several lane counts), so the time is
+// the longest chain of any thread, and lanes past one wave of resident
+// threads, or a wave left half empty, cost a whole chain more.  Hence a
+// flat split:
+//   * N lanes (the wrapper's choice: one wave of resident threads, and at
+//     least one lane per bucket), lane g sums the contiguous partials
+//     [g F / N, (g+1) F / N) of the F = W B T partials in bucket-major
+//     order: every lane the same count to within one, at most two buckets
+//     (a head piece and, past a bucket's end, a tail piece), each piece
+//     started from its first partial;
+//   * a 5-round segmented __shfl_up_sync scan of the lanes' last pieces
+//     over the warp (a segment starts at every piece that starts a
+//     bucket), the K7 pattern: a bucket whose pieces start and end inside
+//     one warp is written out there; the warp's first bucket, if it began
+//     in an earlier warp, and its last, if it goes on in the next, leave
+//     one piece each in `pieces`, and lane_combine_kernel adds a bucket's
+//     pieces across warps (one or two adds at the paths' shapes); a lane
+//     parks its head in `pieces` while it sums its tail, so the loop holds
+//     one running point;
+//   * the add is the inlined complete add on the carry-chain product
+//     (group.cuh pt_add_acc<NW, true>), its partial read in place from
+//     shared memory, and only two counters live through the loop: the
+//     kernel fits 168 registers without a spill, so 12 warps stay resident
+//     per SM (the 64-bit product form is faster per add but spills there);
+//   * the next partial (a contiguous 3 NW words) is copied by cp.async into
+//     the thread's own double-buffered shared slots while the add runs.
+// Static schedule, no atomics: the result is the same on every run.
+template <int NW>
+__global__ void __launch_bounds__(REDUCE_THREADS, 3)
+    lane_reduce_kernel(const uint32_t* __restrict__ state, uint32_t* __restrict__ out,
+                       uint32_t* __restrict__ pieces, int W, int T, int B, int N) {
+  constexpr int BW = 3 * NW;
+  // each thread's two slots, a point each, read in place by the adds
+  __shared__ Pt<NW> sh[2][REDUCE_THREADS];
+  const int tid = threadIdx.x;
+  const int g = blockIdx.x * REDUCE_THREADS + tid;
+  if (g >= N) return;  // whole warps: N is a multiple of 32
+  // F partials of 3 NW words each fit device memory, so F < 2^31
+  const int F = W * B * T;
+  auto addr = [&](int f) {
+    const int bk = f / T;
+    return state + (((size_t)(bk / B) * T + f % T) * B + bk % B) * BW;
+  };
+  auto fetch = [&](int buf, const uint32_t* src) {
+    uint32_t* dst = reinterpret_cast<uint32_t*>(&sh[buf][tid]);
+    if constexpr (BW % 4 == 0) {
+#pragma unroll
+      for (int k = 0; k < BW / 4; ++k) cp_async16(dst + 4 * k, src + 4 * k);
+    } else {
+#pragma unroll
+      for (int k = 0; k < BW; ++k) cp_async4(dst + k, src + k);
+    }
+  };
+  auto park = [&] { return pieces + ((size_t)(N / 32) * 2 + g) * BW; };  // this lane's head
+
+  Pt<NW> acc;  // the piece being summed
+  pt_identity<NW>(acc);
+  {
+    const int s = (int)((long)g * F / N), e = (int)((long)(g + 1) * F / N);
+    if (e > s) {
+      const int split = (s / T + 1) * T;  // the first partial of the tail
+      const uint32_t* src = addr(s);      // the partial in flight
+      fetch(0, src);
+      if (e > s + 1) {
+        src = s + 1 == split ? addr(split) : src + (size_t)B * BW;
+        fetch(1, src);
+      }
+      cp_async_commit();
+      cp_async_wait_all();
+      acc = sh[0][tid];
+      // two counters live through the loop: partials left, and steps to the
+      // tail's first partial (never 0 when there is no tail in this lane)
+      int left = e - s - 1, to_tail = split - s - 1, buf = 1;
+      for (; left > 0; --left, --to_tail, buf ^= 1) {
+        if (left > 1) {
+          src = to_tail == 1 ? addr(e - left + 1) : src + (size_t)B * BW;
+          fetch(buf ^ 1, src);
+        }
+        cp_async_commit();
+        if (to_tail == 0) {  // the tail begins: park the head
+          pt_store_aos<NW>(park(), acc);
+          pt_identity<NW>(acc);
+        }
+        pt_add_acc<NW, true>(acc, sh[buf][tid]);
+        cp_async_wait_all();
+      }
+    }
+  }
+  // this lane's bounds again, read afresh (not kept through the loop)
+  int gg;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(gg));
+  gg += blockIdx.x * REDUCE_THREADS;
+  const int s = (int)((long)gg * F / N), e = (int)((long)(gg + 1) * F / N);
+  const int split = (s / T + 1) * T;
+
+  // segmented inclusive scan of the lanes' last pieces over the warp, the
+  // neighbour's piece read from its slot in shared memory (no copy in
+  // registers); the add is symmetric, so V + o is o + V bit for bit.  Only
+  // s, e and split live through the adds here too: every other value is
+  // worked out where it is used.
+  const bool flag = e > split || (e > s && s % T == 0);  // a bucket starts in this lane
+  bool f = flag;
+  for (int d = 1; d < 32; d <<= 1) {
+    __syncwarp();
+    sh[0][tid] = acc;
+    __syncwarp();
+    const bool fo = __shfl_up_sync(0xFFFFFFFFu, (int)f, d) != 0;
+    if (tid % 32 >= d) {
+      if (!f) pt_add_acc<NW, true>(acc, sh[0][tid - d]);
+      f = f || fo;
+    }
+  }
+  __syncwarp();
+  sh[0][tid] = acc;  // lane l's run so far; lane l+1 reads it as its incoming run
+  __syncwarp();
+  const bool started_here = (__ballot_sync(0xFFFFFFFFu, flag) & ((1u << (tid % 32)) - 1)) != 0;
+  auto slot = [&] { return pieces + (size_t)(g / 32) * 2 * BW; };
+  auto head_bucket = [&] { return s < F ? s / T : W * B - 1; };
+  const bool last_end = e > s && e % T == 0;  // the last piece ends its bucket
+  if (tid % 32 == 31 && !last_end) pt_store_aos<NW>(slot() + BW, acc);  // goes on in the next warp
+  // the head's run, where it ends in this lane: complete if it began here
+  // or in an earlier lane of the warp, else the warp's first piece
+  if (e > split) {
+    if (last_end) pt_store_soa<NW>(out, (size_t)W * B, (size_t)head_bucket() + 1, acc);  // the tail
+    pt_load_aos<NW>(acc, park());
+    if (s % T != 0 && tid % 32 > 0) pt_add_acc<NW, true>(acc, sh[0][tid - 1]);  // lane 0: none
+  }
+  if (e > split || last_end) {
+    if ((e > s && s % T == 0) || started_here)
+      pt_store_soa<NW>(out, (size_t)W * B, (size_t)head_bucket(), acc);
+    else
+      pt_store_aos<NW>(slot(), acc);
+  }
+}
+
+// The buckets whose pieces span warps: one thread per bucket adds the last
+// piece of the warp where it begins, the whole-warp pieces after it and
+// the first piece of the warp where it ends.
 template <int NW>
 __global__ void __launch_bounds__(REDUCE_THREADS)
-    lane_reduce_kernel(const uint32_t* __restrict__ state, uint32_t* __restrict__ out, int W,
-                       int T, int B) {
-  __shared__ Pt<NW> sh[REDUCE_THREADS];
-  const int w = blockIdx.x / B, b = blockIdx.x % B;
+    lane_combine_kernel(const uint32_t* __restrict__ pieces, uint32_t* __restrict__ out, int W,
+                        int T, int B, int N) {
+  constexpr int BW = 3 * NW;
+  const long nb = (long)W * B, F = nb * T;
+  const long b = (long)blockIdx.x * REDUCE_THREADS + threadIdx.x;
+  if (b >= nb) return;
+  // the lane holding partial x: the largest g with g F / N <= x
+  auto lane_of = [&](long x) { return ((x + 1) * N - 1) / F; };
+  const long i0 = lane_of(b * T) / 32, i1 = lane_of((b + 1) * T - 1) / 32;
+  if (i0 == i1) return;  // written by its warp
   Pt<NW> acc, p;
-  pt_identity<NW>(acc);
-  for (int t = threadIdx.x; t < T; t += blockDim.x) {
-    pt_load_aos<NW>(p, state + (((size_t)w * T + t) * B + b) * (3 * NW));
-    pt_add<NW>(&acc, &acc, &p);
+  pt_load_aos<NW>(acc, pieces + (size_t)i0 * 2 * BW + BW);
+  for (long i = i0 + 1; i < i1; ++i) {
+    pt_load_aos<NW>(p, pieces + (size_t)i * 2 * BW + BW);
+    pt_add_acc<NW, true>(acc, p);
   }
-  block_sum<NW>(acc, sh);
-  if (threadIdx.x == 0) pt_store_soa<NW>(out, (size_t)W * B, (size_t)blockIdx.x, acc);
+  pt_load_aos<NW>(p, pieces + (size_t)i1 * 2 * BW);
+  pt_add_acc<NW, true>(acc, p);
+  pt_store_soa<NW>(out, (size_t)nb, (size_t)b, acc);
 }
 
 // digits [W][N] int32, X / Y [NW][N] words, state [W][T][B][3*NW] words
@@ -203,16 +352,32 @@ extern "C" int zp_bucket_sweep_info(int nw, int* out) {
   return -1;
 }
 
-// state [W][T][B][3*NW] words -> out [3][NW][W*B] words.
+// state [W][T][B][3*NW] words -> out [3][NW][W*B] words over N lanes (a
+// multiple of 32, at least W*B); pieces: scratch of 3*NW words twice per warp
+// (the warps' first and last pieces), then once per lane (parked heads).
 extern "C" int zp_lane_reduce(int nw, const uint32_t* host_consts, const uint32_t* state,
-                              uint32_t* out, int W, int T, int B, void* stream_ptr) {
+                              uint32_t* out, uint32_t* pieces, int W, int T, int B, int N,
+                              void* stream_ptr) {
+  if (N % 32 || N < W * B) return -2;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   int err = zp_set_consts(nw, host_consts, stream);
   if (err) return err;
-  const unsigned blocks = (unsigned)(W * B);
-#define CALL(NW_) \
-  lane_reduce_kernel<NW_><<<blocks, REDUCE_THREADS, 0, stream>>>(state, out, W, T, B)
+  const unsigned blocks = (unsigned)((N + REDUCE_THREADS - 1) / REDUCE_THREADS);
+  const unsigned cblocks = (unsigned)(((long)W * B + REDUCE_THREADS - 1) / REDUCE_THREADS);
+#define CALL(NW_)                                                                              \
+  lane_reduce_kernel<NW_><<<blocks, REDUCE_THREADS, 0, stream>>>(state, out, pieces, W, T, B, N); \
+  if (N > 32)                                                                                  \
+  lane_combine_kernel<NW_><<<cblocks, REDUCE_THREADS, 0, stream>>>(pieces, out, W, T, B, N)
   ZP_DISPATCH_NW(nw, CALL)
 #undef CALL
   return (int)cudaGetLastError();
+}
+
+// out[0..4]: registers, local bytes, static shared bytes, resident blocks
+// per SM of lane_reduce_kernel<nw> (zp_kernel_info).
+extern "C" int zp_lane_reduce_info(int nw, int* out) {
+#define CALL(NW_) return zp_kernel_info(lane_reduce_kernel<NW_>, REDUCE_THREADS, out)
+  ZP_DISPATCH_NW(nw, CALL)
+#undef CALL
+  return -1;
 }

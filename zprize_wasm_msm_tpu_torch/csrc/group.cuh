@@ -10,14 +10,17 @@
 // (ops/curve/group.py) bit for bit.
 //
 // pt_add_mixed, the per-step operation of both sweeps (bucket.cu K1,
-// sorted.cu K7), is inlined and takes its operands by reference: the
-// point, the accumulator and every temporary stay in registers, and nvcc
-// schedules its 11 products (fe_mul_cc, the carry-chain form that leaves
-// the sweeps the most resident warps) into the sweep's loop.  pt_add and
-// pt_double run a few thousand times per MSM (K2-K4, K8, the combine of
-// K7's sub-chunks) and stay __noinline__: one body each per field width
-// and library keeps nvcc's time in check (twelve fully unrolled products
-// per body); their operands cross the call through the thread's stack.
+// sorted.cu K7), and pt_add_acc, the per-step operation of the lane
+// reduction (bucket.cu K4, and its combine), are inlined and take their operands by
+// reference: the point, the accumulator and every temporary stay in
+// registers, and nvcc schedules their products (fe_mul_cc, the carry-chain
+// form that leaves the most resident warps) into the kernel's loop.
+// pt_add and pt_double run a few thousand times per MSM (K2, K8, the
+// combine of K7's sub-chunks) and stay __noinline__: one body each per
+// field width and library keeps nvcc's time in check (twelve fully
+// unrolled products per body); their operands cross the call through the
+// thread's stack.  The window fold (reduce.cu K3) runs its chain on the
+// level-parallel forms of par.cuh.
 #pragma once
 
 #include "field.cuh"
@@ -95,14 +98,13 @@ __device__ __forceinline__ void pt_add_mixed(Pt<NW>& acc, const Fe<NW>& X2, cons
   pt_add_tail<NW, true>(acc, t0, t1, t3, t4, Yr, t2b);
 }
 
-// r = p + q: complete projective addition, RCB16 algorithm 7 (12 products).
-// CC picks the product (see mul); K7 calls the carry-chain form from the
-// sweep: a callee of fewer registers leaves the sweep's live registers in
-// place across the call, where the 64-bit form makes ptxas spill them.
-template <int NW, bool CC = false>
-__device__ __noinline__ void pt_add(Pt<NW>* r, const Pt<NW>* p, const Pt<NW>* q) {
-  const Fe<NW> X1 = p->x, Y1 = p->y, Z1 = p->z;
-  const Fe<NW> X2 = q->x, Y2 = q->y, Z2 = q->z;
+// r = (X1 : Y1 : Z1) + (X2 : Y2 : Z2): complete projective addition, RCB16
+// algorithm 7 (12 products), inlined.  Every operand is read before r is
+// first written.  CC picks the product (see mul).
+template <int NW, bool CC>
+__device__ __forceinline__ void pt_add_body(Pt<NW>& r, const Fe<NW>& X1, const Fe<NW>& Y1,
+                                            const Fe<NW>& Z1, const Fe<NW>& X2,
+                                            const Fe<NW>& Y2, const Fe<NW>& Z2) {
   Fe<NW> b3, t0, t1, t2, A, t3, t4, Yr, t2b, u, v;
   fe_b3<NW>(b3);
   mul<NW, CC>(t0, X1, X2);
@@ -124,7 +126,26 @@ __device__ __noinline__ void pt_add(Pt<NW>* r, const Pt<NW>* p, const Pt<NW>* q)
   fe_sub<NW>(Yr, A, t0);
   fe_sub<NW>(Yr, Yr, t2);
   mul<NW, CC>(t2b, b3, t2);
-  pt_add_tail<NW, CC>(*r, t0, t1, t3, t4, Yr, t2b);
+  pt_add_tail<NW, CC>(r, t0, t1, t3, t4, Yr, t2b);
+}
+
+// acc += q, inlined; q (which may not alias acc) is read where its words
+// are used, so a q in shared memory takes no registers before then.
+template <int NW, bool CC>
+__device__ __forceinline__ void pt_add_acc(Pt<NW>& acc, const Pt<NW>& q) {
+  const Fe<NW> X1 = acc.x, Y1 = acc.y, Z1 = acc.z;
+  pt_add_body<NW, CC>(acc, X1, Y1, Z1, q.x, q.y, q.z);
+}
+
+// r = p + q out of line; r may alias p or q.  K7 calls the carry-chain form
+// from the sweep: a callee of fewer registers leaves the sweep's live
+// registers in place across the call, where the 64-bit form makes ptxas
+// spill them.
+template <int NW, bool CC = false>
+__device__ __noinline__ void pt_add(Pt<NW>* r, const Pt<NW>* p, const Pt<NW>* q) {
+  const Fe<NW> X1 = p->x, Y1 = p->y, Z1 = p->z;
+  const Fe<NW> X2 = q->x, Y2 = q->y, Z2 = q->z;
+  pt_add_body<NW, CC>(*r, X1, Y1, Z1, X2, Y2, Z2);
 }
 
 // r = 2p: complete projective doubling, RCB16 algorithm 9 (8 products).

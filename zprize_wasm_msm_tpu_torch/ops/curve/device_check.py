@@ -19,24 +19,39 @@ from ... import _build
 from ..msm import _launch
 from .spec import CurveSpec
 
-#: fe_mul / fe_add / fe_sub / fe_neg, and fe_mul_cc (the carry-chain product)
-FIELD_OPS = {"mul": 0, "add": 1, "sub": 2, "neg": 3, "mul_cc": 4}
-#: pt_add_mixed / pt_add / pt_double, and pt_add on the carry-chain product
-GROUP_OPS = {"add_mixed": 0, "add": 1, "double": 2, "add_cc": 3}
+#: fe_mul / fe_add / fe_sub / fe_neg, fe_mul_cc (the carry-chain product),
+#: fe_mul_small (3b * a by additions, as par.cuh's group ops take it) and
+#: fe_mul_coop (one product shared by several lanes, coop.cuh)
+FIELD_OPS = {"mul": 0, "add": 1, "sub": 2, "neg": 3, "mul_cc": 4, "mul_b3": 5, "mul_coop": 6}
+#: pt_add_mixed / pt_add / pt_double, pt_add on the carry-chain product, and
+#: the level-parallel doubling and addition of par.cuh with a product to a
+#: lane ("_par") and with cooperative products ("_coop")
+GROUP_OPS = {
+    "add_mixed": 0, "add": 1, "double": 2, "add_cc": 3,
+    "double_par": 4, "add_par": 5, "double_coop": 6, "add_coop": 7,
+}
+#: the dependent chains zp_group_chain times
+CHAIN_OPS = {"double_par": 0, "add_par": 1, "double_coop": 2, "add_coop": 3}
+
+_ARGTYPES = (
+    [ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int]
+    + [ctypes.c_void_p] * 3
+    + [ctypes.c_int, ctypes.c_void_p]
+)
+
+
+def _entry(name):
+    fn = getattr(_build.load("check"), name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = _ARGTYPES
+    return fn
 
 
 def field_op(curve: CurveSpec, op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """fe_mul / fe_add / fe_sub / fe_neg (of a) / fe_mul_cc on (L, n) int64
-    batches."""
+    """fe_mul / fe_add / fe_sub / fe_neg (of a) / fe_mul_cc / fe_mul_small
+    by 3b (of a) / fe_mul_coop on (L, n) int64 batches."""
     _launch.use_kernel("kernel", a)
-    lib = _build.load("check")
-    fn = lib.zp_field_op
-    fn.restype = ctypes.c_int
-    fn.argtypes = (
-        [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-        + [ctypes.c_void_p] * 3
-        + [ctypes.c_int, ctypes.c_void_p]
-    )
+    fn = _entry("zp_field_op")
     L, n = a.shape
     _launch.check_limbs("a", a, (curve.fq.n_limbs, n), a.device)
     _launch.check_limbs("b", b, (L, n), a.device)
@@ -44,8 +59,8 @@ def field_op(curve: CurveSpec, op: str, a: torch.Tensor, b: torch.Tensor) -> tor
     out = torch.empty_like(aw)
     err = fn(
         curve.fq.n_words, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p),
-        FIELD_OPS[op], _launch.ptr(aw), _launch.ptr(bw), _launch.ptr(out), n,
-        _launch.stream_ptr(),
+        _build.b3_small(curve), FIELD_OPS[op], _launch.ptr(aw), _launch.ptr(bw),
+        _launch.ptr(out), n, _launch.stream_ptr(),
     )
     _build.check_launch(err, f"field_op {op}")
     return _launch.unpack_point(out[None], (n,))[0]
@@ -53,17 +68,11 @@ def field_op(curve: CurveSpec, op: str, a: torch.Tensor, b: torch.Tensor) -> tor
 
 def group_op(curve: CurveSpec, op: str, p, q):
     """pt_add_mixed (q's X, Y as the affine operand) / pt_add / pt_double
-    (of p) / pt_add<NW, true> on projective batches, each coordinate (L, n)
-    int64."""
+    (of p) / pt_add<NW, true> / pt_double_par (of p) / pt_add_par, the last
+    two with a product to a lane or cooperative products, on projective
+    batches, each coordinate (L, n) int64."""
     _launch.use_kernel("kernel", p[0])
-    lib = _build.load("check")
-    fn = lib.zp_group_op
-    fn.restype = ctypes.c_int
-    fn.argtypes = (
-        [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-        + [ctypes.c_void_p] * 3
-        + [ctypes.c_int, ctypes.c_void_p]
-    )
+    fn = _entry("zp_group_op")
     L, n = p[0].shape
     for name, t in zip(("px", "py", "pz", "qx", "qy", "qz"), tuple(p) + tuple(q)):
         _launch.check_limbs(name, t, (curve.fq.n_limbs, n), p[0].device)
@@ -71,8 +80,26 @@ def group_op(curve: CurveSpec, op: str, p, q):
     out = torch.empty_like(pw)
     err = fn(
         curve.fq.n_words, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p),
-        GROUP_OPS[op], _launch.ptr(pw), _launch.ptr(qw), _launch.ptr(out), n,
-        _launch.stream_ptr(),
+        _build.b3_small(curve), GROUP_OPS[op], _launch.ptr(pw), _launch.ptr(qw),
+        _launch.ptr(out), n, _launch.stream_ptr(),
     )
     _build.check_launch(err, f"group_op {op}")
     return _launch.unpack_point(out, (n,))
+
+
+def group_chain(curve: CurveSpec, op: str, p, q, reps: int):
+    """``reps`` dependent pt_double_par (of p) or pt_add_par (q into p) on
+    one point, one warp, a product to a lane or cooperative products: the
+    links of the window fold's chain, for timing.
+    p, q: projective points, each coordinate (L, 1) int64."""
+    _launch.use_kernel("kernel", p[0])
+    fn = _entry("zp_group_chain")
+    pw, qw = _launch.pack_point(p), _launch.pack_point(q)
+    out = torch.empty_like(pw)
+    err = fn(
+        curve.fq.n_words, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p),
+        _build.b3_small(curve), CHAIN_OPS[op], _launch.ptr(pw), _launch.ptr(qw),
+        _launch.ptr(out), reps, _launch.stream_ptr(),
+    )
+    _build.check_launch(err, f"group_chain {op}")
+    return _launch.unpack_point(out, (1,))

@@ -4,13 +4,17 @@ a CUDA kernel and as plain PyTorch.
 They replace the TPU kernels of zprize_wasm_msm_tpu/ops/msm/pl_reduce.py:
 
   lane_reduce   (``_lane_reduce_kernel``): (B, L, W, T) lane partials ->
-                (L, W, B).  csrc/bucket.cu lane_reduce_kernel; also the
-                second launch of pl_bucket.bucket_accumulate.
+                (L, W, B).  csrc/bucket.cu lane_reduce_kernel (the
+                partials split evenly over one wave of lanes: _reduce_lanes)
+                + lane_combine_kernel; also the second launch of
+                pl_bucket.bucket_accumulate.
   finish_large  (``_collapse_kernel``): per window sum_b (b+1) S_{w,b}
                 (csrc/reduce.cu collapse_kernel, any power-of-two B), then
                 finish at B = 1.
   finish        (``_finish_kernel``): sum_w 2^(c w) sum_b (b+1) S_{w,b} ->
-                ONE point (csrc/reduce.cu finish_kernel, one block).
+                ONE point (csrc/reduce.cu: finish_weight_kernel, a block per
+                window, when B > 1; then finish_kernel, one warp, the
+                window fold by Horner's rule).
 
 Reference lineage: reduceBucketsToSinglePoint (running sum over buckets,
 wasmcurves/src/build_multiexp_opt.js:1597-1706) + accumulateAcrossChunks
@@ -27,6 +31,7 @@ Wrappers take and return the package's public layout ((L, ...) int64
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -62,19 +67,55 @@ def lane_reduce_plain(curve: CurveSpec, buckets):
     )
 
 
-def _lane_reduce_state(curve: CurveSpec, state: torch.Tensor):
+#: threads per block of the lane-reduction kernel (csrc/bucket.cu REDUCE_THREADS)
+REDUCE_THREADS = 128
+
+
+def _reduce_lanes(buckets: int, T: int, resident: int) -> int:
+    """Lanes of the lane reduction for ``buckets`` buckets of T partials,
+    from the shape and the ``resident`` threads of one wave.  Each lane's
+    adds are one dependent chain (csrc/bucket.cu), so one wave of evenly
+    loaded lanes gives the shortest longest chain.  Where whole warps per
+    bucket (32 k lanes each) still fill three quarters of that wave, take
+    them: no lane then crosses a bucket and no bucket more warps than it
+    needs (path A: 2 warps a bucket, 47 104 lanes; measured faster there than
+    the full wave by chip_smoke.py).  Else the full wave, whole warps, at
+    least one lane per bucket so that a lane's share touches at most two
+    buckets (the full path: 50 688 lanes of 49 partials; counts on a card
+    that keeps 50 688 resident)."""
+    k = min(resident // (32 * buckets), T // 32)
+    if k >= 1 and 32 * k * buckets * 4 >= 3 * resident:
+        return 32 * k * buckets
+    n = max(buckets, min(resident, buckets * T))
+    return -(-n // 32) * 32
+
+
+@functools.lru_cache(maxsize=None)
+def _reduce_resident_threads(nw: int, device_index: int) -> int:
+    blocks = _build.kernel_info("bucket", "zp_lane_reduce_info", nw)["blocks_per_sm"]
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return blocks * REDUCE_THREADS * sms
+
+
+def _lane_reduce_state(curve: CurveSpec, state: torch.Tensor, lanes=None):
     """Launch the lane-reduction kernel on the sweep's native state,
-    (W, T, B, 3*NW) int32 words -> (X, Y, Z) each (L, W, B) int64."""
+    (W, T, B, 3*NW) int32 words -> (X, Y, Z) each (L, W, B) int64.
+    ``lanes`` (a multiple of 32, at least W*B) is _reduce_lanes' choice
+    unless given."""
     lib = _build.load("bucket")
     fn = lib.zp_lane_reduce
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     NW = curve.fq.n_words
     W, T, B, _ = state.shape
+    N = lanes or _reduce_lanes(W * B, T, _reduce_resident_threads(NW, state.device.index or 0))
     out = torch.empty((3, NW, W * B), dtype=torch.int32, device=state.device)
+    # the warps' first and last pieces, then one parked head per lane
+    pieces = torch.empty((2 * (N // 32) + N, 3 * NW), dtype=torch.int32, device=state.device)
     err = fn(
         NW, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p),
-        _launch.ptr(state), _launch.ptr(out), W, T, B, _launch.stream_ptr(),
+        _launch.ptr(state), _launch.ptr(out), _launch.ptr(pieces), W, T, B, N,
+        _launch.stream_ptr(),
     )
     _build.check_launch(err, "lane_reduce")
     launches["lane_reduce"] += 1
@@ -125,15 +166,19 @@ def finish(curve: CurveSpec, buckets, c: int, impl: str = "auto"):
     lib = _build.load("reduce")
     fn = lib.zp_finish
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = (
+        [ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32] + [ctypes.c_void_p] * 3
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    )
     NW = curve.fq.n_words
     dev = buckets[0].device
     S = _launch.pack_point(buckets)
-    scratch = torch.empty((W * B, 3 * NW), dtype=torch.int32, device=dev)
+    sums = torch.empty((3, NW, W), dtype=torch.int32, device=dev)  # the window sums, B > 1
     out = torch.empty((3, NW, 1), dtype=torch.int32, device=dev)
     err = fn(
-        NW, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p), _launch.ptr(S),
-        _launch.ptr(scratch), _launch.ptr(out), W, B, c, B.bit_length(), _launch.stream_ptr(),
+        NW, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p), _build.b3_small(curve),
+        _launch.ptr(S), _launch.ptr(sums), _launch.ptr(out), W, B, c, B.bit_length(),
+        _launch.stream_ptr(),
     )
     _build.check_launch(err, "finish")
     launches["finish"] += 1
