@@ -7,8 +7,9 @@ What it does, in order (any failure exits non-zero and prints no result):
   1. refuses to run without a CUDA device;
   2. builds every CUDA kernel from zprize_wasm_msm_tpu_torch/csrc/ with nvcc
      (all sources in parallel) into build/, prints ptxas's registers and
-     spills per kernel and fails if a sweep kernel (K1, K7) or a reduction
-     kernel (K3's two launches, K4's two) spills;
+     spills per kernel and fails if a sweep kernel (K1, K7), a reduction
+     kernel (K2's collapse and combine, K3's fold,
+     K4's two) or a field kernel (K5, K6, the inversion) spills;
   3. holds the device functions (field and group ops of csrc/field.cuh and
      csrc/group.cuh, both product forms and the complete add on each, and
      the window fold's level-parallel doubling and addition of
@@ -18,7 +19,10 @@ What it does, in order (any failure exits non-zero and prints no result):
      for bit against the plain PyTorch ops, on the toy field, BN254 Fq and
      BLS12-381 Fq (every field width the sources instantiate), edge values
      0, 1, q-1, (q+-1)/2 and words of all ones (long carry ripples)
-     included;
+     included; and the inversion kernel (a binary GCD of fixed length)
+     against the Fermat ladder on the three fields: 0, 1, 2, q-1, (q+-1)/2,
+     R mod q, R^-1 mod q, every power of two below R and 4 096 random
+     elements, bit for bit, and x * x^-1 = 1;
   4. holds each kernel against its plain PyTorch version at small shapes on
      the toy curve, BN254 and BLS12-381 (zero digits, +-B digits, (0,0)
      points, repeated points that force the doubling case inside a bucket;
@@ -33,7 +37,9 @@ What it does, in order (any failure exits non-zero and prints no result):
      P and -P, a fold ending on Q + (-Q), W*B = 1024, B = 1;
      k4_adversarial: identity partials, equal partials, P, -P pairs, T not
      a multiple of the warp, lane counts that end buckets inside lanes, on
-     lane ends and across warps);
+     lane ends and across warps; k2_adversarial: identity buckets, every
+     bucket one point, only bucket 0, only the top bucket, P and -P in one
+     window, at B = 1, 2, 64, 512, 4096 and W = 1, 15, 38);
   5. drives three paths of the public API on BLS12-381 G1 at N = 2^20
      distinct bases (build_bls12381().msm -> result_to_affine), each a few
      timed repetitions, with every kernel's launch count zeroed just before
@@ -53,7 +59,12 @@ What it does, in order (any failure exits non-zero and prints no result):
      registers, resident warps per SM, ns per add and their time over their
      bound; K3 its bound and its depth floor (c (W-1) doublings and W-1
      additions at the latency of one level-parallel doubling and addition,
-     timed here) at all three paths' shapes.
+     timed here) at all three paths' shapes; K2 its plan (buckets per run,
+     groups, the wave), its depth floor (the links of its longest chain at
+     the same latencies) and its time at every run length up to 64 (each
+     held against the plain version), at the full path's and path B's
+     shapes;
+     the inversion at one element.
 
 Output: one JSON object per line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -371,6 +382,85 @@ def k4_adversarial(curve, dev, rng):
     return out
 
 
+def k2_adversarial(curve, dev, rng):
+    """K2 (collapse_kernel + combine_kernel) against collapse_plain, as
+    affine points, at B in (1, 2, 64, 512, 4096) and W in (1, 15, 38): every
+    bucket the identity, every bucket one point (the tree adds equal
+    points), only bucket 0, only the top bucket, -P and P at weights 1 and 2
+    (-P + 2P, and in the tree runs that cancel); at W = 15 and 38 the
+    five cases are windows of one call beside random ones, at W = 1 each
+    bucket count takes one of them.  Returns {case: max |err|}."""
+    import zprize_wasm_msm_tpu_torch as Z
+    from zprize_wasm_msm_tpu_torch.ops.curve import group
+    from zprize_wasm_msm_tpu_torch.ops.msm import pl_reduce
+
+    ctx = Z.build_curve(curve, device=dev)
+    (X, Y), _, _ = _make_bases(ctx, 10, rng, dev)
+    P = group.from_affine(curve, (X, Y))
+    npts = X.shape[1]
+    ident = tuple(z[:, None] for z in group.zero(curve, (), dev))
+    p0 = tuple(a[:, 5:6] for a in P)
+    neg = group.neg(curve, p0)
+
+    def window(case, B):
+        """(L, B) x3 buckets of one window."""
+        idx = torch.as_tensor(rng.integers(0, npts, size=B), device=dev)
+        w = [a[:, idx].clone() for a in P]
+        for i in range(3):
+            if case == "identity buckets":
+                w[i][:] = ident[i]
+            elif case == "every bucket one point":
+                w[i][:] = p0[i]
+            elif case in ("only bucket 0", "only the top bucket"):
+                keep = 0 if case == "only bucket 0" else B - 1
+                w[i][:] = ident[i]
+                w[i][:, keep] = P[i][:, 7]
+            elif case == "P and -P" and B >= 2:
+                w[i][:, 0] = neg[i][:, 0]  # weight 1: -P
+                w[i][:, 1] = p0[i][:, 0]  # weight 2: P (P and -P in one window)
+        return w
+
+    cases = ("identity buckets", "every bucket one point", "only bucket 0",
+             "only the top bucket", "P and -P")
+    out = {}
+    for i, B in enumerate((1, 2, 64, 512, 4096)):
+        # W = 1: one case a bucket count, each case at one of them
+        calls = [(f"{cases[i]}, W=1", [cases[i]])]
+        calls += [(f"the five cases and random windows, W={W}", list(cases) + ["random"] * (W - 5))
+                  for W in (15, 38)]
+        for name, kinds in calls:
+            wins = [window(k, B) for k in kinds]
+            bk = tuple(torch.stack([w[i] for w in wins], dim=1).contiguous() for i in range(3))
+            got = pl_reduce.collapse(curve, bk)
+            want = pl_reduce.collapse_plain(curve, bk)
+            out[f"B={B}: {name}"] = affine_err(curve, got, want)
+    return out
+
+
+def inverse_check(fq, dev, rng):
+    """field_inverse_kernel against inverse_plain (Fermat), limbs bit for
+    bit, on the stored values 0, 1, 2, q-1, (q+-1)/2, R mod q, R^{-1} mod q,
+    powers of two and 4 096 random values; and x * x^{-1} = 1 (x != 0).
+    Returns the number of elements held."""
+    from zprize_wasm_msm_tpu_torch.ops.field import kernels as field_kernels
+    from zprize_wasm_msm_tpu_torch.ops.field import mont
+    from zprize_wasm_msm_tpu_torch.utils.limbs import ints_to_limbs
+
+    q, R = fq.q, 1 << (32 * fq.n_words)
+    vals = [0, 1, 2, q - 1, (q - 1) // 2, (q + 1) // 2, R % q, pow(R, -1, q)]
+    vals += [pow(2, k, q) for k in range(32 * fq.n_words)]
+    vals += [int.from_bytes(rng.bytes(64), "little") % q for _ in range(4096)]
+    x = torch.as_tensor(ints_to_limbs(vals, fq.n_limbs).astype(np.int64), device=dev)
+    got = field_kernels.inverse(fq, x)
+    want = field_kernels.inverse_plain(fq, x)
+    torch.cuda.synchronize()
+    check(bool((got == want).all()), f"{fq!r}: field inverse kernel != mont.inverse")
+    one = mont.mont_mul(fq, x, got)
+    ok = (one == mont.one_mont(fq, (len(vals),), dev)).all(0) | (x == 0).all(0)
+    check(bool(ok.all()), f"{fq!r}: x * inverse(x) != 1")
+    return len(vals)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", nargs="?", const="", default=None, metavar="DIR",
@@ -436,7 +526,7 @@ def main() -> None:
         """ptxas's registers, stack frame and spills of kernel<nw> and what
         the runtime says of it (registers, local bytes, blocks per SM;
         entry None: ptxas only); fails on a spill."""
-        tag = f"{kernel}ILi{nw}E"
+        tag = f"{len(kernel)}{kernel}ILi{nw}E"  # as mangled: combine_kernel is not lane_combine_kernel
         found = [v for k, v in ptxas_by_kernel.items() if tag in k]
         check(len(found) == 1, f"no ptxas report for {tag}")
         spill = [int(w) for w in found[0]["spill"].split() if w.isdigit()]
@@ -459,14 +549,22 @@ def main() -> None:
     reduce_res = {
         (name, nw): kernel_resources(stem, kernel, entry, nw, threads, *args)
         for name, stem, kernel, entry, threads, args in (
-            ("finish (fold)", "reduce", "finish_kernel", "zp_finish_info", 32, (0,)),
-            ("finish (weighting)", "reduce", "finish_weight_kernel", "zp_finish_info", 128, (1,)),
+            ("finish (fold)", "reduce", "finish_kernel", "zp_finish_info", 32, ()),
+            ("collapse", "reduce", "collapse_kernel", "zp_collapse_info", 128, (0,)),
+            ("collapse (combine)", "reduce", "combine_kernel", "zp_collapse_info", 128, (1,)),
             ("lane_reduce", "bucket", "lane_reduce_kernel", "zp_lane_reduce_info", 128, ()),
             ("lane_reduce (combine)", "bucket", "lane_combine_kernel", None, 128, ()),
         )
         for nw in _build.SUPPORTED_WORDS
     }
     emit({"reduce_resources": {f"{k[0]} NW={k[1]}": v for k, v in reduce_res.items()}})
+    field_res = {
+        (kernel, nw): kernel_resources("field_kernels", kernel, "zp_field_info", nw, threads, which)
+        for which, (kernel, threads) in enumerate(
+            (("mont_mul_kernel", 128), ("mont_square_kernel", 128), ("field_inverse_kernel", 64)))
+        for nw in _build.SUPPORTED_WORDS
+    }
+    emit({"field_resources": {f"{k[0]} NW={k[1]}": v for k, v in field_res.items()}})
 
     def oracle_of(curve):
         return OracleCurve(q=curve.q, a=0, b=curve.b, r=curve.r, gx=curve.gx, gy=curve.gy)
@@ -522,12 +620,6 @@ def main() -> None:
         ):
             torch.cuda.synchronize()
             check(bool((got == ref).all()), f"{curve.name}: {what} kernel != mont")
-        # the inversion kernel against the plain Fermat ladder: 0, 1, q-1, ...
-        inv_in = torch.cat([a[:, 0:25:6], a[:, 25:28]], dim=1).contiguous()
-        got = field_kernels.inverse(fq, inv_in)
-        torch.cuda.synchronize()
-        check(bool((got == field_kernels.inverse_plain(fq, inv_in)).all()),
-              f"{curve.name}: inverse kernel != mont.inverse")
         # group ops: generic points, identity, P = Q, P = -Q, affine (0,0)
         (PX, PY), _, _ = make_bases(ctx, 6, rng)
         QX, QY = PX.roll(1, dims=1).clone(), PY.roll(1, dims=1).clone()
@@ -567,10 +659,19 @@ def main() -> None:
             for g, r in zip(got, ref):
                 check(bool((g == r).all()), f"{curve.name}: device pt_{op} != group on edge coordinates")
         dev_fn_report[curve.name] = (
-            "mul/mul_cc/mul_b3/mul_coop/add/sub/neg + mont_mul/mont_square/inverse kernels"
+            "mul/mul_cc/mul_b3/mul_coop/add/sub/neg + mont_mul/mont_square kernels"
             " + add_mixed/add/add_cc/double/add_par/double_par/add_coop/double_coop bit-equal"
         )
     emit({"device_functions": dev_fn_report, "seconds": round(time.perf_counter() - t0, 2)})
+
+    # the field inversion (a binary GCD of fixed length) against the Fermat
+    # ladder on all three fields: edge values, powers of two, 4 096 random
+    # values; a generator of its own, so the paths below get the same data
+    t0 = time.perf_counter()
+    inv_rng = np.random.default_rng(SEED + 3)
+    inv_report = {c.name: inverse_check(c.fq, dev, inv_rng) for c in (toy, bn254, bls12_381)}
+    emit({"field_inverse_check": {"elements_bit_equal": inv_report, "tolerance": 0,
+                                  "seconds": round(time.perf_counter() - t0, 2)}})
 
     # ---- 4. kernels against their plain versions, small shapes ---------------
     def kernel_checks(curve, log2n, c, max_bits, lanes, tag):
@@ -730,6 +831,10 @@ def main() -> None:
             adversarial[f"K3 {c_curve.name}: {case}"] = e
         for case, e in k4_adversarial(c_curve, dev, red_rng).items():
             adversarial[f"K4 {c_curve.name}: {case}"] = e
+    k2_rng = np.random.default_rng(SEED + 2)
+    for c_curve in (toy, bn254, bls12_381):
+        for case, e in k2_adversarial(c_curve, dev, k2_rng).items():
+            adversarial[f"K2 {c_curve.name}: {case}"] = e
     torch.cuda.synchronize()
     for case, e in adversarial.items():
         check(e == 0, f"{case}: kernel disagrees with its plain version (max |err| {e})")
@@ -1031,14 +1136,55 @@ def main() -> None:
     })
     del state
 
-    # K2 collapse
+    # the links of the reductions' chains: one level-parallel doubling and
+    # addition, each timed as a chain of 2 000 in one warp (csrc/check.cu
+    # group_chain_kernel), with a product to a lane ("_par") and with
+    # cooperative products ("_coop", what finish_kernel and the collapse run)
+    pt1 = tuple(x[:, :1, 0].contiguous() for x in kernel_buckets)
+    pt2 = tuple(x[:, 1:2, 0].contiguous() for x in kernel_buckets)
+    link_us = {}
+    for op in device_check.CHAIN_OPS:
+        device_check.group_chain(curve, op, pt1, pt2, 10)
+        _, ms = sync_ms(lambda: device_check.group_chain(curve, op, pt1, pt2, 2000), 2)
+        link_us[op] = ms / 2000 * 1e3
+
+    # K2 collapse: the wrapper, its plan (buckets per run, groups, the wave),
+    # its depth floor (the longest chain's links at one warp's latency)
+    wave = pl_reduce._collapse_wave_groups(NW, 0)
+
+    def k2_floor(W_, B_):
+        """(buckets a run, links, depth floor ms) of the collapse at (W_, B_)."""
+        m = pl_reduce._collapse_run(W_, B_, wave)
+        adds, dbls = pl_reduce._collapse_links(B_, m)
+        return m, (adds, dbls), (adds * link_us["add_coop"] + dbls * link_us["double_coop"]) / 1e3
+
+    def k2_entry(bk, W_, B_, ref):
+        """K2's plan, depth floor, and its launches at every run length up
+        to 64, each held against ``ref`` and timed over 3 calls; and the
+        wrapper over 10 calls."""
+        m, (adds, dbls), floor_ms = k2_floor(W_, B_)
+        ms = {}
+        for k in range(min(B_, 64).bit_length()):
+            got = pl_reduce._collapse_launch(curve, bk, 1 << k)
+            e = affine_err(curve, tuple(got), ref)
+            check(e == 0, f"collapse at {1 << k} buckets a run disagrees with plain (max |err| {e})")
+            _, ms[f"{1 << k} buckets a run"] = sync_ms(
+                lambda: pl_reduce._collapse_launch(curve, bk, 1 << k), 3)
+        return {
+            "ms_10_calls": sync_ms(lambda: pl_reduce.collapse(curve, bk), 10)[1],
+            "ms_by_run": ms, "buckets_per_run": m, "groups": W_ * B_ // m,
+            "lanes_per_group": pl_reduce._collapse_lanes(NW), "wave_groups": wave,
+            "depth_links": {"additions": adds, "doublings": dbls},
+            "depth_floor_ms": floor_ms,
+        }
+
     pl_reduce.collapse(curve, kernel_buckets)
     k2_out, k2_ms = sync_ms(lambda: pl_reduce.collapse(curve, kernel_buckets), 3)
     k2_ref, k2_plain_ms = staged(lambda: pl_reduce.collapse_plain(curve, kernel_buckets))
     k2_err = affine_err(curve, k2_out, k2_ref)
     check(k2_err == 0, f"collapse at the main path's shape disagrees with plain (max |err| {k2_err})")
     # cheapest known schedule of sum_b (b+1) S_b: the running-sum walk,
-    # 2 (B - 1) adds per window (not this kernel's ladder + tree)
+    # 2 (B - 1) adds per window
     b_ms, b_by = bound((W * B + W) * 3 * NW * 4, W * 2 * (B - 1) * ADD)
     kernels.append({
         "name": "collapse", "route": "cuda",
@@ -1046,7 +1192,11 @@ def main() -> None:
         "replaces": "zprize_wasm_msm_tpu/ops/msm/pl_reduce.py:353",
         "launches": main_launches["collapse"], "max_abs_err": k2_err, "ms": k2_ms,
         "plain_ms": k2_plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "shape": f"({L},{W},{B})x3 -> ({L},{W})x3",
+        **k2_entry(kernel_buckets, W, B, k2_ref),
+        "collapse_resources": reduce_res[("collapse", NW)],
+        "combine_resources": reduce_res[("collapse (combine)", NW)],
+        "shape": f"({L},{W},{B})x3 -> ({L},{W})x3; ms is the pl_reduce.collapse wrapper (its "
+                 "kernels read and write the limbs: no packing launches), 3 calls",
         "compared": "as affine points against bucket_reduce",
     })
 
@@ -1065,18 +1215,6 @@ def main() -> None:
         return bound((W_ * B_ + 1) * 3 * NW * 4,
                      W_ * 2 * (B_ - 1) * ADD + c_ * (W_ - 1) * DOUBLE + (W_ - 1) * ADD)
 
-    # the fold's links: one level-parallel doubling and addition, each timed
-    # as a chain of 2 000 in one warp (csrc/check.cu group_chain_kernel),
-    # with a product to a lane ("_par") and with cooperative products
-    # ("_coop", what finish_kernel runs)
-    pt1 = tuple(x[:, None].contiguous() for x in k3_out)
-    pt2 = tuple(x[:, :1, 0].contiguous() for x in fold_in)
-    link_us = {}
-    for op in device_check.CHAIN_OPS:
-        device_check.group_chain(curve, op, pt1, pt2, 10)
-        _, ms = sync_ms(lambda: device_check.group_chain(curve, op, pt1, pt2, 2000), 2)
-        link_us[op] = ms / 2000 * 1e3
-
     def k3_floor(W_, c_):
         """c (W-1) doublings and W-1 additions at the fold's links' measured latency."""
         return (c_ * (W_ - 1) * link_us["double_coop"] + (W_ - 1) * link_us["add_coop"]) / 1e3
@@ -1090,9 +1228,11 @@ def main() -> None:
         "plain_ms": k3_plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "depth_floor_ms": k3_floor(W, c), "link_us": link_us,
         "fold_resources": reduce_res[("finish (fold)", NW)],
-        "weighting_resources": reduce_res[("finish (weighting)", NW)],
+        # at B > 1 the window sums come from the collapse's kernels (path A)
+        "weighting_resources": {"kernel": "collapse_kernel (+ combine_kernel)",
+                                **reduce_res[("collapse", NW)]},
         "shape": f"({L},{W},1)x3, c={c} -> ({L},)x3; at B = 1 one launch (the fold), at B > 1 "
-                 "two (weighting, fold); ms is the pl_reduce.finish wrapper",
+                 "the collapse's launches first; ms is the pl_reduce.finish wrapper",
         "compared": "as affine points against bucket_reduce + window_fold, and against the oracle",
     })
 
@@ -1118,7 +1258,9 @@ def main() -> None:
         "replaces": "zprize_wasm_msm_tpu/ops/field/mont.py:426",
         "launches": main_launches["field_inverse"], "max_abs_err": inv_err, "ms": inv_ms,
         "plain_ms": inv_plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "shape": f"({L}, 1) -> ({L}, 1)",
+        "gcd_steps": field_kernels.inverse_consts(fq)[0], "gcd_inner_iterations": field_kernels.GCD_INNER,
+        **field_res[("field_inverse_kernel", NW)],
+        "shape": f"({L}, 1) -> ({L}, 1); ms is the field_kernels.inverse wrapper at one element",
         "compared": "limbs bit for bit against mont.inverse (a^(q-2) by mont_mul)",
     })
 
@@ -1240,7 +1382,15 @@ def main() -> None:
     k3a_err = affine_err(curve, tuple(x[:, None] for x in k3a_out), tuple(x[:, None] for x in k3a_ref))
     check(k3a_err == 0, f"finish at path A's shape disagrees with plain (max |err| {k3a_err})")
     check(ctx.result_to_affine(k3a_out) == expected, "finish at path A's shape is not the MSM result")
-    del state_a
+    # the fold alone at path A's shape (B = 1 on the window sums): K3's time
+    # less this is its weighting, the collapse's launches; and the two
+    # public wrappers composed (collapse to limbs, then finish packs them)
+    fold_a = tuple(a[:, :, None].contiguous() for a in pl_reduce.collapse(curve, buckets_a))
+    pl_reduce.finish(curve, fold_a, cA)
+    _, k3a_fold_ms = sync_ms(lambda: pl_reduce.finish(curve, fold_a, cA), 3)
+    _, k3a_composed_ms = sync_ms(lambda: pl_reduce.finish(
+        curve, tuple(a[:, :, None] for a in pl_reduce.collapse(curve, buckets_a)), cA), 3)
+    del state_a, fold_a
     # the same sweep and lane reduction at KERNEL_LANES lanes, the count
     # path A ran before the engine raised it to one wave: K1 and K4 like
     # for like with earlier runs
@@ -1267,13 +1417,17 @@ def main() -> None:
                         f"path_A_T{T0}": {"shape": f"state ({WA},{T0},{BA})", "ms": k4a0_ms,
                                           **dict(zip(("bound_ms", "bound_by"), k4_bound(WA, T0, BA)))}},
         "collapse": {"path_B": {"shape": f"({L},{WB},{BB})x3", "ms": k2b_ms, "plain_ms": k2b_plain_ms,
-                                "max_abs_err": k2b_err,
+                                "max_abs_err": k2b_err, **k2_entry(dense_b, WB, BB, k2b_ref),
                                 **dict(zip(("bound_ms", "bound_by"), bound((WB * BB + WB) * 3 * NW * 4,
                                                                            WB * 2 * (BB - 1) * ADD)))}},
         "finish": {"path_A": {"shape": f"({L},{WA},{BA})x3, c={cA}", "ms": k3a_ms,
                               "plain_ms": k3a_plain_ms, "max_abs_err": k3a_err,
                               **dict(zip(("bound_ms", "bound_by"), k3_bound(WA, BA, cA))),
-                              "depth_floor_ms": k3_floor(WA, cA)},
+                              "fold_alone_ms": k3a_fold_ms,
+                              "collapse_then_finish_ms": k3a_composed_ms,
+                              "weighting_buckets_per_run": k2_floor(WA, BA)[0],
+                              "depth_floor_ms": k3_floor(WA, cA) + k2_floor(WA, BA)[2],
+                              "depth_floor_ms_fold": k3_floor(WA, cA)},
                    "path_B": {"shape": f"({L},{WB},1)x3, c={cB}", "ms": k3b_ms,
                               "plain_ms": k3b_plain_ms, "max_abs_err": k3b_err,
                               **dict(zip(("bound_ms", "bound_by"), k3_bound(WB, 1, cB))),

@@ -119,6 +119,23 @@ def test_word_packing_is_the_same_integer():
     assert torch.equal(convert.unpack_words(convert.pack_words(batch3)), batch3)
 
 
+def test_point_packing_matches_word_packing():
+    """_launch.pack_point (int32 views of the limbs, written in place) gives
+    pack_words' words for every coordinate: limbs of all ones, batch axes,
+    non-contiguous coordinates, a single element."""
+    from zprize_wasm_msm_tpu_torch.ops.msm import _launch
+
+    rng = np.random.default_rng(5)
+    y = torch.as_tensor(rng.integers(0, 1 << 16, size=(24, 8, 12)), dtype=torch.int64)
+    y[:, 0, :2] = 0xFFFF  # in both x and y[:, :, ::2]
+    x = y[:, :, 1::2]  # (24, 8, 6), not contiguous
+    for coords in ((x,), (x, x.contiguous(), y[:, :, ::2].permute(0, 2, 1)), (x[:, 3, 2],)):
+        got = _launch.pack_point(coords)
+        want = torch.stack([convert.pack_words(c.reshape(24, -1)) for c in coords])
+        assert got.dtype == torch.int32 and got.is_contiguous()
+        assert [torch.equal(g, w) for g, w in zip(got, want)] == [True] * len(coords)
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys; import zprize_wasm_msm_tpu_torch as Z; "

@@ -30,6 +30,7 @@ from tests._torch_helpers import (
     CURVE_PAIRS, affine_np, host_points, jax_np, oracle_of, random_points, to_jax, to_torch,
     torch_np,
 )
+from tests.test_torch_reduce_inverse import collapse_schedule
 
 REF_TOY, TOY = CURVE_PAIRS["toy"]
 # One small configuration for every comparison that runs a Pallas kernel in
@@ -269,13 +270,10 @@ def test_kernel_lanes_fill_one_wave(monkeypatch):
 
 # ---------------------------------------------------------------------------
 # The schedules of the two reduction kernels, on the port's plain group ops:
-# csrc/reduce.cu finish_weight_kernel + finish_kernel (K3) and
+# csrc/reduce.cu the collapse's launches + finish_kernel (K3) and
 # csrc/bucket.cu lane_reduce_kernel (K4).  They add in other orders than the
 # plain versions, so results are compared as affine points.
 # ---------------------------------------------------------------------------
-
-WEIGHT_GROUPS = 16  # csrc/reduce.cu WEIGHT_THREADS / PAR_LANES
-
 
 def _take(points, idx):
     return tuple(a[..., idx] for a in points)
@@ -286,34 +284,16 @@ def _where(mask, a, b):
 
 
 def finish_schedule(curve, buckets, c):
-    """K3: at B > 1 the weighting launch -- group g of window w's block
-    takes buckets g, g + 16, ...; each a bit_length(B)-round ladder (double,
-    add, keep the sum where the bit is set), every group the same rounds;
-    the 16 groups summed as the kernel does (partners g^1, then g^2 inside a
-    warp, then the four warps in turn) -- then the fold, Horner from the top
-    window down."""
+    """K3: at B > 1 the collapse's launches give the window sums
+    (collapse_schedule: runs of m buckets, the walk, the tree per window;
+    one warp per scheduler of a 132-SM card), then the fold, Horner from
+    the top window down."""
     L, W, B = buckets[0].shape
     if B == 1:
         sums = tuple(a[:, :, 0] for a in buckets)
     else:
-        bits = B.bit_length()
-        g = torch.arange(WEIGHT_GROUPS)
-        zero = group.zero(curve, (W, WEIGHT_GROUPS), "cpu")
-        acc = None
-        for b0 in range(0, B, WEIGHT_GROUPS):
-            b = b0 + g
-            s = _where(b < B, _take(buckets, b.clamp(max=B - 1)), zero)
-            lad = zero
-            for i in range(bits - 1, -1, -1):
-                lad = group.double(curve, lad)
-                t = group.add(curve, lad, s)
-                lad = _where(((b + 1) >> i) & 1 == 1, t, lad)
-            acc = lad if b0 == 0 else group.add(curve, acc, lad)
-        for off in (1, 2):
-            acc = group.add(curve, acc, _take(acc, g ^ off))
-        sums = _take(acc, 0)
-        for j in range(1, WEIGHT_GROUPS // 4):
-            sums = group.add(curve, sums, _take(acc, 4 * j))
+        lanes = pl_reduce._collapse_lanes(curve.fq.n_words)
+        sums = collapse_schedule(curve, buckets, 132 * 4 * 32 // lanes, lanes)
     return pippenger.window_fold(curve, sums, c)
 
 
@@ -387,7 +367,7 @@ def lane_reduce_schedule(curve, raw, N):
 def test_finish_schedule_matches_reference(shared):
     """K3's schedule against the JAX package's finish kernel (interpret
     mode) at B = 4, and at B = 1 (finish_large's fold); against finish_plain
-    at B = 32 (two rounds of the 16 groups) and B = 1."""
+    at B = 32 and B = 1."""
     tb = to_torch(shared["buckets"])
     got = finish_schedule(TOY, tb, C)
     assert port_affine(tuple(x[:, None] for x in got)) == ref_affine(

@@ -197,8 +197,9 @@ def check_launch(err: int, name: str) -> None:
     if err != 0:
         reason = {
             -1: "field width not instantiated",
-            -2: "bucket count not a power of two, or lanes not whole warps covering every bucket",
-            -3: "exponent length outside 1..32*MAX_WORDS bits",
+            -2: "bucket count or run not a power of two, lanes not whole warps covering "
+            "every bucket, or more bucket limbs than 32-bit offsets reach",
+            -3: "inverse step count below 1",
             -4: "modulus top bit not free",
             -5: "curve constant 3b does not fit a word",
         }.get(err, f"CUDA error {err}")

@@ -15,12 +15,12 @@
 // reference: the point, the accumulator and every temporary stay in
 // registers, and nvcc schedules their products (fe_mul_cc, the carry-chain
 // form that leaves the most resident warps) into the kernel's loop.
-// pt_add and pt_double run a few thousand times per MSM (K2, K8, the
-// combine of K7's sub-chunks) and stay __noinline__: one body each per
-// field width and library keeps nvcc's time in check (twelve fully
-// unrolled products per body); their operands cross the call through the
-// thread's stack.  The window fold (reduce.cu K3) runs its chain on the
-// level-parallel forms of par.cuh.
+// pt_add and pt_double run a few thousand times per MSM (K8, the combine
+// of K7's sub-chunks) and stay __noinline__: one body each per field width
+// and library keeps nvcc's time in check (twelve fully unrolled products
+// per body); their operands cross the call through the thread's stack.
+// The collapse and the window fold (reduce.cu K2, K3) run their chains on
+// the level-parallel forms of par.cuh.
 #pragma once
 
 #include "field.cuh"
@@ -239,22 +239,6 @@ __device__ __forceinline__ void pt_store_aos(uint32_t* dst, const Pt<NW>& a) {
     const uint32_t* s = reinterpret_cast<const uint32_t*>(&a);
 #pragma unroll
     for (int k = 0; k < 3 * NW; ++k) dst[k] = s[k];
-  }
-}
-
-// Sum the blockDim.x points held one per thread (blockDim.x a power of two)
-// through shared memory; thread 0 returns with the total in acc.
-template <int NW>
-__device__ __forceinline__ void block_sum(Pt<NW>& acc, Pt<NW>* sh) {
-  const int tid = threadIdx.x;
-  sh[tid] = acc;
-  __syncthreads();
-  for (int h = blockDim.x >> 1; h > 0; h >>= 1) {
-    if (tid < h) {
-      pt_add<NW>(&acc, &acc, &sh[tid + h]);
-      sh[tid] = acc;
-    }
-    __syncthreads();
   }
 }
 

@@ -9,13 +9,15 @@ batch size, no padding); on a CPU tensor the plain PyTorch ``mont.mont_mul``
 / ``mont.mont_square``.  ops.field.batch routes the batched field surface
 (and with it the GLV endomorphism's beta * x) through them.
 
-``inverse`` is a^(q-2) per batch element (Fermat), the function of
+``inverse`` is a^{-1} per batch element (0 -> 0), the function of
 zprize_wasm_msm_tpu/ops/field/mont.py ``inverse``.  On a CUDA tensor it is
-ONE launch of csrc/field_kernels.cu ``field_pow_kernel`` (one thread per
-element runs the whole square-and-multiply ladder); on a CPU tensor it is
-the plain PyTorch ladder, ``mont.inverse``.  mont.batch_inverse inverts the
-root of its product tree through this function, so a to_affine on the card
-never leaves the card.
+ONE launch of csrc/field_kernels.cu ``field_inverse_kernel`` on the limbs
+as they are (one thread per element runs a binary extended GCD of fixed
+length, then one Montgomery product by the constant of
+``inverse_consts``); on a CPU tensor it is the plain PyTorch Fermat
+ladder, ``mont.inverse``.  mont.batch_inverse inverts the root of its
+product tree through this function, so a to_affine on the card never
+leaves the card.
 
 Values are canonical on both routes, so kernel and plain agree bit for bit.
 """
@@ -23,12 +25,12 @@ Values are canonical on both routes, so kernel and plain agree bit for bit.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from ... import _build
-from ...utils.bigint import int_to_limbs
 from ..msm import _launch
 from . import mont
 from .spec import FieldSpec
@@ -119,6 +121,26 @@ def inverse_plain(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     return mont.inverse(spec, a)
 
 
+#: inner iterations of one outer step of the GCD (csrc/field_kernels.cu)
+GCD_INNER = 31
+
+
+@functools.lru_cache(maxsize=None)
+def inverse_consts(spec: FieldSpec):
+    """(steps, fix) of field_inverse_kernel: steps = ceil((2 bits(q) - 1) /
+    31) outer steps of the binary GCD, after which v = x^{-1} 2^{-steps};
+    fix = 2^steps R^3 mod q as MAX_WORDS words, so that one Montgomery
+    product v * fix * R^{-1} is x^{-1} R^2, the inverse of x = aR in
+    Montgomery form."""
+    steps = -(-(2 * spec.q.bit_length() - 1) // GCD_INNER)
+    R = 1 << (32 * spec.n_words)
+    fix = pow(2, steps, spec.q) * pow(R, 3, spec.q) % spec.q
+    words = np.array([(fix >> (32 * j)) & 0xFFFFFFFF for j in range(_build.MAX_WORDS)],
+                     dtype=np.uint32)
+    words.setflags(write=False)
+    return steps, words
+
+
 def inverse(spec: FieldSpec, a: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     """Elementwise a^{-1} in Montgomery form, (L, *batch) int64 -> same;
     0 maps to 0."""
@@ -127,23 +149,20 @@ def inverse(spec: FieldSpec, a: torch.Tensor, impl: str = "auto") -> torch.Tenso
     L = spec.n_limbs
     _launch.check_limbs("a", a, (L,) + tuple(a.shape[1:]), a.device)
     lib = _build.load("field_kernels")
-    fn = lib.zp_field_pow
+    fn = lib.zp_field_inverse
     fn.restype = ctypes.c_int
     fn.argtypes = (
         [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
         + [ctypes.c_void_p] * 2
         + [ctypes.c_int, ctypes.c_void_p]
     )
-    e = spec.q - 2
-    exp_words = np.ascontiguousarray(int_to_limbs(e, _build.MAX_WORDS, 32), dtype=np.uint32)
-    (aw,) = _launch.pack_point((a,))
-    n = aw.shape[1]
-    out = torch.empty_like(aw)
+    steps, fix = inverse_consts(spec)
+    flat = a.reshape(L, -1).contiguous()  # the kernel reads and writes limbs
+    out = torch.empty_like(flat)
     err = fn(
-        spec.n_words, _consts_ptr(spec),
-        exp_words.ctypes.data_as(ctypes.c_void_p), e.bit_length(),
-        _launch.ptr(aw), _launch.ptr(out), n, _launch.stream_ptr(),
+        spec.n_words, _consts_ptr(spec), fix.ctypes.data_as(ctypes.c_void_p), steps,
+        _launch.ptr(flat), _launch.ptr(out), flat.shape[1], _launch.stream_ptr(),
     )
     _build.check_launch(err, "field inverse")
     launches["inverse"] += 1
-    return _launch.unpack_point(out[None], tuple(a.shape[1:]))[0]
+    return out.reshape(a.shape)

@@ -42,7 +42,15 @@ def pack_point(coords) -> torch.Tensor:
     (k, L/2, n) int32 word tensor (n = flattened batch): the kernels'
     [coord][word][element] layout."""
     L = coords[0].shape[0]
-    return torch.stack([pack_words(c.reshape(L, -1)) for c in coords]).contiguous()
+    c0 = coords[0].reshape(L, -1)
+    out = torch.empty((len(coords), L // 2, c0.shape[1]), dtype=torch.int32, device=c0.device)
+    for i, c in enumerate(coords):
+        # a limb (< 2^16) is the low int32 half of its int64 (little-endian):
+        # two int32 launches a coordinate, written in place, and no int64
+        # temporary (the shift wraps as pack_words' int64 -> int32 cast does)
+        lo = c.reshape(L, -1).contiguous().view(torch.int32)[:, 0::2]
+        torch.bitwise_or(lo[0::2], lo[1::2] << 16, out=out[i])
+    return out
 
 
 def point_words(points) -> torch.Tensor:

@@ -9,12 +9,13 @@ They replace the TPU kernels of zprize_wasm_msm_tpu/ops/msm/pl_reduce.py:
                 + lane_combine_kernel; also the second launch of
                 pl_bucket.bucket_accumulate.
   finish_large  (``_collapse_kernel``): per window sum_b (b+1) S_{w,b}
-                (csrc/reduce.cu collapse_kernel, any power-of-two B), then
-                finish at B = 1.
+                (csrc/reduce.cu collapse_kernel + combine_kernel: runs of
+                m buckets over the whole card, a tree per window; any
+                power-of-two B), then finish at B = 1.
   finish        (``_finish_kernel``): sum_w 2^(c w) sum_b (b+1) S_{w,b} ->
-                ONE point (csrc/reduce.cu: finish_weight_kernel, a block per
-                window, when B > 1; then finish_kernel, one warp, the
-                window fold by Horner's rule).
+                ONE point (csrc/reduce.cu: the collapse's launches when
+                B > 1; then finish_kernel, one warp, the window fold by
+                Horner's rule).
 
 Reference lineage: reduceBucketsToSinglePoint (running sum over buckets,
 wasmcurves/src/build_multiexp_opt.js:1597-1706) + accumulateAcrossChunks
@@ -167,18 +168,19 @@ def finish(curve: CurveSpec, buckets, c: int, impl: str = "auto"):
     fn = lib.zp_finish
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32] + [ctypes.c_void_p] * 3
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        [ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32] + [ctypes.c_void_p] * 2
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     )
     NW = curve.fq.n_words
-    dev = buckets[0].device
-    S = _launch.pack_point(buckets)
-    sums = torch.empty((3, NW, W), dtype=torch.int32, device=dev)  # the window sums, B > 1
-    out = torch.empty((3, NW, 1), dtype=torch.int32, device=dev)
+    # the window sums as words: at B > 1 the collapse's launches leave them
+    if B > 1:
+        sums = _collapse_launch(curve, buckets, limbs_out=False)
+    else:
+        sums = _launch.pack_point(buckets)
+    out = torch.empty((3, NW, 1), dtype=torch.int32, device=buckets[0].device)
     err = fn(
         NW, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p), _build.b3_small(curve),
-        _launch.ptr(S), _launch.ptr(sums), _launch.ptr(out), W, B, c, B.bit_length(),
-        _launch.stream_ptr(),
+        _launch.ptr(sums), _launch.ptr(out), W, c, _launch.stream_ptr(),
     )
     _build.check_launch(err, "finish")
     launches["finish"] += 1
@@ -201,6 +203,84 @@ def finish_large_plain(curve: CurveSpec, buckets, c: int):
     return pippenger.window_fold(curve, collapse_plain(curve, buckets), c)
 
 
+#: threads per block of the collapse kernels (csrc/reduce.cu COLLAPSE_THREADS)
+COLLAPSE_THREADS = 128
+#: warp schedulers per SM (Hopper: four)
+SCHEDULERS_PER_SM = 4
+
+
+def _collapse_lanes(nw: int) -> int:
+    """Lanes per point of the collapse's level-parallel group ops: 8 PL,
+    PL the lanes of one cooperative product (csrc/coop.cuh coop_lanes<NW>())."""
+    return 8 * (4 if nw % 4 == 0 else 2 if nw % 2 == 0 else 1)
+
+
+def _collapse_run(W: int, B: int, wave_groups: int) -> int:
+    """Buckets per run of the collapse (m): the smallest power of two for
+    which the W B / m runs, a group of lanes each, number at most
+    ``wave_groups``; B at most.  A run's walk is 2 (m - 1) dependent
+    additions and log2 m doublings, and the tree over a window's runs 4
+    links a level, so shorter runs make a shorter chain; but each link is
+    a warp's instructions one after another, and a warp that shares its
+    scheduler waits for the others: more groups than one warp per scheduler
+    made every link slower than the shorter chain saved, and fewer made the
+    walk longer (the collapse's time at every run length is in
+    chip_smoke.py's kernels line)."""
+    m = 1
+    while m < B and W * B > m * wave_groups:
+        m *= 2
+    return m
+
+
+def _collapse_links(B: int, m: int):
+    """(additions, doublings) on the collapse's longest dependent chain: the
+    walk of a run (2 (m - 1) additions), Rs = m R (log2 m doublings), then
+    log2(B / m) tree levels of 3 additions and a doubling, the last level
+    without its doubling and the addition into Rs."""
+    levels = (B // m).bit_length() - 1
+    last = 1 if levels else 0
+    return 2 * (m - 1) + 3 * levels - last, (m.bit_length() - 1) + levels - last
+
+
+@functools.lru_cache(maxsize=None)
+def _collapse_wave_groups(nw: int, device_index: int) -> int:
+    """Groups of lanes of one warp per scheduler of the card."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return sms * SCHEDULERS_PER_SM * 32 // _collapse_lanes(nw)
+
+
+def _collapse_launch(curve: CurveSpec, buckets, m: int = 0, limbs_out: bool = True):
+    """Launch the collapse on (L, W, B) limb tensors: the window sums as
+    (3, L, W) limbs, or (limbs_out False) as (3, NW, W) words, the fold's
+    input.  The kernels read the limbs, so no packing launch precedes them.
+    m (buckets per run) is _collapse_run's choice where 0."""
+    lib = _build.load("reduce")
+    fn = lib.zp_collapse
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32] + [ctypes.c_void_p] * 5
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    )
+    NW = curve.fq.n_words
+    L, W, B = buckets[0].shape
+    bx, by, bz = (t.contiguous() for t in buckets)
+    m = m or _collapse_run(W, B, _collapse_wave_groups(NW, bx.device.index or 0))
+    # the window sums as words, then two halves of the combine launches'
+    # pairs (csrc/reduce.cu collapse_launches)
+    cap = max(1, W * B // m // (COLLAPSE_THREADS // _collapse_lanes(NW)))
+    scratch = torch.empty((3 * NW * W + 2 * 2 * 3 * NW * cap,), dtype=torch.int32,
+                          device=bx.device)
+    out = torch.empty((3, L, W), dtype=torch.int64, device=bx.device) if limbs_out else None
+    err = fn(
+        NW, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p), _build.b3_small(curve),
+        _launch.ptr(bx), _launch.ptr(by), _launch.ptr(bz),
+        None if out is None else _launch.ptr(out), _launch.ptr(scratch), W, B, m,
+        _launch.stream_ptr(),
+    )
+    _build.check_launch(err, "collapse")
+    return out if limbs_out else scratch[: 3 * NW * W].view(3, NW, W)
+
+
 def collapse(curve: CurveSpec, buckets, impl: str = "auto"):
     """(bx, by, bz) each (L, W, B) -> window sums (L, W) x3,
     sum_b (b+1) S_{w,b}: stage A of finish_large, and the per-window
@@ -210,20 +290,9 @@ def collapse(curve: CurveSpec, buckets, impl: str = "auto"):
         raise ValueError(f"collapse: need B a power of two, got {B}")
     if not _launch.use_kernel(impl, buckets[0]):
         return collapse_plain(curve, buckets)
-    lib = _build.load("reduce")
-    fn = lib.zp_collapse
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    NW = curve.fq.n_words
-    S = _launch.pack_point(buckets)
-    out = torch.empty((3, NW, W), dtype=torch.int32, device=S.device)
-    err = fn(
-        NW, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p), _launch.ptr(S),
-        _launch.ptr(out), W, B, B.bit_length(), _launch.stream_ptr(),
-    )
-    _build.check_launch(err, "collapse")
+    out = _collapse_launch(curve, buckets)
     launches["collapse"] += 1
-    return _launch.unpack_point(out, (W,))
+    return out[0], out[1], out[2]
 
 
 def finish_large(curve: CurveSpec, buckets, c: int, impl: str = "auto"):
