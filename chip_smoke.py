@@ -40,6 +40,16 @@ What it does, in order (any failure exits non-zero and prints no result):
      lane ends and across warps; k2_adversarial: identity buckets, every
      bucket one point, only bucket 0, only the top bucket, P and -P in one
      window, at B = 1, 2, 64, 512, 4096 and W = 1, 15, 38);
+     Over Fq2 (G2): the Fq2 device functions (csrc/field2.cuh, the group
+     ops of K1 and K4 in csrc/group2.cuh, the level-parallel ops of K2 and
+     K3) bit for bit on toy_g2, BN254 G2 and BLS12-381 G2 (components 0, 1,
+     q-1, (q+-1)/2, all-ones words); K1, K4, K2 and K3 over Fq2 at small
+     shapes on toy_g2, toy_bn_g2, bn254_g2 and bls12_381_g2, and on the
+     adversarial cases above (K1, K4, K3, K2 on toy_g2; K1, K4 on
+     bls12_381_g2); every Fq2 instantiation under the same spill gate (and
+     the out-of-line Fq2 product steps of group2.cuh).  BLS12-377 G1: the
+     kernels at small shapes and ctx.msm at 2^16 against the oracle, the
+     default (GLV) and use_glv=False;
   5. drives three paths of the public API on BLS12-381 G1 at N = 2^20
      distinct bases (build_bls12381().msm -> result_to_affine), each a few
      timed repetitions, with every kernel's launch count zeroed just before
@@ -51,8 +61,11 @@ What it does, in order (any failure exits non-zero and prints no result):
              half-scalars, c = 6, bucket-sweep engine, one-block finish;
        B     msm(P, k, c=10): GLV split, then the sorted engine (sort, sweep,
              segmented scan, scatter), collapse at B = 512, window fold;
-     and a batch phase (ctx.batch_mul / batch_square / batch_to_mont /
-     batch_from_mont at N = 2^20) against the plain field ops;
+     a batch phase (ctx.batch_mul / batch_square / batch_to_mont /
+     batch_from_mont at N = 2^20) against the plain field ops; and
+       G2    build_curve(bls12_381_g2).msm(P, k) at N = 2^20: full scalars
+             (no GLV), c = 6, W = 44, B = 32, K1 -> K4 -> K2 -> K3 over Fq2,
+             against (sum k_i m_i mod r) G2; and BN254 G2 at 2^16;
   6. calls each kernel's wrapper at its path's shapes, compares it with its
      plain version on the same inputs (exact equality of affine coordinates
      or limbs: integers, tolerance 0) and times both; K1 and K7 also report
@@ -64,7 +77,11 @@ What it does, in order (any failure exits non-zero and prints no result):
      the same latencies) and its time at every run length up to 64 (each
      held against the plain version), at the full path's and path B's
      shapes;
-     the inversion at one element.
+     the inversion at one element;
+  7. the same for the Fq2 forms of K1, K4, K2 and K3 at path G2's shape
+     (K1's plain version on two of its 44 windows), with their bounds (an
+     Fq2 product counted as three Fq products) and K2's and K3's depth
+     floors at the Fq2 links' latency.
 
 Output: one JSON object per line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -72,7 +89,7 @@ Takes a few minutes on an H100, the build included.  Needs no network.
 
     python3 chip_smoke.py --profile
 
-additionally runs one MSM of each path under torch.profiler and prints a
+additionally runs one MSM of each path (G2 included) under torch.profiler and prints a
 "profile" line (device time by kernel, device busy share of the profiled
 wall time); with a directory argument, --profile DIR, it also writes the
 Chrome traces there.
@@ -352,7 +369,7 @@ def k4_adversarial(curve, dev, rng):
     (X, Y), _, _ = _make_bases(ctx, 10, rng, dev)
     P = group.from_affine(curve, (X, Y))
     npts = X.shape[1]
-    NW = curve.fq.n_words
+    EW = curve.field.elem_len // 2  # words of an element
     out = {}
     for W, B, T, lanes in ((3, 4, 37, (32, 64, 160, 448)), (2, 2, 100, (32, 64, 96)),
                            (2, 4, 64, (32, 256, 512)), (1, 1, 5, (32,))):
@@ -374,7 +391,7 @@ def k4_adversarial(curve, dev, rng):
             got = pl_reduce.lane_reduce(curve, lanes_in)
             out[f"{case}, W={W} B={B} T={T}"] = affine_err(curve, got, want)
             words = _launch.pack_point(tuple(b.permute(1, 2, 3, 0) for b in lanes_in))
-            state = words.reshape(3 * NW, W, T, B).permute(1, 2, 3, 0).contiguous()
+            state = words.reshape(3 * EW, W, T, B).permute(1, 2, 3, 0).contiguous()
             for N in lanes:
                 if N >= W * B:
                     got = pl_reduce._lane_reduce_state(curve, state, lanes=N)
@@ -437,6 +454,185 @@ def k2_adversarial(curve, dev, rng):
     return out
 
 
+def kernel_checks(curve, dev, rng, log2n, c, max_bits, lanes, tag):
+    """K1 (with K4), K4 on its contract layout, K2, and K3 at B = 1 and (where
+    W*B fits one block) at B, each against its plain version on 2^log2n
+    bases; zero digits, +-B digits, (0,0) points, a point twice into one
+    bucket.  Returns the errors (all must be 0)."""
+    import zprize_wasm_msm_tpu_torch as Z
+    from zprize_wasm_msm_tpu_torch.ops.curve import group
+    from zprize_wasm_msm_tpu_torch.ops.msm import pl_bucket, pl_reduce, windows
+
+    ctx = Z.build_curve(curve, device=dev)
+    (X, Y), _, _ = _make_bases(ctx, log2n, rng, dev)
+    N = 1 << log2n
+    B = 1 << (c - 1)
+    W = windows.num_windows(max_bits, c)
+    digits = torch.as_tensor(
+        rng.integers(-B, B + 1, size=(W, N)).astype(np.int32), device=dev
+    )
+    digits[:, 0:8] = 0
+    digits[:, 8:12] = B
+    digits[:, 12:16] = -B
+    X[:, 16:20], Y[:, 16:20] = 0, 0  # (0,0) points
+    for src, dst in ((24, 25), (24, 24 + lanes), (40, 41), (40, 40 + lanes)):
+        X[:, dst], Y[:, dst] = X[:, src], Y[:, src]
+        digits[:, dst] = digits[:, src]  # same point twice into one bucket
+    errs = {}
+    got = pl_bucket.bucket_accumulate(curve, (X, Y), digits, lanes=lanes, c=c)
+    ref = pl_bucket.bucket_accumulate_plain(curve, (X, Y), digits, lanes=lanes, c=c)
+    torch.cuda.synchronize()
+    errs["bucket_sweep+lane_reduce"] = affine_err(curve, got, ref)
+    # lane_reduce on K4's contract layout (B, L, W, T): three lanes
+    lanes3 = tuple(
+        torch.stack([s, d, z], dim=-1).permute(2, 0, 1, 3).contiguous()
+        for s, d, z in zip(ref, group.double(curve, ref), group.zero(curve, (W, B), dev))
+    )
+    errs["lane_reduce"] = affine_err(
+        curve, pl_reduce.lane_reduce(curve, lanes3), pl_reduce.lane_reduce_plain(curve, lanes3)
+    )
+    errs["collapse"] = affine_err(
+        curve, pl_reduce.collapse(curve, ref), pl_reduce.collapse_plain(curve, ref)
+    )
+    sums = pl_reduce.collapse_plain(curve, ref)
+    fold_in = tuple(a[:, :, None] for a in sums)
+    errs["finish(B=1)"] = affine_err(
+        curve,
+        tuple(x[:, None] for x in pl_reduce.finish(curve, fold_in, c)),
+        tuple(x[:, None] for x in pl_reduce.finish_plain(curve, fold_in, c)),
+    )
+    if W * B <= pl_reduce.FINISH_LANES:
+        errs[f"finish(B={B})"] = affine_err(
+            curve,
+            tuple(x[:, None] for x in pl_reduce.finish(curve, ref, c)),
+            tuple(x[:, None] for x in pl_reduce.finish_plain(curve, ref, c)),
+        )
+    torch.cuda.synchronize()
+    for name, e in errs.items():
+        check(e == 0, f"{tag}: kernel {name} disagrees with its plain version (max |err| {e})")
+    return errs
+
+
+def fq2_device_check(curve, dev, rng, n_random=500):
+    """The Fq2 device functions (csrc/field2.cuh; the group ops of K1 and K4
+    in csrc/group2.cuh, and the level-parallel doubling and addition of
+    csrc/par.cuh over Fq2 that K2 and K3 run) bit for bit against the plain
+    tower.Fq2 and group ops.  Components take the
+    values 0, 1, q-1, (q-1)/2, (q+1)/2 and stored words of all ones below
+    the top word, in every pair, beside random elements; points are generic,
+    P = Q, P = -Q, the affine and the projective identity, on projective
+    representatives scaled by a random Fq2 element.  Returns the number of
+    field elements held."""
+    import zprize_wasm_msm_tpu_torch as Z
+    from zprize_wasm_msm_tpu_torch.ops.curve import device_check, group
+
+    F, fq = curve.field, curve.fq
+    q = fq.q
+    ctx = Z.build_curve(curve, device=dev)
+    comps = [0, 1, q - 1, q // 2, q // 2 + 1, ((1 << (32 * (fq.n_words - 1))) - 1) % q]
+    pairs = [(x, y) for x in comps for y in comps]
+    rand = lambda: int.from_bytes(rng.bytes(48), "little") % q
+    A = [u for u in pairs for _ in pairs] + [(rand(), rand()) for _ in range(n_random)]
+    Bv = [v for _ in pairs for v in pairs] + [(rand(), rand()) for _ in range(n_random)]
+    a, b = ctx._coords(A), ctx._coords(Bv)
+    b3 = F.const(curve.b3, (1,), dev).expand_as(a)
+    mul_ref = F.mul(a, b)
+    for op, ref in (
+        ("mul", mul_ref), ("mul_cc", mul_ref), ("mul_coop", mul_ref), ("add", F.add(a, b)),
+        ("sub", F.sub(a, b)), ("neg", F.neg(a)), ("mul_b3", F.mul(b3, a)), ("square", F.square(a)),
+    ):
+        got = device_check.field_op(curve, op, a, b)
+        torch.cuda.synchronize()
+        check(bool((got == ref).all()), f"{curve.name}: device Fq2 fe_{op} != tower.Fq2")
+    # group ops on points: generic, P = Q, P = -Q, affine identity, projective identity
+    (PX, PY), _, _ = _make_bases(ctx, 6, rng, dev)
+    QX, QY = PX.roll(1, dims=1).clone(), PY.roll(1, dims=1).clone()
+    QX[:, 0:4], QY[:, 0:4] = PX[:, 0:4], PY[:, 0:4]  # P = Q
+    QX[:, 4:8], QY[:, 4:8] = PX[:, 4:8], F.neg(PY[:, 4:8])  # P = -Q
+    QX[:, 8:12], QY[:, 8:12] = 0, 0  # affine identity
+    lam = a[:, -PX.shape[1]:]
+    lam = F.select(F.is_zero(lam), F.one(lam.shape[1:], dev), lam)
+    P = (F.mul(PX, lam), F.mul(PY, lam), lam.clone())
+    for i, coord in enumerate(group.zero(curve, (4,), dev)):
+        P[i][:, 12:16] = coord  # projective identity
+    Q = group.from_affine(curve, (QX, QY))
+    add_ref, dbl_ref = group.add(curve, P, Q), group.double(curve, P)
+    for op, ref, qin in (
+        ("add_cc", add_ref, Q), ("add_coop", add_ref, Q),
+        ("add_mixed", group.add_mixed(curve, P, (QX, QY)), (QX, QY, Q[2])),
+        ("double_coop", dbl_ref, Q),
+    ):
+        got = device_check.group_op(curve, op, P, qin)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            check(bool((g == r).all()), f"{curve.name}: device Fq2 pt_{op} != group")
+    # and on coordinates that are any field values, three to a point
+    m = a.shape[1] // 3
+    Pr = tuple(a[:, i * m : (i + 1) * m].contiguous() for i in range(3))
+    Qr = tuple(b[:, i * m : (i + 1) * m].contiguous() for i in range(3))
+    add_r, dbl_r = group.add(curve, Pr, Qr), group.double(curve, Pr)
+    for op, ref in (("add_cc", add_r), ("add_coop", add_r), ("double_coop", dbl_r)):
+        got = device_check.group_op(curve, op, Pr, Qr)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            check(bool((g == r).all()), f"{curve.name}: device Fq2 pt_{op} != group on edge coordinates")
+    return a.shape[1]
+
+
+def oracle_of(curve):
+    """The host oracle of a curve: coordinates in Fq, or in Fq2 for ext 2."""
+    from zprize_wasm_msm_tpu_torch.oracle import F2, Curve as OracleCurve
+
+    field = F2(curve.q, curve.nr) if curve.ext == 2 else None
+    return OracleCurve(q=curve.q, a=0, b=curve.b, r=curve.r, gx=curve.gx, gy=curve.gy, field=field)
+
+
+def bases_and_scalars(ctx, log2n, rng, dev):
+    """2^log2n distinct bases [m_i]G (_make_bases), full scalars below r,
+    and the oracle's (sum k_i m_i mod r) G."""
+    curve = ctx.spec
+    (X, Y), m0, ds = _make_bases(ctx, log2n, rng, dev)
+    n = 1 << log2n
+    ks = rng.integers(0, 1 << 62, size=(n,), dtype=np.uint64)
+    mix = int.from_bytes(rng.bytes(24), "little")  # widen to full scalars
+    kints = [(int(k) * mix + int(k)) % curve.r for k in ks]
+    idx = np.arange(n)
+    mults = np.full(n, m0, dtype=object)
+    for k, d in enumerate(ds):
+        mults = mults + ((idx >> k) & 1).astype(object) * d
+    total = int((np.array(kints, dtype=object) * (mults % curve.r)).sum() % curve.r)
+    oc = oracle_of(curve)
+    return (X, Y), ctx.scalars_to_device(kints), oc.mul(oc.g, total)
+
+
+def msm_oracle_check(curve, dev, rng, log2n, variants):
+    """ctx.msm at 2^log2n under each of ``variants`` ({name: msm kwargs})
+    against the oracle; returns {name: {ms, launches}} (the launches of
+    one msm + result_to_affine, counts zeroed just before)."""
+    import zprize_wasm_msm_tpu_torch as Z
+    from zprize_wasm_msm_tpu_torch.ops.field import kernels as field_kernels
+    from zprize_wasm_msm_tpu_torch.ops.msm import pl_bucket, pl_reduce
+
+    ctx = Z.build_curve(curve, device=dev)
+    P, k, expected = bases_and_scalars(ctx, log2n, rng, dev)
+    out = {}
+    for name, kw in variants.items():
+        ctx.msm(P, k, **kw)  # warm
+        pl_bucket.launches = 0
+        for counts in (pl_reduce.launches, field_kernels.launches):
+            for key in counts:
+                counts[key] = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = ctx.result_to_affine(ctx.msm(P, k, **kw))
+        ms = (time.perf_counter() - t) * 1e3
+        check(got == expected, f"{curve.name} {name}: msm at 2^{log2n} does not match the oracle")
+        launches = {"bucket_sweep": pl_bucket.launches, **pl_reduce.launches, **field_kernels.launches}
+        out[name] = {"ms": ms, "launches": {a: b for a, b in launches.items() if b},
+                     "verified_against_oracle": True}
+    return out
+
+
 def inverse_check(fq, dev, rng):
     """field_inverse_kernel against inverse_plain (Fermat), limbs bit for
     bit, on the stored values 0, 1, 2, q-1, (q+-1)/2, R mod q, R^{-1} mod q,
@@ -472,14 +668,15 @@ def main() -> None:
 
     import zprize_wasm_msm_tpu_torch as Z
     from zprize_wasm_msm_tpu_torch import _build
-    from zprize_wasm_msm_tpu_torch.models.curves import bls12_381, bn254, toy
+    from zprize_wasm_msm_tpu_torch.models.curves import (
+        bls12_377, bls12_381, bls12_381_g2, bn254, bn254_g2, toy, toy_bn_g2, toy_g2,
+    )
     from zprize_wasm_msm_tpu_torch.ops.curve import device_check, group
     from zprize_wasm_msm_tpu_torch.ops.field import kernels as field_kernels
     from zprize_wasm_msm_tpu_torch.ops.field import mont
     from zprize_wasm_msm_tpu_torch.ops.msm import (
         _launch, glv, pippenger, pl_bucket, pl_reduce, pl_sorted, windows,
     )
-    from zprize_wasm_msm_tpu_torch.oracle import Curve as OracleCurve
     from zprize_wasm_msm_tpu_torch.utils.convert import unpack_words
 
     t_start = time.perf_counter()
@@ -512,62 +709,87 @@ def main() -> None:
                 name = line.split("'")[1]
                 ptxas.append(f"{stem}:{name[:48]}: {used.split(':')[-1].strip()} | {spill.strip()}")
                 ptxas_by_kernel[name] = {"used": used.split(":")[-1].strip(), "spill": spill.strip()}
+        # the out-of-line Fq2 product steps the Fq2 sweep and lane reduction
+        # call (csrc/group2.cuh sh_mul*): their own stack and spills
+        for i, line in enumerate(lines):
+            if "Function properties for" in line and "sh_mul" in line:
+                name = line.split("for ")[-1].strip()
+                spill = lines[i + 1].strip()
+                spills = [int(w) for w in spill.split() if w.isdigit()]
+                check(len(spills) == 3 and spills[1] == 0 and spills[2] == 0,
+                      f"{name} spills: {spill}")
+                ptxas.append(f"{stem}:{name[:48]}: | {spill}")
     emit({
         "env": {
             "torch": torch.__version__, "cuda": torch.version.cuda, "nvcc": nvcc_version,
             "python": sys.version.split()[0],
         },
         "build_seconds": round(build_s, 2),
+        "build_seconds_by_library": {k: round(v, 2) for k, v in _build.BUILD_SECONDS.items()},
         "built": sorted(logs),
         "ptxas": ptxas,
     })
 
-    def kernel_resources(stem, kernel, entry, nw, threads, *args):
-        """ptxas's registers, stack frame and spills of kernel<nw> and what
-        the runtime says of it (registers, local bytes, blocks per SM;
+    def kernel_resources(stem, kernel, entry, targs, threads, *args):
+        """ptxas's registers, stack frame and spills of kernel<targs> and
+        what the runtime says of it (registers, local bytes, blocks per SM;
         entry None: ptxas only); fails on a spill."""
-        tag = f"{len(kernel)}{kernel}ILi{nw}E"  # as mangled: combine_kernel is not lane_combine_kernel
+        # as mangled: combine_kernel is not lane_combine_kernel, <12> not <12, 2>
+        tag = f"{len(kernel)}{kernel}I" + "".join(f"Li{a}E" for a in targs) + "E"
         found = [v for k, v in ptxas_by_kernel.items() if tag in k]
         check(len(found) == 1, f"no ptxas report for {tag}")
         spill = [int(w) for w in found[0]["spill"].split() if w.isdigit()]
         check(len(spill) == 3 and spill[1] == 0 and spill[2] == 0,
               f"{tag} spills: {found[0]['spill']}")
-        info = _build.kernel_info(stem, entry, nw, *args) if entry else {}
+        info = _build.kernel_info(stem, entry, targs[0], *args) if entry else {}
         return {"ptxas": found[0], "stack_frame_bytes": spill[0], "spill_store_bytes": spill[1],
                 "spill_load_bytes": spill[2], **info, "threads_per_block": threads,
                 **({"resident_warps_per_sm": info["blocks_per_sm"] * threads // 32} if info else {})}
 
     sweep_res = {
-        (name, nw): kernel_resources(stem, kernel, entry, nw, 64)
-        for name, stem, kernel, entry in (
-            ("bucket_sweep", "bucket", "bucket_sweep_kernel", "zp_bucket_sweep_info"),
-            ("sorted_sweep", "sorted", "sorted_sweep_kernel", "zp_sorted_sweep_info"),
+        (name, nw): kernel_resources(stem, kernel, entry, (nw,), 64, *args)
+        for name, stem, kernel, entry, args in (
+            ("bucket_sweep", "bucket", "bucket_sweep_kernel", "zp_bucket_sweep_info", (1,)),
+            ("sorted_sweep", "sorted", "sorted_sweep_kernel", "zp_sorted_sweep_info", ()),
         )
         for nw in _build.SUPPORTED_WORDS
     }
     emit({"sweep_resources": {f"{k[0]} NW={k[1]}": v for k, v in sweep_res.items()}})
     reduce_res = {
-        (name, nw): kernel_resources(stem, kernel, entry, nw, threads, *args)
-        for name, stem, kernel, entry, threads, args in (
-            ("finish (fold)", "reduce", "finish_kernel", "zp_finish_info", 32, ()),
-            ("collapse", "reduce", "collapse_kernel", "zp_collapse_info", 128, (0,)),
-            ("collapse (combine)", "reduce", "combine_kernel", "zp_collapse_info", 128, (1,)),
-            ("lane_reduce", "bucket", "lane_reduce_kernel", "zp_lane_reduce_info", 128, ()),
-            ("lane_reduce (combine)", "bucket", "lane_combine_kernel", None, 128, ()),
-        )
+        (name, nw): kernel_resources(stem, kernel, entry, targs, threads, *args)
         for nw in _build.SUPPORTED_WORDS
+        for name, stem, kernel, entry, targs, threads, args in (
+            ("finish (fold)", "reduce", "finish_kernel", "zp_finish_info", (nw, 1), 32, (1,)),
+            ("collapse", "reduce", "collapse_kernel", "zp_collapse_info", (nw,), 128, (1, 0)),
+            ("collapse (combine)", "reduce", "combine_kernel", "zp_collapse_info", (nw,), 128, (1, 1)),
+            ("lane_reduce", "bucket", "lane_reduce_kernel", "zp_lane_reduce_info", (nw, 1), 128, (1, 0)),
+            ("lane_reduce (combine)", "bucket", "lane_combine_kernel", "zp_lane_reduce_info", (nw, 1),
+             128, (1, 1)),
+        )
     }
     emit({"reduce_resources": {f"{k[0]} NW={k[1]}": v for k, v in reduce_res.items()}})
+    # the Fq2 (G2) forms of K1, K4, K2 and K3, under the same spill gate
+    fq2_res = {
+        (name, nw): kernel_resources(stem, kernel, entry, targs, threads, *args)
+        for nw in _build.SUPPORTED_WORDS
+        for name, stem, kernel, entry, targs, threads, args in (
+            ("bucket_sweep", "bucket", "bucket_sweep2_kernel", "zp_bucket_sweep_info", (nw,), 32, (2,)),
+            ("lane_reduce", "bucket", "lane_reduce_kernel", "zp_lane_reduce_info", (nw, 2), 32, (2, 0)),
+            ("lane_reduce (combine)", "bucket", "lane_combine_kernel", "zp_lane_reduce_info", (nw, 2),
+             32, (2, 1)),
+            ("collapse", "reduce", "collapse2_kernel", "zp_collapse_info", (nw,), 128, (2, 0)),
+            ("collapse (combine)", "reduce", "combine2_kernel", "zp_collapse_info", (nw,), 128, (2, 1)),
+            ("finish (fold)", "reduce", "finish_kernel", "zp_finish_info", (nw, 2), 32, (2,)),
+        )
+    }
+    emit({"fq2_resources": {f"{k[0]} NW={k[1]}": v for k, v in fq2_res.items()}})
     field_res = {
-        (kernel, nw): kernel_resources("field_kernels", kernel, "zp_field_info", nw, threads, which)
+        (kernel, nw): kernel_resources("field_kernels", kernel, "zp_field_info", (nw,), threads, which)
         for which, (kernel, threads) in enumerate(
             (("mont_mul_kernel", 128), ("mont_square_kernel", 128), ("field_inverse_kernel", 64)))
         for nw in _build.SUPPORTED_WORDS
     }
     emit({"field_resources": {f"{k[0]} NW={k[1]}": v for k, v in field_res.items()}})
-
-    def oracle_of(curve):
-        return OracleCurve(q=curve.q, a=0, b=curve.b, r=curve.r, gx=curve.gx, gy=curve.gy)
 
     def make_bases(ctx, log2n: int, rng):
         return _make_bases(ctx, log2n, rng, dev)
@@ -673,59 +895,18 @@ def main() -> None:
     emit({"field_inverse_check": {"elements_bit_equal": inv_report, "tolerance": 0,
                                   "seconds": round(time.perf_counter() - t0, 2)}})
 
-    # ---- 4. kernels against their plain versions, small shapes ---------------
-    def kernel_checks(curve, log2n, c, max_bits, lanes, tag):
-        """Each kernel against its plain version; returns the errors (all
-        must be 0)."""
-        ctx = Z.build_curve(curve)
-        (X, Y), _, _ = make_bases(ctx, log2n, rng)
-        N = 1 << log2n
-        B = 1 << (c - 1)
-        W = windows.num_windows(max_bits, c)
-        digits = torch.as_tensor(
-            rng.integers(-B, B + 1, size=(W, N)).astype(np.int32), device=dev
-        )
-        digits[:, 0:8] = 0
-        digits[:, 8:12] = B
-        digits[:, 12:16] = -B
-        X[:, 16:20], Y[:, 16:20] = 0, 0  # (0,0) points
-        for src, dst in ((24, 25), (24, 24 + lanes), (40, 41), (40, 40 + lanes)):
-            X[:, dst], Y[:, dst] = X[:, src], Y[:, src]
-            digits[:, dst] = digits[:, src]  # same point twice into one bucket
-        errs = {}
-        got = pl_bucket.bucket_accumulate(curve, (X, Y), digits, lanes=lanes, c=c)
-        ref = pl_bucket.bucket_accumulate_plain(curve, (X, Y), digits, lanes=lanes, c=c)
-        torch.cuda.synchronize()
-        errs["bucket_sweep+lane_reduce"] = affine_err(curve, got, ref)
-        # lane_reduce on K4's contract layout (B, L, W, T): three lanes
-        lanes3 = tuple(
-            torch.stack([s, d, z], dim=-1).permute(2, 0, 1, 3).contiguous()
-            for s, d, z in zip(ref, group.double(curve, ref), group.zero(curve, (W, B), dev))
-        )
-        errs["lane_reduce"] = affine_err(
-            curve, pl_reduce.lane_reduce(curve, lanes3), pl_reduce.lane_reduce_plain(curve, lanes3)
-        )
-        errs["collapse"] = affine_err(
-            curve, pl_reduce.collapse(curve, ref), pl_reduce.collapse_plain(curve, ref)
-        )
-        sums = pl_reduce.collapse_plain(curve, ref)
-        fold_in = tuple(a[:, :, None] for a in sums)
-        errs["finish(B=1)"] = affine_err(
-            curve,
-            tuple(x[:, None] for x in pl_reduce.finish(curve, fold_in, c)),
-            tuple(x[:, None] for x in pl_reduce.finish_plain(curve, fold_in, c)),
-        )
-        if W * B <= pl_reduce.FINISH_LANES:
-            errs[f"finish(B={B})"] = affine_err(
-                curve,
-                tuple(x[:, None] for x in pl_reduce.finish(curve, ref, c)),
-                tuple(x[:, None] for x in pl_reduce.finish_plain(curve, ref, c)),
-            )
-        torch.cuda.synchronize()
-        for name, e in errs.items():
-            check(e == 0, f"{tag}: kernel {name} disagrees with its plain version (max |err| {e})")
-        return errs
+    # the Fq2 device functions (G2) on the three Fq2 widths, bit for bit; the
+    # G2 phases draw from a generator of their own (the G1 paths keep their data)
+    t0 = time.perf_counter()
+    g2_rng = np.random.default_rng(SEED + 4)
+    fq2_report = {c.name: fq2_device_check(c, dev, g2_rng) for c in (toy_g2, bn254_g2, bls12_381_g2)}
+    emit({"device_functions_fq2": {
+        "elements_bit_equal": fq2_report, "tolerance": 0,
+        "ops": "mul/mul_cc/mul_coop/add/sub/neg/mul_b3/square + add_mixed, add_cc (K1's and K4's "
+               "group ops), add_coop/double_coop (K2's and K3's)",
+        "seconds": round(time.perf_counter() - t0, 2)}})
 
+    # ---- 4. kernels against their plain versions, small shapes ---------------
     def sorted_checks(curve, log2n, c, chunks, tag):
         """The sorted engine's kernels against their plain versions on one
         given sorted stream, and its dense buckets against the bucket
@@ -787,11 +968,11 @@ def main() -> None:
 
     t0 = time.perf_counter()
     small = {
-        "toy c=7 W=4 B=64": kernel_checks(toy, 12, 7, 16, 64, "toy c=7"),
-        "toy c=4 W=5 B=8": kernel_checks(toy, 10, 4, 16, 16, "toy c=4"),
-        "bn254 c=5 W=52 B=16": kernel_checks(bn254, 10, 5, 254, 32, "bn254 c=5"),
-        "bls12_381 c=7 W=38 B=64": kernel_checks(bls12_381, 12, 7, 255, 64, "bls12_381 c=7"),
-        "bls12_381 c=6 W=23 B=32": kernel_checks(bls12_381, 10, 6, 132, 32, "bls12_381 c=6"),
+        "toy c=7 W=4 B=64": kernel_checks(toy, dev, rng, 12, 7, 16, 64, "toy c=7"),
+        "toy c=4 W=5 B=8": kernel_checks(toy, dev, rng, 10, 4, 16, 16, "toy c=4"),
+        "bn254 c=5 W=52 B=16": kernel_checks(bn254, dev, rng, 10, 5, 254, 32, "bn254 c=5"),
+        "bls12_381 c=7 W=38 B=64": kernel_checks(bls12_381, dev, rng, 12, 7, 255, 64, "bls12_381 c=7"),
+        "bls12_381 c=6 W=23 B=32": kernel_checks(bls12_381, dev, rng, 10, 6, 132, 32, "bls12_381 c=6"),
         "sorted toy c=4 T=16": sorted_checks(toy, 9, 4, 16, "sorted toy c=4"),
         "sorted toy c=10 T=64": sorted_checks(toy, 11, 10, 64, "sorted toy c=10"),
         "sorted bn254 c=8 T=32": sorted_checks(bn254, 9, 8, 32, "sorted bn254 c=8"),
@@ -841,6 +1022,47 @@ def main() -> None:
     emit({"reductions_adversarial_max_abs_err": adversarial, "tolerance": 0,
           "seconds": round(time.perf_counter() - t0, 2)})
 
+    # K1, K4, K2 and K3 over Fq2 against their plain versions: small shapes on
+    # the four G2 curves (BN254 G2's and both toy curves' 3b are full Fq2
+    # elements; bls12_381_g2 at path G2's c = 6, W = 44, B = 32), then the
+    # adversarial cases of K1, K4, K3 and K2 on toy_g2 and of the sweep and the
+    # lane reduction on bls12_381_g2
+    t0 = time.perf_counter()
+    small_g2 = {
+        "toy_g2 c=4 W=5 B=8": kernel_checks(toy_g2, dev, g2_rng, 10, 4, 16, 16, "toy_g2 c=4"),
+        "toy_bn_g2 c=6 W=4 B=32": kernel_checks(toy_bn_g2, dev, g2_rng, 10, 6, 16, 16, "toy_bn_g2 c=6"),
+        "bn254_g2 c=5 W=17 B=16": kernel_checks(bn254_g2, dev, g2_rng, 10, 5, 80, 32, "bn254_g2 c=5"),
+        "bls12_381_g2 c=6 W=44 B=32": kernel_checks(bls12_381_g2, dev, g2_rng, 10, 6, 256, 64,
+                                                    "bls12_381_g2 c=6"),
+    }
+    adversarial = {}
+    for c_curve, cases in ((toy_g2, (k1_adversarial, k4_adversarial, k3_adversarial, k2_adversarial)),
+                           (bls12_381_g2, (k1_adversarial, k4_adversarial))):
+        for fn in cases:
+            for case, e in fn(c_curve, dev, g2_rng).items():
+                adversarial[f"{fn.__name__[:2].upper()} {c_curve.name}: {case}"] = e
+    torch.cuda.synchronize()
+    for case, e in adversarial.items():
+        check(e == 0, f"{case}: kernel disagrees with its plain version (max |err| {e})")
+    emit({"fq2_kernels_small_shapes_max_abs_err": small_g2,
+          "fq2_adversarial_max_abs_err": adversarial, "tolerance": 0,
+          "seconds": round(time.perf_counter() - t0, 2)})
+
+    # BLS12-377 G1 (a 377-bit q, NW = 12 with a free top bit, 3b = 3, GLV):
+    # the kernels at small shapes, then ctx.msm at 2^16 against the oracle,
+    # the default (GLV split, K5) and use_glv=False
+    t0 = time.perf_counter()
+    rng_377 = np.random.default_rng(SEED + 5)
+    bls377 = {
+        "small shapes": {
+            "c=7 W=38 B=64": kernel_checks(bls12_377, dev, rng_377, 11, 7, 253, 64, "bls12_377 c=7"),
+            "c=6 W=23 B=32": kernel_checks(bls12_377, dev, rng_377, 10, 6, 132, 32, "bls12_377 c=6"),
+        },
+        "msm_2^16": msm_oracle_check(bls12_377, dev, rng_377, 16, {
+            "default (GLV)": {}, "use_glv=False": {"use_glv": False}}),
+    }
+    emit({"bls12_377": bls377, "tolerance": 0, "seconds": round(time.perf_counter() - t0, 2)})
+
     # ---- 5. the main path ---------------------------------------------------
     curve = bls12_381
     ctx = Z.build_bls12381()
@@ -885,7 +1107,7 @@ def main() -> None:
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t) * 1e3
 
-    def drive(name, run, required):
+    def drive(name, run, required, ctx=ctx, expected=expected, n=n):
         """One path through the public API: counts zeroed just before, read
         just after one msm + result_to_affine; the result against the
         oracle; then REPS timed repetitions."""
@@ -896,7 +1118,8 @@ def main() -> None:
         counts = read_counts()
         for kernel in required:
             check(counts[kernel] > 0, f"path {name} never launched kernel {kernel}")
-        check(all(bool(torch.isfinite(r.double()).all()) and r.shape == (24,) for r in res),
+        EL = ctx.spec.field.elem_len
+        check(all(bool(torch.isfinite(r.double()).all()) and r.shape == (EL,) for r in res),
               f"path {name}: MSM result has the wrong shape")
         check(got == expected, f"path {name}: MSM result does not match the oracle (sum k_i m_i mod r) G")
         times = []
@@ -1039,6 +1262,49 @@ def main() -> None:
     emit({"batch_ops": {"n": n, "equal_to_plain": True, **batch_report,
                         "launches": {k: v for k, v in batch_launches.items() if v}}})
 
+    # -- path G2: the JAX package's default G2 MSM, build_curve(bls12_381_g2).msm:
+    # no GLV, full scalars below r (256 bits), c = 6 (the Fq2 cap), W = 44,
+    # B = 32: W B = 1408 > 1024, so digits -> K1 -> K4 -> K2 -> K3 over Fq2
+    g2 = bls12_381_g2
+    ctx_g2 = Z.build_curve(g2)
+    t0 = time.perf_counter()
+    (Xg, Yg), scalars_g, expected_g = bases_and_scalars(ctx_g2, LOG2N, g2_rng, dev)
+    torch.cuda.synchronize()
+    bases_g_s = time.perf_counter() - t0
+    impl, cg, _ = pippenger.resolve_config(g2, n, 256, None, None, 2 << 30, "auto", device=dev)
+    Wg, Bg = windows.num_windows(256, cg), 1 << (cg - 1)
+    Tg = pippenger._kernel_lanes(g2, Wg, n, None, dev)
+    check((impl, cg, Wg, Bg) == ("kernel", 6, 44, 32), f"path G2 resolved to {(impl, cg, Wg, Bg)}")
+    paths["G2"] = lambda: ctx_g2.msm((Xg, Yg), scalars_g)
+    path_g2 = drive("G2", paths["G2"], ("bucket_sweep", "lane_reduce", "collapse", "finish", "field_inverse"),
+                    ctx=ctx_g2, expected=expected_g)
+    digits_g, digits_g_ms = staged(lambda: windows.signed_window_digits(scalars_g, cg, 256))
+    buckets_g, bucket_g_ms = staged(lambda: pl_bucket.bucket_accumulate(g2, (Xg, Yg), digits_g, lanes=Tg, c=cg))
+    _, finish_g_ms = staged(lambda: pl_reduce.finish_large(g2, buckets_g, cg))
+    del buckets_g
+    emit({
+        "path_G2": {
+            "curve": g2.name, "n": n, "scalar_bits": 256, "glv": False, "c": cg, "W": Wg, "B": Bg,
+            "lanes": Tg, **path_g2,
+            "stage_ms": {
+                "digits": digits_g_ms, "bucket_accumulate(K1+K4)": bucket_g_ms,
+                "finish_large(K2+K3)": finish_g_ms, "result_to_affine": path_g2["result_to_affine_ms"],
+            },
+            "bases_built_on_card_s": bases_g_s,
+        }
+    })
+    # BN254 G2 (3b a full Fq2 element) at 2^16, through the same kernels
+    ctx_bn = Z.build_curve(bn254_g2)
+    (Xb, Yb), scalars_bn, expected_bn = bases_and_scalars(ctx_bn, 16, g2_rng, dev)
+    impl, c_bn, _ = pippenger.resolve_config(bn254_g2, 1 << 16, 256, None, None, 2 << 30, "auto", device=dev)
+    check((impl, c_bn) == ("kernel", 6), f"BN254 G2 resolved to {(impl, c_bn)}")
+    paths["G2 bn254"] = lambda: ctx_bn.msm((Xb, Yb), scalars_bn)
+    path_bn = drive("G2 bn254", paths["G2 bn254"],
+                    ("bucket_sweep", "lane_reduce", "collapse", "finish", "field_inverse"),
+                    ctx=ctx_bn, expected=expected_bn, n=1 << 16)
+    emit({"path_G2_bn254": {"curve": bn254_g2.name, "n": 1 << 16, "scalar_bits": 256, "glv": False,
+                            "c": c_bn, **path_bn}})
+
     if args.profile is not None:
         emit({"profile": {name: profile_msm(run, args.profile, name) for name, run in paths.items()}})
 
@@ -1106,7 +1372,7 @@ def main() -> None:
     def k4_lane_sweep(state_, W_, T_, B_):
         """K4 (its wrapper) at the lane counts it did not choose: one full
         wave, one warp and two warps per bucket."""
-        resident = pl_reduce._reduce_resident_threads(NW, 0)
+        resident = pl_reduce._reduce_resident_threads(NW, 1, 0)
         chosen = pl_reduce._reduce_lanes(W_ * B_, T_, resident)
         out = {}
         for name, N_ in (("one wave", -(-min(resident, W_ * B_ * T_) // 32) * 32),
@@ -1118,7 +1384,7 @@ def main() -> None:
         return out
 
     b_ms, b_by = k4_bound(W, T, B)
-    k4_lanes = pl_reduce._reduce_lanes(W * B, T, pl_reduce._reduce_resident_threads(NW, 0))
+    k4_lanes = pl_reduce._reduce_lanes(W * B, T, pl_reduce._reduce_resident_threads(NW, 1, 0))
     k4_sweep = k4_lane_sweep(state, W, T, B)
     kernels.append({
         "name": "lane_reduce", "route": "cuda",
@@ -1411,7 +1677,7 @@ def main() -> None:
                                            "k1_plus_k4_ms": k1a0_ms + k4a0_ms, "max_abs_err": k1a0_err}},
         "lane_reduce": {"path_A": {"shape": f"state ({WA},{TA},{BA})", "ms": k4a_ms,
                                    **dict(zip(("bound_ms", "bound_by"), k4_bound(WA, TA, BA))),
-                                   "lanes": pl_reduce._reduce_lanes(WA * BA, TA, pl_reduce._reduce_resident_threads(NW, 0)),
+                                   "lanes": pl_reduce._reduce_lanes(WA * BA, TA, pl_reduce._reduce_resident_threads(NW, 1, 0)),
                                    "ms_at_other_lane_counts": k4a_sweep,
                                    "k1_plus_k4_ms": k1a_ms + k4a_ms},
                         f"path_A_T{T0}": {"shape": f"state ({WA},{T0},{BA})", "ms": k4a0_ms,
@@ -1434,11 +1700,132 @@ def main() -> None:
                               "depth_floor_ms": k3_floor(WB, cB)}},
     }
     by_path = {"full": full["launches"], "A": path_a["launches"], "B": path_b["launches"],
-               "batch": batch_launches}
+               "batch": batch_launches}  # the Fq kernels' paths (G2's below)
     for entry in kernels:
         entry["launches_by_path"] = {p: counts.get(entry["name"], 0) for p, counts in by_path.items()}
         if entry["name"] in other_shapes:
             entry["other_shapes"] = other_shapes[entry["name"]]
+
+    # ---- 7. the Fq2 (G2) kernels at path G2's shape ---------------------------
+    # Bounds as above with an Fq2 product counted as its three Fq products
+    # (Karatsuba): a mixed add / add / double 11 / 12 / 8 Fq2 products.
+    FQ2_MUL = 3 * mul_ops
+    ADD_MIXED2, ADD2, DOUBLE2 = 11 * FQ2_MUL, 12 * FQ2_MUL, 8 * FQ2_MUL
+    EW = 2 * NW
+    LG = 2 * EW  # limbs of an Fq2 element
+    # K1: the sweep on all 44 windows at the lanes ctx.msm runs; its plain
+    # version on the first SUB_W windows only (the plain sweep's ~1 000
+    # launches a step make all 44 windows a matter of minutes), at more
+    # lanes (fewer steps), compared after both lane reductions
+    SUB_W, PLAIN_LANES_G2 = 2, 16384
+    words_g = _launch.pack_point((Xg, Yg))
+    pl_bucket._sweep(g2, words_g[0], words_g[1], digits_g, Tg, Bg)  # warm-up
+    state_g, k1g_ms = sync_ms(lambda: pl_bucket._sweep(g2, words_g[0], words_g[1], digits_g, Tg, Bg), 2)
+    buckets_g, k4g_ms = sync_ms(lambda: pl_reduce._lane_reduce_state(g2, state_g), 2)
+    del words_g
+    t0 = time.perf_counter()
+    plain_g = pippenger._bucket_sweep_plain(g2, (Xg, Yg), digits_g[:SUB_W].contiguous(), PLAIN_LANES_G2, cg)
+    torch.cuda.synchronize()
+    k1g_plain_ms = (time.perf_counter() - t0) * 1e3
+    plain_g = pippenger._lane_tree_reduce(g2, plain_g)
+    k1g_err = affine_err(g2, tuple(a[:, :SUB_W] for a in buckets_g), plain_g)
+    check(k1g_err == 0, f"bucket sweep over Fq2 at path G2's shape disagrees with plain (max |err| {k1g_err})")
+    del plain_g
+    zero_pts_g = (Xg == 0).all(0) & (Yg == 0).all(0)
+    nonzero_g = int(((digits_g != 0) & ~zero_pts_g[None]).sum().item())
+    b_ms, b_by = bound(Wg * n * 4 + 2 * EW * 4 * n + Wg * Tg * Bg * 3 * EW * 4, nonzero_g * ADD_MIXED2)
+    fq2_entries = [{
+        "name": "bucket_sweep_fq2", "route": "cuda",
+        "source": "zprize_wasm_msm_tpu_torch/csrc/bucket.cu",
+        "replaces": "zprize_wasm_msm_tpu/ops/msm/pl_bucket.py:240",
+        "launches": path_g2["launches"]["bucket_sweep"], "max_abs_err": k1g_err, "ms": k1g_ms,
+        "plain_ms": k1g_plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shape": f"digits ({Wg},{n}) X,Y ({LG},{n}) -> state ({Wg},{Tg},{Bg},3x{EW}w)",
+        "compared": f"after lane reduction, as affine points, against the plain sweep + tree on "
+                    f"windows 0-{SUB_W - 1} of {Wg} (plain_ms: those windows at {PLAIN_LANES_G2} lanes)",
+        "x_bound": k1g_ms / b_ms, "mixed_adds": nonzero_g, "ns_per_add": k1g_ms * 1e6 / nonzero_g,
+        **fq2_res[("bucket_sweep", NW)], "kernel_lanes": Tg, "threads": Wg * Tg,
+    }]
+    # K4 on the sweep's own state, against the plain lane tree on all of it
+    lanes_g = unpack_words(state_g.permute(3, 0, 1, 2).contiguous())  # (3 LG, W, T, B)
+    contract_g = tuple(lanes_g[i * LG : (i + 1) * LG].permute(3, 0, 1, 2) for i in range(3))
+    del lanes_g, state_g
+    k4g_plain, k4g_plain_ms = staged(lambda: pl_reduce.lane_reduce_plain(g2, contract_g))
+    k4g_err = affine_err(g2, buckets_g, k4g_plain)
+    check(k4g_err == 0, f"lane_reduce over Fq2 at path G2's shape disagrees with plain (max |err| {k4g_err})")
+    del contract_g, k4g_plain
+    b_ms, b_by = bound(Wg * Tg * Bg * 3 * EW * 4 + Wg * Bg * 3 * EW * 4, Wg * Bg * (Tg - 1) * ADD2)
+    fq2_entries.append({
+        "name": "lane_reduce_fq2", "route": "cuda",
+        "source": "zprize_wasm_msm_tpu_torch/csrc/bucket.cu",
+        "replaces": "zprize_wasm_msm_tpu/ops/msm/pl_reduce.py:93",
+        "launches": path_g2["launches"]["lane_reduce"], "max_abs_err": k4g_err, "ms": k4g_ms,
+        "plain_ms": k4g_plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "x_bound": k4g_ms / b_ms,
+        "lanes": pl_reduce._reduce_lanes(Wg * Bg, Tg, pl_reduce._reduce_resident_threads(NW, 2, 0)),
+        **fq2_res[("lane_reduce", NW)], "combine_ptxas": fq2_res[("lane_reduce (combine)", NW)]["ptxas"],
+        "shape": f"state ({Wg},{Tg},{Bg},3x{EW}w) -> ({LG},{Wg},{Bg})x3; ms is _lane_reduce_state",
+        "compared": "as affine points against the plain lane tree on the same state",
+    })
+    # the links of the Fq2 fold's chain: one level-parallel doubling and
+    # addition over Fq2, each a chain of 500 in one warp
+    pg1 = tuple(x[:, :1, 0].contiguous() for x in buckets_g)
+    pg2 = tuple(x[:, 1:2, 0].contiguous() for x in buckets_g)
+    link2_us = {}
+    for op in ("double_coop", "add_coop"):
+        device_check.group_chain(g2, op, pg1, pg2, 10)
+        _, ms = sync_ms(lambda: device_check.group_chain(g2, op, pg1, pg2, 500), 2)
+        link2_us[op] = ms / 500 * 1e3
+    # K2: the wrapper (3 calls), its depth floor at the Fq2 links
+    pl_reduce.collapse(g2, buckets_g)
+    sums_g, k2g_ms = sync_ms(lambda: pl_reduce.collapse(g2, buckets_g), 3)
+    k2g_ref, k2g_plain_ms = staged(lambda: pl_reduce.collapse_plain(g2, buckets_g))
+    k2g_err = affine_err(g2, sums_g, k2g_ref)
+    check(k2g_err == 0, f"collapse over Fq2 at path G2's shape disagrees with plain (max |err| {k2g_err})")
+    m_g = pl_reduce._collapse_run(Wg, Bg, pl_reduce._collapse_wave_groups(NW, 0))
+    adds_g, dbls_g = pl_reduce._collapse_links(Bg, m_g)
+    b_ms, b_by = bound((Wg * Bg + Wg) * 3 * EW * 4, Wg * 2 * (Bg - 1) * ADD2)
+    fq2_entries.append({
+        "name": "collapse_fq2", "route": "cuda",
+        "source": "zprize_wasm_msm_tpu_torch/csrc/reduce.cu",
+        "replaces": "zprize_wasm_msm_tpu/ops/msm/pl_reduce.py:353",
+        "launches": path_g2["launches"]["collapse"], "max_abs_err": k2g_err, "ms": k2g_ms,
+        "plain_ms": k2g_plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "buckets_per_run": m_g, "groups": Wg * Bg // m_g,
+        "depth_links": {"additions": adds_g, "doublings": dbls_g},
+        "depth_floor_ms": (adds_g * link2_us["add_coop"] + dbls_g * link2_us["double_coop"]) / 1e3,
+        "link_us": link2_us,
+        "collapse_resources": fq2_res[("collapse", NW)],
+        "combine_resources": fq2_res[("collapse (combine)", NW)],
+        "shape": f"({LG},{Wg},{Bg})x3 -> ({LG},{Wg})x3; ms is the pl_reduce.collapse wrapper, 3 calls",
+        "compared": "as affine points against bucket_reduce",
+    })
+    # K3 at B = 1: the fold of the window sums, and its point is the MSM's
+    fold_g = tuple(a[:, :, None].contiguous() for a in sums_g)
+    pl_reduce.finish(g2, fold_g, cg)
+    k3g_out, k3g_ms = sync_ms(lambda: pl_reduce.finish(g2, fold_g, cg), 3)
+    k3g_ref, k3g_plain_ms = staged(lambda: pl_reduce.finish_plain(g2, fold_g, cg))
+    k3g_err = affine_err(g2, tuple(x[:, None] for x in k3g_out), tuple(x[:, None] for x in k3g_ref))
+    check(k3g_err == 0, f"finish over Fq2 at path G2's shape disagrees with plain (max |err| {k3g_err})")
+    check(ctx_g2.result_to_affine(k3g_out) == expected_g, "finish over Fq2: its point is not the MSM result")
+    b_ms, b_by = bound((Wg + 1) * 3 * EW * 4, cg * (Wg - 1) * DOUBLE2 + (Wg - 1) * ADD2)
+    fq2_entries.append({
+        "name": "finish_fq2", "route": "cuda",
+        "source": "zprize_wasm_msm_tpu_torch/csrc/reduce.cu",
+        "replaces": "zprize_wasm_msm_tpu/ops/msm/pl_reduce.py:246",
+        "launches": path_g2["launches"]["finish"], "max_abs_err": k3g_err, "ms": k3g_ms,
+        "plain_ms": k3g_plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "depth_floor_ms": (cg * (Wg - 1) * link2_us["double_coop"] + (Wg - 1) * link2_us["add_coop"]) / 1e3,
+        "fold_resources": fq2_res[("finish (fold)", NW)],
+        "shape": f"({LG},{Wg},1)x3, c={cg} -> ({LG},)x3; ms is the pl_reduce.finish wrapper",
+        "compared": "as affine points against bucket_reduce + window_fold, and against the oracle",
+    })
+    for entry in fq2_entries:
+        entry["launches_by_path"] = {"G2": entry["launches"],
+                                     "G2 bn254": path_bn["launches"].get(entry["name"][:-4], 0)}
+        entry["no_library_because"] = ops_library
+    kernels += fq2_entries
+    del buckets_g, sums_g, fold_g
 
     emit({
         "peaks": {"bytes_per_s": PEAK_BYTES_PER_S, "int32_ops_per_s": PEAK_INT32_OPS_PER_S},

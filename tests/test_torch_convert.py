@@ -2,6 +2,7 @@
 (utils.convert) and the curve / field constants of the port's own spec
 copies — and the isolation of the port from jax."""
 
+import dataclasses
 import subprocess
 import sys
 
@@ -62,20 +63,24 @@ def test_toy_curves_equal_reference():
 @pytest.mark.parametrize("name", ["toy", "bn254", "bls12_381", "bls12_377"])
 def test_kernel_constant_block(name):
     """The block the CUDA entry points receive: q, R mod q, 3b*R as 32-bit
-    words (padded to 12 each), then np32."""
+    words (padded to 12 each), then np32, then the slot of 3b's second Fq2
+    component (zero over Fq)."""
     curve = port_curves.CURVES.get(name) or getattr(port_curves, name)
     fq = curve.fq
     block = _build.curve_consts(curve)
-    assert block.dtype == np.uint32 and block.shape == (37,)
+    assert block.dtype == np.uint32 and block.shape == (49,)
     nw = fq.n_words
     assert limbs_to_int(block[0:12], 32) == fq.q
     assert limbs_to_int(block[12:24], 32) == fq.R_mod_q
     assert limbs_to_int(block[24:36], 32) == fq.to_mont_int(3 * curve.b)
     assert not block[nw:12].any() and int(block[36]) == fq.np32
+    assert not block[37:].any()
 
 
 def test_kernel_constant_block_refuses_unported_fields():
-    for curve in (port_curves.bls12_381_g2, port_curves.mnt6753, port_curves.toy_a):
+    # an Fq2 other than Fq[u]/(u^2 + 1) (no curve of the registry has one)
+    nr2 = dataclasses.replace(port_curves.bls12_381_g2, name="bls12_381_g2_nr2", nr=2)
+    for curve in (nr2, port_curves.mnt6753, port_curves.toy_a, port_curves.toy_g3):
         with pytest.raises(NotImplementedError):
             _build.curve_consts(curve)
 

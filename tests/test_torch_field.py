@@ -124,8 +124,8 @@ def test_inverse_wrapper_matches_reference_and_refuses_cpu_kernel():
 @pytest.mark.parametrize("name", sorted(CURVES))
 def test_kernel_constant_blocks(name):
     """The host blocks the CUDA entry points copy into constant memory: q,
-    R mod q, 3b (Montgomery) as 12-word slots and np32, from a host
-    recomputation."""
+    R mod q, 3b (Montgomery; over Fq2 its component 0) as 12-word slots, np32
+    and (over Fq2) 3b's component 1, from a host recomputation."""
     port = CURVES[name]
     fq = port.fq
     nw = fq.n_words
@@ -137,13 +137,22 @@ def test_kernel_constant_blocks(name):
     def words(block, slot):
         return sum(int(w) << (32 * i) for i, w in enumerate(block[12 * slot : 12 * slot + 12]))
 
+    def slot3(block):  # 3b's component 1, after np32
+        return sum(int(w) << (32 * i) for i, w in enumerate(block[37:49]))
+
     fb = _build.field_consts(fq)
-    assert fb.dtype == np.uint32 and fb.shape == (37,) and not fb.flags.writeable
+    assert fb.dtype == np.uint32 and fb.shape == (49,) and not fb.flags.writeable
     assert words(fb, 0) == fq.q and words(fb, 1) == (1 << (32 * nw)) % fq.q and words(fb, 2) == 0
-    assert (int(fb[36]) * fq.q + 1) % (1 << 32) == 0
+    assert (int(fb[36]) * fq.q + 1) % (1 << 32) == 0 and slot3(fb) == 0
     if port.ext == 1 and port.a == 0:
         cb = _build.curve_consts(port)
         assert words(cb, 2) == fq.to_mont_int(3 * port.b) and (cb[:24] == fb[:24]).all() and cb[36] == fb[36]
+        assert slot3(cb) == 0
+    elif port.ext == 2 and port.a == 0:
+        cb = _build.curve_consts(port)
+        b3 = tuple(3 * c % fq.q for c in port.b)
+        assert words(cb, 2) == fq.to_mont_int(b3[0]) and slot3(cb) == fq.to_mont_int(b3[1])
+        assert (cb[:24] == fb[:24]).all() and cb[36] == fb[36]
     else:
         with pytest.raises(NotImplementedError):
             _build.curve_consts(port)

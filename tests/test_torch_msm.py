@@ -259,7 +259,7 @@ def test_kernel_lanes_fill_one_wave(monkeypatch):
     KERNEL_LANES that is still one wave of resident threads and leaves every
     lane a point; lanes the caller names are run as given (the card's
     resident count stands in for the runtime's)."""
-    monkeypatch.setattr(pl_bucket, "_resident_threads", lambda nw, index: 50688)
+    monkeypatch.setattr(pl_bucket, "_resident_threads", lambda nw, ext, index: 50688)
     bls = ZT.models.curves.bls12_381
     assert pippenger._kernel_lanes(bls, 38, 1 << 20, None, "cpu") == 1024  # full path
     assert pippenger._kernel_lanes(bls, 23, 1 << 21, None, "cpu") == 2048  # path A

@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -35,9 +36,19 @@ NVCC_FLAGS = (
 SUPPORTED_WORDS = (2, 8, 12)
 #: words per constant array in csrc/field.cuh's FieldConsts
 MAX_WORDS = 12
+#: words of the host block copied into FieldConsts: q, R mod q, 3b's
+#: component 0, np32, 3b's component 1 (over Fq2)
+CONSTS_WORDS = 4 * MAX_WORDS + 1
+#: extension degrees of the coordinate field the sources instantiate
+SUPPORTED_EXT = (1, 2)
 #: the no-carry Montgomery product of csrc/field.cuh needs q[NW-1] below this
 #: (zp_set_consts refuses the launch otherwise, error -4)
 TOP_WORD_LIMIT = 0x7FFFFFFF
+
+
+#: seconds from the start of the last build() until each library's nvcc
+#: finished (the processes run together)
+BUILD_SECONDS: Dict[str, float] = {}
 
 
 class KernelCompileError(RuntimeError):
@@ -83,31 +94,38 @@ def log_path(stem: str) -> Path:
 
 def build(stems: Iterable[str] = STEMS) -> Dict[str, str]:
     """Compile the named sources that are not built yet, all nvcc processes
-    started together, each compiler output kept at log_path(stem).  Returns
-    {stem: compiler output} for those it built.  Raises KernelCompileError
-    with nvcc's output if any fails."""
+    started together, each compiler output kept at log_path(stem) and each
+    one's wall time in BUILD_SECONDS.  Returns {stem: compiler output} for
+    those it built.  Raises KernelCompileError with nvcc's output if any
+    fails."""
     todo = [s for s in stems if not library_path(s).exists()]
     if not todo:
         return {}
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
     procs = {}
     for stem in todo:
         tmp = library_path(stem).with_suffix(f".{os.getpid()}.tmp")
+        out = tmp.with_suffix(".log")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")]
-        procs[stem] = (
-            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            tmp,
-        )
+        with open(out, "w") as f:
+            procs[stem] = (subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT), tmp, out)
+    pending = set(todo)
+    while pending:
+        for stem in [s for s in pending if procs[s][0].poll() is not None]:
+            BUILD_SECONDS[stem] = time.perf_counter() - t0
+            pending.discard(stem)
+        time.sleep(0.05)
     logs, failed = {}, []
-    for stem, (proc, tmp) in procs.items():
-        out, _ = proc.communicate()
-        logs[stem] = out
+    for stem, (proc, tmp, out) in procs.items():
+        logs[stem] = out.read_text()
+        out.unlink()
         if proc.returncode != 0:
             failed.append(stem)
             tmp.unlink(missing_ok=True)
         else:
-            log_path(stem).write_text(out)
+            log_path(stem).write_text(logs[stem])
             os.replace(tmp, library_path(stem))
     if failed:
         raise KernelCompileError(
@@ -128,7 +146,7 @@ def load(stem: str) -> ctypes.CDLL:
 def field_consts(spec) -> np.ndarray:
     """The host block the entry points copy into csrc/field.cuh's
     FieldConsts for a bare prime field: q and R mod q as MAX_WORDS words
-    each, the curve constant's slot left zero, np32."""
+    each, the curve constant's slots left zero, np32."""
     nw = spec.n_words
     if nw not in SUPPORTED_WORDS:
         raise NotImplementedError(
@@ -140,7 +158,7 @@ def field_consts(spec) -> np.ndarray:
             f"{spec!r}: the CUDA field core's no-carry product needs the top "
             f"bit of q free (top word below {TOP_WORD_LIMIT:#x})"
         )
-    block = np.zeros(3 * MAX_WORDS + 1, dtype=np.uint32)
+    block = np.zeros(CONSTS_WORDS, dtype=np.uint32)
     block[:nw] = spec.q_words
     block[MAX_WORDS : MAX_WORDS + nw] = spec.one_mont_words
     block[3 * MAX_WORDS] = spec.np32
@@ -150,15 +168,27 @@ def field_consts(spec) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def curve_consts(curve) -> np.ndarray:
-    """field_consts of the curve's coordinate field plus 3b (Montgomery)."""
-    if curve.ext != 1 or curve.a != 0:
+    """field_consts of the curve's coordinate field plus 3b (Montgomery):
+    over Fq2 its component 0 in the Fq slot and component 1 in the last.
+    The kernels cover a = 0 curves over Fq, and over Fq2 = Fq[u]/(u^2 + 1)
+    (csrc/field2.cuh; every Fq2 of the registry has nr = -1)."""
+    if curve.ext not in SUPPORTED_EXT or curve.a != 0:
         raise NotImplementedError(
-            f"{curve.name}: the CUDA kernels cover a=0 curves over Fq"
+            f"{curve.name}: the CUDA kernels cover a=0 curves over Fq and Fq2"
         )
     fq = curve.fq
+    if curve.ext == 2 and curve.nr % fq.q != fq.q - 1:
+        raise NotImplementedError(
+            f"{curve.name}: the CUDA Fq2 core multiplies with u^2 = -1; nr = {curve.nr} "
+            "is not ported"
+        )
     b3 = np.asarray(curve.b3_flat_limbs, dtype=np.uint32)
+    words = b3[0::2] | (b3[1::2] << 16)  # ext * NW words, component 0 first
+    nw = fq.n_words
     block = field_consts(fq).copy()
-    block[2 * MAX_WORDS : 2 * MAX_WORDS + fq.n_words] = b3[0::2] | (b3[1::2] << 16)
+    block[2 * MAX_WORDS : 2 * MAX_WORDS + nw] = words[:nw]
+    if curve.ext == 2:
+        block[3 * MAX_WORDS + 1 : 3 * MAX_WORDS + 1 + nw] = words[nw:]
     block.setflags(write=False)
     return block
 
@@ -166,15 +196,30 @@ def curve_consts(curve) -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def b3_small(curve) -> int:
     """3b as an integer, the curve constant of the level-parallel group ops
-    (csrc/par.cuh multiplies by it with additions): 12 on BLS12-381, 9 on
-    BN254.  Raises for a curve whose 3b does not fit one 32-bit word."""
+    over Fq (csrc/par.cuh multiplies by it with additions): 12 on
+    BLS12-381, 9 on BN254.  Raises for a curve whose 3b does not fit one
+    32-bit word, and over Fq2, where those ops multiply by the 3b of the
+    constant block (fold_b3k)."""
     curve_consts(curve)  # the same coverage as every kernel
+    if curve.ext != 1:
+        raise NotImplementedError(
+            f"{curve.name}: 3b is an Fq2 element; the Fq2 group ops take it from the "
+            "constant block"
+        )
     k = 3 * curve.b
     if not 0 < k < 1 << 32:
         raise NotImplementedError(
             f"{curve.name}: the window fold's group ops need 3b below 2^32"
         )
     return k
+
+
+def fold_b3k(curve) -> int:
+    """The b3k argument of the entry points that run the level-parallel
+    group ops: b3_small over Fq; over Fq2 they read 3b from the constant
+    block, and take 0."""
+    curve_consts(curve)
+    return b3_small(curve) if curve.ext == 1 else 0
 
 
 def kernel_info(stem: str, entry: str, nw: int, *args: int) -> Dict[str, int]:
@@ -196,7 +241,7 @@ def check_launch(err: int, name: str) -> None:
     never ran, and a later synchronize would not say so)."""
     if err != 0:
         reason = {
-            -1: "field width not instantiated",
+            -1: "field width or extension degree not instantiated for this entry",
             -2: "bucket count or run not a power of two, lanes not whole warps covering "
             "every bucket, or more bucket limbs than 32-bit offsets reach",
             -3: "inverse step count below 1",

@@ -3,7 +3,11 @@
 // bucket_sweep_kernel replaces the TPU kernel
 // zprize_wasm_msm_tpu/ops/msm/pl_bucket.py `_kernel` (main sweep), and
 // lane_reduce_kernel replaces its tail steps and
-// zprize_wasm_msm_tpu/ops/msm/pl_reduce.py `_lane_reduce_kernel`.
+// zprize_wasm_msm_tpu/ops/msm/pl_reduce.py `_lane_reduce_kernel`.  The TPU
+// kernels are generic over the coordinate field (ops/field/ktower.py
+// kfield), so they also run G2 over Fq2: here bucket_sweep2_kernel and the
+// EXT = 2 instantiations of the lane reduction are those forms (a mixed add
+// is 11 Fq2 products, 33 Fq products, on one thread's chain).
 //
 // What the TPU version is shaped by, and what takes its place here:
 //   * a sequential grid carrying the bucket state in on-chip memory from
@@ -68,10 +72,23 @@
 #include <cuda_runtime.h>
 
 #include "async.cuh"
-#include "group.cuh"
+#include "par.cuh"
 
 #define SWEEP_THREADS 64
 #define REDUCE_THREADS 128
+// Over Fq2 (G2): one warp a block, so that a block's shared slots (three
+// points a thread at 72 words each, at NW = 12) stay under the 48 KB of
+// static shared memory.
+#define SWEEP2_THREADS 32
+#define REDUCE2_THREADS 32
+
+static_assert(SWEEP2_THREADS <= FQ2_BLOCK && REDUCE2_THREADS <= FQ2_BLOCK,
+              "group2.cuh's scratch covers one warp a block");
+
+template <int EXT>
+__host__ __device__ constexpr int reduce_threads() {
+  return EXT == 1 ? REDUCE_THREADS : REDUCE2_THREADS;
+}
 
 // digits [W][N] int32, X / Y [NW][N] words, state [W][T][B][3*NW] words.
 // Thread (w, t) takes points t, t+T, ... of window w into its row.
@@ -159,6 +176,94 @@ __global__ void __launch_bounds__(SWEEP_THREADS)
   }
 }
 
+// The sweep over Fq2 (G2): the same schedule as bucket_sweep_kernel (the
+// point and bucket of step s+1 in flight by cp.async while step s adds,
+// the digit two steps ahead, same-bucket forwarding), with the Fq2 mixed
+// add of group2.cuh, which reads its operands where it uses them from the
+// thread's shared slots and writes the sum back there: the accumulator is
+// the bucket's shared slot, and forwarding copies it to the next step's
+// slot instead of keeping it in registers.  Each slot is one point,
+// contiguous ([buffer][thread][words]).  A thread may use all 255
+// registers (one block of 32 threads per SM is the floor; shared memory
+// sets the residency).
+template <int NW>
+__global__ void __launch_bounds__(SWEEP2_THREADS, 1)
+    bucket_sweep2_kernel(const int32_t* __restrict__ digits, const uint32_t* __restrict__ X,
+                         const uint32_t* __restrict__ Y, uint32_t* __restrict__ state, int W,
+                         int T, int N, int B) {
+  constexpr int EW = 2 * NW;  // words of an element
+  constexpr int BW = 3 * EW;  // words of a bucket
+  __shared__ AffinePt<NW, 2> sh_pt[2][SWEEP2_THREADS];
+  __shared__ Pt<NW, 2> sh_bk[2][SWEEP2_THREADS];
+
+  const int tid = threadIdx.x;
+  const size_t gid = (size_t)blockIdx.x * blockDim.x + tid;
+  if (gid >= (size_t)W * T) return;
+  const int w = (int)(gid / T), t = (int)(gid % T);
+  uint32_t* row = state + gid * (size_t)B * BW;
+  {
+    Pt<NW, 2> id;
+    pt_identity<NW>(id);
+    for (int b = 0; b < B; ++b) pt_store_aos<NW>(row + (size_t)b * BW, id);
+  }
+
+  auto fetch = [&](int buf, int s, int d, bool bucket) {
+    const size_t n = (size_t)t + (size_t)s * T;
+    uint32_t* px = reinterpret_cast<uint32_t*>(&sh_pt[buf][tid].x);
+    uint32_t* py = reinterpret_cast<uint32_t*>(&sh_pt[buf][tid].y);
+#pragma unroll
+    for (int k = 0; k < EW; ++k) {
+      cp_async4(px + k, X + (size_t)k * N + n);
+      cp_async4(py + k, Y + (size_t)k * N + n);
+    }
+    if (!bucket) return;
+    const uint32_t* src = row + (size_t)((d < 0 ? -d : d) - 1) * BW;
+    uint32_t* dst = reinterpret_cast<uint32_t*>(&sh_bk[buf][tid]);
+#pragma unroll
+    for (int k = 0; k < BW; k += 4) cp_async16(dst + k, src + k);
+  };
+
+  const int32_t* drow = digits + (size_t)w * N;
+  const int S = N / T;  // steps
+  int d0 = S > 0 ? drow[t] : 0;
+  int d1 = S > 1 ? drow[(size_t)t + T] : 0;
+  if (d0 != 0) fetch(0, 0, d0, true);
+  cp_async_wait_all();
+  for (int s = 0; s < S; ++s) {
+    const int cb = s & 1;
+    const int d2 = s + 2 < S ? drow[(size_t)t + (size_t)(s + 2) * T] : 0;
+    const int a0 = d0 < 0 ? -d0 : d0, a1 = d1 < 0 ? -d1 : d1;
+    // step s+1 hits this step's bucket: its copy would be stale, so the sum
+    // is forwarded into its slot below instead
+    const bool carry_next = d0 != 0 && a1 == a0;
+    if (d1 != 0) fetch(cb ^ 1, s + 1, d1, !carry_next);
+    cp_async_commit();
+    if (d0 != 0) {
+      AffinePt<NW, 2>& p = sh_pt[cb][tid];
+      if (d0 < 0) {
+        Fe2<NW> y;
+        sh_get<NW>(y, p.y);
+        fe_neg<NW>(y, y);
+        sh_put<NW>(p.y, y);
+      }
+      Pt<NW, 2>& acc = sh_bk[cb][tid];
+      pt2_add_mixed_sh<NW>(acc, p.x, p.y);
+      const uint4* a4 = reinterpret_cast<const uint4*>(&acc);
+      uint4* dst = reinterpret_cast<uint4*>(row + (size_t)(a0 - 1) * BW);
+      uint4* fwd = reinterpret_cast<uint4*>(&sh_bk[cb ^ 1][tid]);
+#pragma unroll
+      for (int k = 0; k < BW / 4; ++k) {
+        const uint4 v = a4[k];
+        dst[k] = v;
+        if (carry_next) fwd[k] = v;
+      }
+    }
+    cp_async_wait_all();
+    d0 = d1;
+    d1 = d2;
+  }
+}
+
 // Lane reduction: state [W][T][B][3*NW] -> out [3][NW][W*B], the sum over T
 // of each (w, b).  Bound: operations (T-1 complete adds per bucket, 2.5 M
 // at the full path); the state is read once (358 MB at the full path,
@@ -191,15 +296,20 @@ __global__ void __launch_bounds__(SWEEP_THREADS)
 //   * the next partial (a contiguous 3 NW words) is copied by cp.async into
 //     the thread's own double-buffered shared slots while the add runs.
 // Static schedule, no atomics: the result is the same on every run.
-template <int NW>
-__global__ void __launch_bounds__(REDUCE_THREADS, 3)
+// Over Fq2 (EXT = 2, G2) the same schedule runs with the piece being summed
+// in a shared slot of the thread's own (par.cuh work_point) and group2.cuh's
+// complete add, whose every Fq2 product goes through shared memory; one warp
+// a block (REDUCE2_THREADS), so that a block's slots stay in static shared
+// memory, and shared memory, not registers, sets the residency.
+template <int NW, int EXT>
+__global__ void __launch_bounds__(reduce_threads<EXT>(), EXT == 1 ? 3 : 1)
     lane_reduce_kernel(const uint32_t* __restrict__ state, uint32_t* __restrict__ out,
                        uint32_t* __restrict__ pieces, int W, int T, int B, int N) {
-  constexpr int BW = 3 * NW;
+  constexpr int BW = 3 * EXT * NW, RT = reduce_threads<EXT>();
   // each thread's two slots, a point each, read in place by the adds
-  __shared__ Pt<NW> sh[2][REDUCE_THREADS];
+  __shared__ Pt<NW, EXT> sh[2][RT];
   const int tid = threadIdx.x;
-  const int g = blockIdx.x * REDUCE_THREADS + tid;
+  const int g = blockIdx.x * RT + tid;
   if (g >= N) return;  // whole warps: N is a multiple of 32
   // F partials of 3 NW words each fit device memory, so F < 2^31
   const int F = W * B * T;
@@ -219,7 +329,10 @@ __global__ void __launch_bounds__(REDUCE_THREADS, 3)
   };
   auto park = [&] { return pieces + ((size_t)(N / 32) * 2 + g) * BW; };  // this lane's head
 
-  Pt<NW> acc;  // the piece being summed
+  // the piece being summed: in registers over Fq, in a shared slot of its
+  // own over Fq2 (par.cuh work_point, group2.cuh)
+  Pt<NW, EXT> acc_own;
+  Pt<NW, EXT>& acc = work_point<NW, EXT, RT>(acc_own, tid);
   pt_identity<NW>(acc);
   {
     const int s = (int)((long)g * F / N), e = (int)((long)(g + 1) * F / N);
@@ -255,7 +368,7 @@ __global__ void __launch_bounds__(REDUCE_THREADS, 3)
   // this lane's bounds again, read afresh (not kept through the loop)
   int gg;
   asm volatile("mov.u32 %0, %%tid.x;" : "=r"(gg));
-  gg += blockIdx.x * REDUCE_THREADS;
+  gg += blockIdx.x * RT;
   const int s = (int)((long)gg * F / N), e = (int)((long)(gg + 1) * F / N);
   const int split = (s / T + 1) * T;
 
@@ -302,19 +415,21 @@ __global__ void __launch_bounds__(REDUCE_THREADS, 3)
 // The buckets whose pieces span warps: one thread per bucket adds the last
 // piece of the warp where it begins, the whole-warp pieces after it and
 // the first piece of the warp where it ends.
-template <int NW>
-__global__ void __launch_bounds__(REDUCE_THREADS)
+template <int NW, int EXT>
+__global__ void __launch_bounds__(reduce_threads<EXT>())
     lane_combine_kernel(const uint32_t* __restrict__ pieces, uint32_t* __restrict__ out, int W,
                         int T, int B, int N) {
-  constexpr int BW = 3 * NW;
+  constexpr int BW = 3 * EXT * NW, RT = reduce_threads<EXT>();
   const long nb = (long)W * B, F = nb * T;
-  const long b = (long)blockIdx.x * REDUCE_THREADS + threadIdx.x;
+  const long b = (long)blockIdx.x * RT + threadIdx.x;
   if (b >= nb) return;
   // the lane holding partial x: the largest g with g F / N <= x
   auto lane_of = [&](long x) { return ((x + 1) * N - 1) / F; };
   const long i0 = lane_of(b * T) / 32, i1 = lane_of((b + 1) * T - 1) / 32;
   if (i0 == i1) return;  // written by its warp
-  Pt<NW> acc, p;
+  Pt<NW, EXT> acc_own, p_own;
+  Pt<NW, EXT>& acc = work_point<NW, EXT, 2 * RT>(acc_own, threadIdx.x);
+  Pt<NW, EXT>& p = work_point<NW, EXT, 2 * RT>(p_own, RT + threadIdx.x);
   pt_load_aos<NW>(acc, pieces + (size_t)i0 * 2 * BW + BW);
   for (long i = i0 + 1; i < i1; ++i) {
     pt_load_aos<NW>(p, pieces + (size_t)i * 2 * BW + BW);
@@ -325,59 +440,72 @@ __global__ void __launch_bounds__(REDUCE_THREADS)
   pt_store_soa<NW>(out, (size_t)nb, (size_t)b, acc);
 }
 
-// digits [W][N] int32, X / Y [NW][N] words, state [W][T][B][3*NW] words
-// (scratch, fully written here).  N must be a multiple of T.  Returns the
-// CUDA error code of the launch (0 = launched).
-extern "C" int zp_bucket_sweep(int nw, const uint32_t* host_consts, const int32_t* digits,
-                               const uint32_t* X, const uint32_t* Y, uint32_t* state, int W,
-                               int T, int N, int B, void* stream_ptr) {
+// digits [W][N] int32, X / Y [EXT NW][N] words, state [W][T][B][3 EXT NW]
+// words (scratch, fully written here).  N must be a multiple of T.  Returns
+// the CUDA error code of the launch (0 = launched).
+extern "C" int zp_bucket_sweep(int nw, int ext, const uint32_t* host_consts,
+                               const int32_t* digits, const uint32_t* X, const uint32_t* Y,
+                               uint32_t* state, int W, int T, int N, int B, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   int err = zp_set_consts(nw, host_consts, stream);
   if (err) return err;
   const size_t threads = (size_t)W * T;
-  const unsigned blocks = (unsigned)((threads + SWEEP_THREADS - 1) / SWEEP_THREADS);
-#define CALL(NW_) \
-  bucket_sweep_kernel<NW_><<<blocks, SWEEP_THREADS, 0, stream>>>(digits, X, Y, state, W, T, N, B)
-  ZP_DISPATCH_NW(nw, CALL)
+  const int bt = ext == 1 ? SWEEP_THREADS : SWEEP2_THREADS;
+  const unsigned blocks = (unsigned)((threads + bt - 1) / bt);
+#define CALL(NW_, EXT_)                                                                        \
+  if constexpr (EXT_ == 1)                                                                     \
+    bucket_sweep_kernel<NW_><<<blocks, bt, 0, stream>>>(digits, X, Y, state, W, T, N, B);      \
+  else                                                                                         \
+    bucket_sweep2_kernel<NW_><<<blocks, bt, 0, stream>>>(digits, X, Y, state, W, T, N, B)
+  ZP_DISPATCH_NW_EXT(nw, ext, CALL)
 #undef CALL
   return (int)cudaGetLastError();
 }
 
 // out[0..4]: registers, local bytes, static shared bytes, resident blocks
-// per SM of bucket_sweep_kernel<nw> (zp_kernel_info).
-extern "C" int zp_bucket_sweep_info(int nw, int* out) {
-#define CALL(NW_) return zp_kernel_info(bucket_sweep_kernel<NW_>, SWEEP_THREADS, out)
-  ZP_DISPATCH_NW(nw, CALL)
+// per SM of the sweep kernel of (nw, ext) (zp_kernel_info).
+extern "C" int zp_bucket_sweep_info(int nw, int ext, int* out) {
+#define CALL(NW_, EXT_)                                                            \
+  if constexpr (EXT_ == 1) return zp_kernel_info(bucket_sweep_kernel<NW_>, SWEEP_THREADS, out); \
+  else return zp_kernel_info(bucket_sweep2_kernel<NW_>, SWEEP2_THREADS, out)
+  ZP_DISPATCH_NW_EXT(nw, ext, CALL)
 #undef CALL
   return -1;
 }
 
-// state [W][T][B][3*NW] words -> out [3][NW][W*B] words over N lanes (a
-// multiple of 32, at least W*B); pieces: scratch of 3*NW words twice per warp
-// (the warps' first and last pieces), then once per lane (parked heads).
-extern "C" int zp_lane_reduce(int nw, const uint32_t* host_consts, const uint32_t* state,
-                              uint32_t* out, uint32_t* pieces, int W, int T, int B, int N,
-                              void* stream_ptr) {
+// state [W][T][B][3 EXT NW] words -> out [3][EXT NW][W*B] words over N lanes
+// (a multiple of 32, at least W*B); pieces: scratch of 3 EXT NW words twice
+// per warp (the warps' first and last pieces), then once per lane (parked
+// heads).
+extern "C" int zp_lane_reduce(int nw, int ext, const uint32_t* host_consts,
+                              const uint32_t* state, uint32_t* out, uint32_t* pieces, int W,
+                              int T, int B, int N, void* stream_ptr) {
   if (N % 32 || N < W * B) return -2;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   int err = zp_set_consts(nw, host_consts, stream);
   if (err) return err;
-  const unsigned blocks = (unsigned)((N + REDUCE_THREADS - 1) / REDUCE_THREADS);
-  const unsigned cblocks = (unsigned)(((long)W * B + REDUCE_THREADS - 1) / REDUCE_THREADS);
-#define CALL(NW_)                                                                              \
-  lane_reduce_kernel<NW_><<<blocks, REDUCE_THREADS, 0, stream>>>(state, out, pieces, W, T, B, N); \
-  if (N > 32)                                                                                  \
-  lane_combine_kernel<NW_><<<cblocks, REDUCE_THREADS, 0, stream>>>(pieces, out, W, T, B, N)
-  ZP_DISPATCH_NW(nw, CALL)
+#define CALL(NW_, EXT_)                                                                      \
+  {                                                                                          \
+    constexpr int RT = reduce_threads<EXT_>();                                               \
+    lane_reduce_kernel<NW_, EXT_><<<(unsigned)((N + RT - 1) / RT), RT, 0, stream>>>(        \
+        state, out, pieces, W, T, B, N);                                                     \
+    if (N > 32)                                                                              \
+      lane_combine_kernel<NW_, EXT_><<<(unsigned)(((long)W * B + RT - 1) / RT), RT, 0,     \
+                                       stream>>>(pieces, out, W, T, B, N);                  \
+  }
+  ZP_DISPATCH_NW_EXT(nw, ext, CALL)
 #undef CALL
   return (int)cudaGetLastError();
 }
 
 // out[0..4]: registers, local bytes, static shared bytes, resident blocks
-// per SM of lane_reduce_kernel<nw> (zp_kernel_info).
-extern "C" int zp_lane_reduce_info(int nw, int* out) {
-#define CALL(NW_) return zp_kernel_info(lane_reduce_kernel<NW_>, REDUCE_THREADS, out)
-  ZP_DISPATCH_NW(nw, CALL)
+// per SM of lane_reduce_kernel<nw, ext> (which = 0) or lane_combine_kernel
+// (which = 1) (zp_kernel_info).
+extern "C" int zp_lane_reduce_info(int nw, int ext, int which, int* out) {
+#define CALL(NW_, EXT_)                                                                   \
+  return which ? zp_kernel_info(lane_combine_kernel<NW_, EXT_>, reduce_threads<EXT_>(), out) \
+               : zp_kernel_info(lane_reduce_kernel<NW_, EXT_>, reduce_threads<EXT_>(), out)
+  ZP_DISPATCH_NW_EXT(nw, ext, CALL)
 #undef CALL
   return -1;
 }

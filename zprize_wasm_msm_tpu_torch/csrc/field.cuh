@@ -26,8 +26,8 @@
 // word is 2^31 - 1 or more.  The toy field (14 bits of 64), BN254 (254 of
 // 256) and BLS12-381 (381 of 384) all qualify.
 //
-// Field constants (q, R mod q, 3b in Montgomery form, -q^{-1} mod 2^32) sit
-// in __constant__ memory, written by the host entry point on the launch's
+// Field constants (q, R mod q, 3b in Montgomery form, -q^{-1} mod 2^32, and
+// over Fq2 the second component of 3b) sit in __constant__ memory, written by the host entry point on the launch's
 // stream just before the kernel: one source serves every field with
 // NW <= ZP_MAX_NW.  Launches for two different curves must therefore not
 // overlap on two streams.
@@ -41,10 +41,11 @@
 #define ZP_MAX_NW 12
 
 struct FieldConsts {
-  uint32_t q[ZP_MAX_NW];    // modulus
-  uint32_t one[ZP_MAX_NW];  // R mod q
-  uint32_t b3[ZP_MAX_NW];   // 3b * R mod q (curve constant of the a=0 formulas)
-  uint32_t np;              // -q^{-1} mod 2^32
+  uint32_t q[ZP_MAX_NW];     // modulus
+  uint32_t one[ZP_MAX_NW];   // R mod q
+  uint32_t b3[ZP_MAX_NW];    // 3b * R mod q (curve constant of the a=0 formulas)
+  uint32_t np;               // -q^{-1} mod 2^32
+  uint32_t b3_1[ZP_MAX_NW];  // over Fq2: component 1 of 3b (b3 holds component 0)
 };
 
 // One copy per translation unit; each .cu file is built into its own library.

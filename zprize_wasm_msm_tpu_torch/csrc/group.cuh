@@ -21,23 +21,29 @@
 // per body); their operands cross the call through the thread's stack.
 // The collapse and the window fold (reduce.cu K2, K3) run their chains on
 // the level-parallel forms of par.cuh.
+//
+// Points, the identity and the layouts below serve both coordinate fields:
+// EXT = 1 (Fq, G1) or 2 (Fq2, G2; field2.cuh), the element type
+// Elem<NW, EXT>.  The group law over Fq2 is in group2.cuh (K1, K4) and
+// par.cuh (K2, K3): a point is 72 words at NW = 12, so those forms keep
+// their points in shared memory, and the register forms here are Fq only.
 #pragma once
 
-#include "field.cuh"
+#include "field2.cuh"
 
-template <int NW>
+template <int NW, int EXT = 1>
 struct __align__(16) Pt {
-  Fe<NW> x, y, z;
+  Elem<NW, EXT> x, y, z;
 };
 
 // An affine point as the sweeps read it: x words, then y words.
-template <int NW>
+template <int NW, int EXT = 1>
 struct __align__(16) AffinePt {
-  Fe<NW> x, y;
+  Elem<NW, EXT> x, y;
 };
 
-template <int NW>
-__device__ __forceinline__ void pt_identity(Pt<NW>& r) {
+template <int NW, int EXT = 1>
+__device__ __forceinline__ void pt_identity(Pt<NW, EXT>& r) {
   fe_zero<NW>(r.x);
   fe_one<NW>(r.y);
   fe_zero<NW>(r.z);
@@ -176,10 +182,10 @@ __device__ __noinline__ void pt_double(Pt<NW>* r, const Pt<NW>* p) {
 
 // ---- layouts --------------------------------------------------------------
 //
-// "SoA": a batch of n points as [3][NW][n] words (coordinate, word, element;
+// "SoA": a batch of n points as [3][EXT NW][n] words (coordinate, word, element;
 // element fastest), i.e. the package's public (L, *batch) layout re-packed
 // to 32-bit words: neighbouring threads read neighbouring addresses.
-// "AoS": one point as 3*NW contiguous words (x words, y words, z words), the
+// "AoS": one point as 3 EXT NW contiguous words (x words, y words, z words), the
 // layout of the bucket state, where each thread reads a bucket no other
 // thread of its warp is near: contiguous per thread fills whole 32-byte
 // sectors.
@@ -198,55 +204,85 @@ __device__ __forceinline__ void fe_store_soa(uint32_t* base, size_t n, size_t i,
   for (int k = 0; k < NW; ++k) base[(size_t)k * n + i] = a.w[k];
 }
 
+// An Fq2 element is 2 NW words: component 0's, then component 1's.
 template <int NW>
-__device__ __forceinline__ void pt_load_soa(Pt<NW>& r, const uint32_t* base, size_t n,
+__device__ __forceinline__ void fe_load_soa(Fe2<NW>& r, const uint32_t* base, size_t n,
                                             size_t i) {
+  fe_load_soa<NW>(r.c0, base, n, i);
+  fe_load_soa<NW>(r.c1, base + (size_t)NW * n, n, i);
+}
+
+template <int NW>
+__device__ __forceinline__ void fe_store_soa(uint32_t* base, size_t n, size_t i,
+                                             const Fe2<NW>& a) {
+  fe_store_soa<NW>(base, n, i, a.c0);
+  fe_store_soa<NW>(base + (size_t)NW * n, n, i, a.c1);
+}
+
+template <int NW, int EXT = 1>
+__device__ __forceinline__ void pt_load_soa(Pt<NW, EXT>& r, const uint32_t* base, size_t n,
+                                            size_t i) {
+  constexpr int EW = EXT * NW;
   fe_load_soa<NW>(r.x, base, n, i);
-  fe_load_soa<NW>(r.y, base + (size_t)NW * n, n, i);
-  fe_load_soa<NW>(r.z, base + (size_t)2 * NW * n, n, i);
+  fe_load_soa<NW>(r.y, base + (size_t)EW * n, n, i);
+  fe_load_soa<NW>(r.z, base + (size_t)2 * EW * n, n, i);
 }
 
-template <int NW>
+template <int NW, int EXT = 1>
 __device__ __forceinline__ void pt_store_soa(uint32_t* base, size_t n, size_t i,
-                                             const Pt<NW>& a) {
+                                             const Pt<NW, EXT>& a) {
+  constexpr int EW = EXT * NW;
   fe_store_soa<NW>(base, n, i, a.x);
-  fe_store_soa<NW>(base + (size_t)NW * n, n, i, a.y);
-  fe_store_soa<NW>(base + (size_t)2 * NW * n, n, i, a.z);
+  fe_store_soa<NW>(base + (size_t)EW * n, n, i, a.y);
+  fe_store_soa<NW>(base + (size_t)2 * EW * n, n, i, a.z);
 }
 
-template <int NW>
-__device__ __forceinline__ void pt_load_aos(Pt<NW>& r, const uint32_t* src) {
-  if constexpr ((3 * NW) % 4 == 0) {
+template <int NW, int EXT = 1>
+__device__ __forceinline__ void pt_load_aos(Pt<NW, EXT>& r, const uint32_t* src) {
+  constexpr int PW = 3 * EXT * NW;  // words of a point
+  if constexpr (PW % 4 == 0) {
     const uint4* s4 = reinterpret_cast<const uint4*>(src);
     uint4* d4 = reinterpret_cast<uint4*>(&r);
 #pragma unroll
-    for (int k = 0; k < (3 * NW) / 4; ++k) d4[k] = s4[k];
+    for (int k = 0; k < PW / 4; ++k) d4[k] = s4[k];
   } else {
     uint32_t* d = reinterpret_cast<uint32_t*>(&r);
 #pragma unroll
-    for (int k = 0; k < 3 * NW; ++k) d[k] = src[k];
+    for (int k = 0; k < PW; ++k) d[k] = src[k];
   }
 }
 
-template <int NW>
-__device__ __forceinline__ void pt_store_aos(uint32_t* dst, const Pt<NW>& a) {
-  if constexpr ((3 * NW) % 4 == 0) {
+template <int NW, int EXT = 1>
+__device__ __forceinline__ void pt_store_aos(uint32_t* dst, const Pt<NW, EXT>& a) {
+  constexpr int PW = 3 * EXT * NW;
+  if constexpr (PW % 4 == 0) {
     uint4* d4 = reinterpret_cast<uint4*>(dst);
     const uint4* s4 = reinterpret_cast<const uint4*>(&a);
 #pragma unroll
-    for (int k = 0; k < (3 * NW) / 4; ++k) d4[k] = s4[k];
+    for (int k = 0; k < PW / 4; ++k) d4[k] = s4[k];
   } else {
     const uint32_t* s = reinterpret_cast<const uint32_t*>(&a);
 #pragma unroll
-    for (int k = 0; k < 3 * NW; ++k) dst[k] = s[k];
+    for (int k = 0; k < PW; ++k) dst[k] = s[k];
   }
 }
 
-// Entry points dispatch on the field's word count.
+// Entry points dispatch on the field's word count, and those that take
+// both coordinate fields on the extension degree too.
 #define ZP_DISPATCH_NW(nw, CALL) \
   switch (nw) {                  \
     case 2: { CALL(2); } break;  \
     case 8: { CALL(8); } break;  \
     case 12: { CALL(12); } break; \
     default: return -1;          \
+  }
+#define ZP_DISPATCH_NW_EXT(nw, ext, CALL)                       \
+  switch ((ext) * 100 + (nw)) {                                 \
+    case 102: { CALL(2, 1); } break;                            \
+    case 108: { CALL(8, 1); } break;                            \
+    case 112: { CALL(12, 1); } break;                           \
+    case 202: { CALL(2, 2); } break;                            \
+    case 208: { CALL(8, 2); } break;                            \
+    case 212: { CALL(12, 2); } break;                           \
+    default: return -1;                                         \
   }

@@ -30,10 +30,18 @@
 // Every lane of the warp must call these functions together, with the same
 // b3k (they shuffle with the full mask); groups of one warp may hold
 // different points.
+//
+// Over Fq2 (the second half of this file) the same two levels run with an
+// Fq2 product on each slot (three Fq products in sequence, each shared by
+// PL lanes), and 3b is a full Fq2 constant: its products get a level of
+// their own between the two.  A point is 72 words at NW = 12, too many to
+// keep two of them and the levels' values in registers, so the Fq2 forms
+// take their points in shared memory (the group's slots; every lane of the
+// group writes the same result) and gather only what each slot needs.
 #pragma once
 
 #include "coop.cuh"
-#include "group.cuh"
+#include "group2.cuh"
 
 // r = product j of the group's level (computed on its lanes j PL ..)
 template <int NW, int PL>
@@ -168,26 +176,151 @@ __device__ __forceinline__ void pt_add_par(Pt<NW>& r, const Pt<NW>& p, const Pt<
   fe_add<NW>(r.z, r4, r5);
 }
 
-// r = k * s for 1 <= k < 2^bits: `bits` rounds of a doubling and an
-// addition kept where bit i of k is set.  Every group of the warp runs the
-// same rounds whatever its k (the shuffles need every lane).
+// ---- Fq2 ------------------------------------------------------------------
+
+// Karatsuba over three cooperative products (c0 = a0 b0 - a1 b1,
+// c1 = (a0 + a1)(b0 + b1) - a0 b0 - a1 b1); r may alias a or b.
 template <int NW, int PL>
-__device__ __forceinline__ void ladder_par(Pt<NW>& r, const Pt<NW>& s, int k, int bits, int sub,
-                                           uint32_t b3k) {
-  pt_identity<NW>(r);
-  for (int i = bits - 1; i >= 0; --i) {
-    pt_double_par<NW, PL>(r, sub, b3k);
-    Pt<NW> t;
-    pt_add_par<NW, PL>(t, r, s, sub, b3k);
-    if ((k >> i) & 1) r = t;
-  }
+__device__ __forceinline__ void fe_mul_coop(Fe2<NW>& r, const Fe2<NW>& a, const Fe2<NW>& b,
+                                            int rl) {
+  Fe<NW> m0, m1, sa, sb;
+  fe_mul_coop<NW, PL>(m0, a.c0, b.c0, rl);
+  fe_mul_coop<NW, PL>(m1, a.c1, b.c1, rl);
+  fe_add<NW>(sa, a.c0, a.c1);
+  fe_add<NW>(sb, b.c0, b.c1);
+  fe_mul_coop<NW, PL>(sa, sa, sb, rl);
+  fe_sub<NW>(sa, sa, m0);
+  fe_sub<NW>(r.c1, sa, m1);
+  fe_sub<NW>(r.c0, m0, m1);
 }
 
-// r = the point of the lane `off` lanes away (lane ^ off), whole warp.
-template <int NW>
-__device__ __forceinline__ void pt_shfl_xor(Pt<NW>& r, const Pt<NW>& a, int off) {
-  const uint32_t* s = reinterpret_cast<const uint32_t*>(&a);
-  uint32_t* o = reinterpret_cast<uint32_t*>(&r);
-#pragma unroll
-  for (int k = 0; k < 3 * NW; ++k) o[k] = __shfl_xor_sync(0xFFFFFFFFu, s[k], off);
+template <int NW, int PL>
+__device__ __forceinline__ void fe_shfl(Fe2<NW>& r, const Fe2<NW>& a, int j) {
+  fe_shfl<NW, PL>(r.c0, a.c0, j);
+  fe_shfl<NW, PL>(r.c1, a.c1, j);
+}
+
+template <int NW, int PL>
+__device__ __forceinline__ void par_mul(Fe2<NW>& r, const Fe2<NW>& a, const Fe2<NW>& b,
+                                        int sub) {
+  if constexpr (PL == 1) fe_mul<NW>(r, a, b);
+  else fe_mul_coop<NW, PL>(r, a, b, sub % PL);
+}
+
+// p = 2p (RCB16 algorithm 9), p in shared memory.  Level 1 as over Fq
+// (slot s of 4: Y Y, Y Z, Z Z, X Y); then 3b t2 on every lane; level 2
+// (t0' XY, 3b t2 8Y^2, t0' Y3s, YZ 8Y^2).  b3k is not read: 3b is the
+// constant of field2.cuh's fe_b3.
+template <int NW, int PL>
+__device__ __forceinline__ void pt_double_par(Pt<NW, 2>& p, int sub, uint32_t) {
+  const int s = (sub / PL) & 3;
+  const Fe2<NW>* pc = &p.x;
+  Fe2<NW> a, b, m, t0, t2b, g, u;
+  sh_get<NW>(a, pc[s == 3 ? 0 : s == 2 ? 2 : 1]);
+  sh_get<NW>(b, pc[s == 0 || s == 3 ? 1 : 2]);
+  par_mul<NW, PL>(m, a, b, sub);
+  fe_shfl<NW, PL>(a, m, 2);  // t2
+  fe_b3<NW>(b);
+  par_mul<NW, PL>(t2b, b, a, sub);
+  fe_shfl<NW, PL>(t0, m, 0);
+  fe_shfl<NW, PL>(g, m, s == 0 ? 3 : 1);  // XY to slot 0, YZ to slot 3
+  fe_add<NW>(u, t2b, t2b);
+  fe_add<NW>(u, u, t2b);
+  fe_sub<NW>(u, t0, u);  // t0' = t0 - 3 (3b t2)
+  fe_select<NW>(a, s == 1, t2b, u);
+  fe_select<NW>(a, s == 3, g, a);
+  fe_add<NW>(b, t0, t2b);  // Y3s
+  fe_add<NW>(t0, t0, t0);
+  fe_add<NW>(t0, t0, t0);
+  fe_add<NW>(t0, t0, t0);  // Z8 = 8 t0
+  fe_select<NW>(b, s == 2, b, t0);
+  fe_select<NW>(b, s == 0, g, b);
+  par_mul<NW, PL>(m, a, b, sub);
+  fe_shfl<NW, PL>(a, m, 0);
+  fe_add<NW>(a, a, a);
+  fe_shfl<NW, PL>(b, m, 1);
+  fe_shfl<NW, PL>(u, m, 2);
+  fe_add<NW>(b, b, u);
+  fe_shfl<NW, PL>(u, m, 3);
+  sh_put<NW>(p.x, a);
+  sh_put<NW>(p.y, b);
+  sh_put<NW>(p.z, u);
+}
+
+// r = p + q (RCB16 algorithm 7), all three in shared memory (r may alias p
+// or q).  Level 1 as over Fq (slots 0-5); then slot s holds v_s = 3 t0, t1,
+// t2, t3, t4, Yr, each from two gathered products; a level of 3b products
+// makes slot 2's t2b and slot 5's Yb; level 2 gathers each slot's two
+// operands (t1l and Z3l from slots 1 and 2) and runs the tail's six
+// products.  Slots 6 and 7 repeat slot 5; no one reads them.
+template <int NW, int PL>
+__device__ __forceinline__ void pt_add_par(Pt<NW, 2>& r, const Pt<NW, 2>& p,
+                                           const Pt<NW, 2>& q, int sub, uint32_t) {
+  const int s = min(sub / PL, 5);
+  const Fe2<NW>* pc = &p.x;
+  const Fe2<NW>* qc = &q.x;
+  // level 1: X1X2, Y1Y2, Z1Z2, (X1+Y1)(X2+Y2), (Y1+Z1)(Y2+Z2), (X1+Z1)(X2+Z2)
+  const int i1 = s == 1 || s == 4 ? 1 : s == 2 ? 2 : 0, i2 = s == 3 ? 1 : 2;
+  Fe2<NW> a, b, m, f, g;
+  sh_get<NW>(a, pc[i1]);
+  sh_get<NW>(b, qc[i1]);
+  if (s >= 3) {
+    sh_get<NW>(f, pc[i2]);
+    fe_add<NW>(a, a, f);
+    sh_get<NW>(f, qc[i2]);
+    fe_add<NW>(b, b, f);
+  }
+  par_mul<NW, PL>(m, a, b, sub);
+  // v_s: slots 3, 4, 5 subtract two of t0, t1, t2; slot 0 triples t0
+  fe_shfl<NW, PL>(f, m, s == 4 ? 1 : 0);
+  fe_shfl<NW, PL>(g, m, s == 3 ? 1 : 2);
+  if (s >= 3) {
+    fe_sub<NW>(m, m, f);
+    fe_sub<NW>(m, m, g);
+  } else if (s == 0) {
+    fe_add<NW>(f, m, m);
+    fe_add<NW>(m, f, m);
+  }
+  // the 3b level: t2b on slot 2, Yb on slot 5
+  fe_b3<NW>(a);
+  par_mul<NW, PL>(b, a, m, sub);
+  if (s == 2 || s == 5) m = b;
+  // level 2: (t3, t1l), (t4, Yb), (t1l, Z3l), (Yb, 3 t0), (Z3l, t4), (3 t0, t3)
+  fe_shfl<NW, PL>(f, m, 1);
+  fe_shfl<NW, PL>(g, m, 2);
+  Fe2<NW> z3l;
+  fe_add<NW>(z3l, f, g);  // Z3l = t1 + t2b
+  fe_sub<NW>(f, f, g);    // t1l = t1 - t2b
+  fe_shfl<NW, PL>(a, m, s == 0 ? 3 : s == 1 ? 4 : s == 3 ? 5 : 0);
+  fe_shfl<NW, PL>(b, m, s == 1 ? 5 : s == 3 ? 0 : s == 4 ? 4 : 3);
+  if (s == 2) a = f;
+  if (s == 4) a = z3l;
+  if (s == 0) b = f;
+  if (s == 2) b = z3l;
+  par_mul<NW, PL>(m, a, b, sub);
+  fe_shfl<NW, PL>(a, m, 0);
+  fe_shfl<NW, PL>(b, m, 1);
+  fe_sub<NW>(a, a, b);
+  fe_shfl<NW, PL>(b, m, 2);
+  fe_shfl<NW, PL>(f, m, 3);
+  fe_add<NW>(b, b, f);
+  fe_shfl<NW, PL>(f, m, 4);
+  fe_shfl<NW, PL>(g, m, 5);
+  fe_add<NW>(f, f, g);
+  sh_put<NW>(r.x, a);
+  sh_put<NW>(r.y, b);
+  sh_put<NW>(r.z, f);
+}
+
+// The point a kernel's generic body works on: over Fq the thread's own
+// registers (`own`), over Fq2 slot `slot` of SLOTS points in shared memory
+// (the Fq2 group ops above and group2.cuh's take their points there).
+template <int NW, int EXT, int SLOTS>
+__device__ __forceinline__ Pt<NW, EXT>& work_point(Pt<NW, EXT>& own, int slot) {
+  if constexpr (EXT == 1) {
+    return own;
+  } else {
+    __shared__ Pt<NW, EXT> sh[SLOTS];
+    return sh[slot];
+  }
 }

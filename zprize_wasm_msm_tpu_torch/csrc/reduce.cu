@@ -6,6 +6,11 @@
 // replace `_finish_kernel` (finish: the whole (W, B) -> one point contract,
 // and at B = 1 the window fold of finish_large stage B).
 //
+// The TPU kernels are generic over the coordinate field, so they also run
+// G2 over Fq2; here the same bodies serve both (EXT = 1, 2): over Fq2 on
+// par.cuh's Fq2 doubling and addition, with the points in the groups'
+// shared slots (collapse2_kernel, combine2_kernel, finish_kernel<NW, 2>).
+//
 // The TPU versions run every phase through ONE generic masked body, a
 // grid step per round, to keep the compiled program small, and move data
 // between lanes with rolls.  Here the phases are written out plainly:
@@ -36,15 +41,18 @@
 
 #define FOLD_THREADS 32
 
-// sums [3][NW][W] -> out [3][NW][1]: sum_w 2^(c w) sums_w by Horner's rule;
-// one warp (each of its groups runs the same fold).
-template <int NW>
+// sums [3][EXT NW][W] -> out [3][EXT NW][1]: sum_w 2^(c w) sums_w by
+// Horner's rule; one warp (each of its groups runs the same fold).  Over
+// Fq2 the two points are the group's shared slots (par.cuh work_point).
+template <int NW, int EXT>
 __global__ void __launch_bounds__(FOLD_THREADS)
     finish_kernel(const uint32_t* __restrict__ sums, uint32_t* __restrict__ out, int W, int c,
                   uint32_t b3k) {
-  constexpr int PL = coop_lanes<NW>();  // cooperative products (coop.cuh)
-  const int sub = threadIdx.x % (8 * PL);
-  Pt<NW> acc, s;
+  constexpr int PL = coop_lanes<NW>(), GL = 8 * PL, GW = FOLD_THREADS / GL;
+  const int sub = threadIdx.x % GL, g = threadIdx.x / GL;
+  Pt<NW, EXT> acc_own, s_own;
+  Pt<NW, EXT>& acc = work_point<NW, EXT, 2 * GW>(acc_own, g);
+  Pt<NW, EXT>& s = work_point<NW, EXT, 2 * GW>(s_own, GW + g);
   pt_load_soa<NW>(acc, sums, (size_t)W, (size_t)(W - 1));
   for (int w = W - 2; w >= 0; --w) {
     pt_load_soa<NW>(s, sums, (size_t)W, (size_t)w);
@@ -94,21 +102,23 @@ struct Limbs {
   const int64_t* z;
 };
 
-// Word k (coordinate k / NW) of point i of n; 2 NW n limbs a coordinate
-// fit 32-bit offsets (the host checks it).
-template <int NW>
+// Word k (coordinate k / EW) of point i of n, EW = EXT NW words a
+// coordinate; 2 EW n limbs a coordinate fit 32-bit offsets (the host checks
+// it).
+template <int EW>
 __device__ __forceinline__ uint32_t limb_word(const Limbs& s, int k, uint32_t n, uint32_t i) {
-  const int64_t* c = k < NW ? s.x : k < 2 * NW ? s.y : s.z;
-  const uint32_t at = 2 * (k % NW) * n + i;
+  const int64_t* c = k < EW ? s.x : k < 2 * EW ? s.y : s.z;
+  const uint32_t at = 2 * (k % EW) * n + i;
   return (uint32_t)c[at] | ((uint32_t)c[at + n] << 16);
 }
 
 // Combine the runs held by the groups of this block over `levels` levels:
 // partners g ^ 1, g ^ 2, ...  The last level's Rs is computed only where
 // keep_rs (a later launch combines the block's pair).
-template <int NW, int PL>
-__device__ __forceinline__ void run_tree(Pt<NW>& A, Pt<NW>& Rs, Pt<NW>* shA, Pt<NW>* shR, int g,
-                                         int levels, bool keep_rs, int sub, uint32_t b3k) {
+template <int NW, int PL, int EXT>
+__device__ __forceinline__ void run_tree(Pt<NW, EXT>& A, Pt<NW, EXT>& Rs, Pt<NW, EXT>* shA,
+                                         Pt<NW, EXT>* shR, int g, int levels, bool keep_rs,
+                                         int sub, uint32_t b3k) {
   for (int l = 0; l < levels; ++l) {
     __syncthreads();  // the previous level's reads are done
     if (sub == 0) {
@@ -128,41 +138,45 @@ __device__ __forceinline__ void run_tree(Pt<NW>& A, Pt<NW>& Rs, Pt<NW>* shA, Pt<
 
 // After the block's tree: the window sums (runs per window <= GB: the
 // first group of each window writes its A), else the block's pair.
-template <int NW, int GB>
-__device__ __forceinline__ void run_store(const Pt<NW>& A, const Pt<NW>& Rs, uint32_t* out,
-                                          uint32_t* pieces, int cap, long G, long total,
-                                          int per_window, int W, int g, int sub) {
+template <int NW, int GB, int EXT>
+__device__ __forceinline__ void run_store(const Pt<NW, EXT>& A, const Pt<NW, EXT>& Rs,
+                                          uint32_t* out, uint32_t* pieces, int cap, long G,
+                                          long total, int per_window, int W, int g, int sub) {
   if (sub != 0) return;
   if (per_window <= GB) {
     if (G < total && G % per_window == 0)
       pt_store_soa<NW>(out, (size_t)W, (size_t)(G / per_window), A);
   } else if (g == 0) {
     pt_store_soa<NW>(pieces, (size_t)cap, (size_t)blockIdx.x, A);
-    pt_store_soa<NW>(pieces + (size_t)3 * NW * cap, (size_t)cap, (size_t)blockIdx.x, Rs);
+    pt_store_soa<NW>(pieces + (size_t)3 * EXT * NW * cap, (size_t)cap, (size_t)blockIdx.x, Rs);
   }
 }
 
-// S (W*B points, limbs) -> out [3][NW][W] (B / m <= GB), else pieces: the
-// blocks' pairs, A at [3][NW][cap], Rs after it.  One group per run of m
-// buckets.
-template <int NW>
-__global__ void __launch_bounds__(COLLAPSE_THREADS)
-    collapse_kernel(Limbs S, uint32_t* __restrict__ out, uint32_t* __restrict__ pieces, int cap,
-                    int W, int B, int m, uint32_t b3k) {
-  constexpr int PL = coop_lanes<NW>(), GL = 8 * PL, GB = COLLAPSE_THREADS / GL;
-  __shared__ Pt<NW> shA[GB], shR[GB], shS[GB];
+// S (W*B points, limbs) -> out [3][EXT NW][W] (B / m <= GB), else pieces:
+// the blocks' pairs, A at [3][EXT NW][cap], Rs after it.  One group per run
+// of m buckets; over Fq2 the walk's two points are the group's shared slots
+// (par.cuh work_point).  The body of collapse_kernel (Fq) and
+// collapse2_kernel (Fq2).
+template <int NW, int EXT>
+__device__ __forceinline__ void collapse_body(const Limbs& S, uint32_t* __restrict__ out,
+                                              uint32_t* __restrict__ pieces, int cap, int W,
+                                              int B, int m, uint32_t b3k) {
+  constexpr int PL = coop_lanes<NW>(), GL = 8 * PL, GB = COLLAPSE_THREADS / GL, EW = EXT * NW;
+  __shared__ Pt<NW, EXT> shA[GB], shR[GB], shS[GB];
   const int sub = threadIdx.x % GL, g = threadIdx.x / GL;
   const int runs = B / m;  // per window
   const long total = (long)W * runs, G = (long)blockIdx.x * GB + g;
   const bool live = G < total;
   const uint32_t n = W * B, lo = live ? G * m : 0;  // w B + j m = G m
-  Pt<NW> A, R;
+  Pt<NW, EXT> A_own, R_own;
+  Pt<NW, EXT>& A = work_point<NW, EXT, 2 * GB>(A_own, g);
+  Pt<NW, EXT>& R = work_point<NW, EXT, 2 * GB>(R_own, GB + g);
   for (int i = m - 1; i >= 0; --i) {  // the same trip count for every group
     __syncwarp();                      // the last bucket's readers are done
     uint32_t* st = reinterpret_cast<uint32_t*>(&shS[g]);
-    for (int k = sub; k < 3 * NW; k += GL) {  // word k: coordinate k / NW
-      const uint32_t one = k / NW == 1 ? c_fc.one[k % NW] : 0u;
-      st[k] = live ? limb_word<NW>(S, k, n, lo + i) : one;
+    for (int k = sub; k < 3 * EW; k += GL) {  // word k: coordinate k / EW
+      const uint32_t one = k / EW == 1 && k % EW < NW ? c_fc.one[k % EW] : 0u;
+      st[k] = live ? limb_word<EW>(S, k, n, lo + i) : one;
     }
     __syncwarp();
     if (i == m - 1) {
@@ -175,52 +189,95 @@ __global__ void __launch_bounds__(COLLAPSE_THREADS)
   }
   for (int k = m; k > 1; k >>= 1) pt_double_par<NW, PL>(R, sub, b3k);  // Rs = m R
   const int levels = 31 - __clz(min(GB, runs));
-  run_tree<NW, PL>(A, R, shA, shR, g, levels, runs > GB, sub, b3k);
-  run_store<NW, GB>(A, R, out, pieces, cap, G, total, runs, W, g, sub);
+  run_tree<NW, PL, EXT>(A, R, shA, shR, g, levels, runs > GB, sub, b3k);
+  run_store<NW, GB, EXT>(A, R, out, pieces, cap, G, total, runs, W, g, sub);
 }
 
-// in: per_window pairs per window ([3][NW][cap] A, then Rs) -> out
-// [3][NW][W] (per_window <= GB), else the blocks' pairs into `pieces`.
-template <int NW>
-__global__ void __launch_bounds__(COLLAPSE_THREADS)
-    combine_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
-                   uint32_t* __restrict__ pieces, int cap, int W, int per_window, uint32_t b3k) {
+// in: per_window pairs per window ([3][EXT NW][cap] A, then Rs) -> out
+// [3][EXT NW][W] (per_window <= GB), else the blocks' pairs into `pieces`.
+// The body of combine_kernel (Fq) and combine2_kernel (Fq2).
+template <int NW, int EXT>
+__device__ __forceinline__ void combine_body(const uint32_t* __restrict__ in,
+                                             uint32_t* __restrict__ out,
+                                             uint32_t* __restrict__ pieces, int cap, int W,
+                                             int per_window, uint32_t b3k) {
   constexpr int PL = coop_lanes<NW>(), GL = 8 * PL, GB = COLLAPSE_THREADS / GL;
-  __shared__ Pt<NW> shA[GB], shR[GB];
+  __shared__ Pt<NW, EXT> shA[GB], shR[GB];
   const int sub = threadIdx.x % GL, g = threadIdx.x / GL;
   const long total = (long)W * per_window, G = (long)blockIdx.x * GB + g;
-  Pt<NW> A, Rs;
+  Pt<NW, EXT> A_own, Rs_own;
+  Pt<NW, EXT>& A = work_point<NW, EXT, 2 * GB>(A_own, g);
+  Pt<NW, EXT>& Rs = work_point<NW, EXT, 2 * GB>(Rs_own, GB + g);
   if (G < total) {
     pt_load_soa<NW>(A, in, (size_t)cap, (size_t)G);
-    pt_load_soa<NW>(Rs, in + (size_t)3 * NW * cap, (size_t)cap, (size_t)G);
+    pt_load_soa<NW>(Rs, in + (size_t)3 * EXT * NW * cap, (size_t)cap, (size_t)G);
   } else {
     pt_identity<NW>(A);
     pt_identity<NW>(Rs);
   }
   const int levels = 31 - __clz(min(GB, per_window));
-  run_tree<NW, PL>(A, Rs, shA, shR, g, levels, per_window > GB, sub, b3k);
-  run_store<NW, GB>(A, Rs, out, pieces, cap, G, total, per_window, W, g, sub);
+  run_tree<NW, PL, EXT>(A, Rs, shA, shR, g, levels, per_window > GB, sub, b3k);
+  run_store<NW, GB, EXT>(A, Rs, out, pieces, cap, G, total, per_window, W, g, sub);
+}
+
+template <int NW>
+__global__ void __launch_bounds__(COLLAPSE_THREADS)
+    collapse_kernel(Limbs S, uint32_t* __restrict__ out, uint32_t* __restrict__ pieces, int cap,
+                    int W, int B, int m, uint32_t b3k) {
+  collapse_body<NW, 1>(S, out, pieces, cap, W, B, m, b3k);
+}
+
+template <int NW>
+__global__ void __launch_bounds__(COLLAPSE_THREADS)
+    combine_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
+                   uint32_t* __restrict__ pieces, int cap, int W, int per_window, uint32_t b3k) {
+  combine_body<NW, 1>(in, out, pieces, cap, W, per_window, b3k);
+}
+
+// Over Fq2, one block per SM is the floor, so that a thread may take all 255
+// registers (with the bound of the Fq kernels ptxas held the collapse to
+// 168 and spilled at NW = 12); the points are in shared memory.
+template <int NW>
+__global__ void __launch_bounds__(COLLAPSE_THREADS, 1)
+    collapse2_kernel(Limbs S, uint32_t* __restrict__ out, uint32_t* __restrict__ pieces, int cap,
+                     int W, int B, int m, uint32_t b3k) {
+  collapse_body<NW, 2>(S, out, pieces, cap, W, B, m, b3k);
+}
+
+template <int NW>
+__global__ void __launch_bounds__(COLLAPSE_THREADS, 1)
+    combine2_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
+                    uint32_t* __restrict__ pieces, int cap, int W, int per_window, uint32_t b3k) {
+  combine_body<NW, 2>(in, out, pieces, cap, W, per_window, b3k);
 }
 
 // The launches of one collapse: collapse_kernel, then combine_kernel until
-// one pair per window is left.  scratch: two halves of 2 x [3][NW][cap]
+// one pair per window is left (their Fq2 forms over Fq2).  scratch: two halves of 2 x [3][EXT NW][cap]
 // words, cap = W B / (m GB) (at least 1).
-template <int NW>
+template <int NW, int EXT>
 static int collapse_launches(const Limbs& S, uint32_t* out, uint32_t* scratch, int W, int B,
                              int m, uint32_t b3k, cudaStream_t stream) {
   constexpr int GB = COLLAPSE_THREADS / (8 * coop_lanes<NW>());
   int per_window = B / m;
   const long groups = (long)W * per_window;
   const int cap = (int)max(1L, groups / GB);
-  uint32_t* half[2] = {scratch, scratch + (size_t)2 * 3 * NW * cap};
-  collapse_kernel<NW><<<(unsigned)((groups + GB - 1) / GB), COLLAPSE_THREADS, 0, stream>>>(
-      S, out, half[0], cap, W, B, m, b3k);
+  uint32_t* half[2] = {scratch, scratch + (size_t)2 * 3 * EXT * NW * cap};
+  const unsigned blocks = (unsigned)((groups + GB - 1) / GB);
+  if constexpr (EXT == 1)
+    collapse_kernel<NW><<<blocks, COLLAPSE_THREADS, 0, stream>>>(S, out, half[0], cap, W, B, m, b3k);
+  else
+    collapse2_kernel<NW><<<blocks, COLLAPSE_THREADS, 0, stream>>>(S, out, half[0], cap, W, B, m, b3k);
   int err = (int)cudaGetLastError();
   for (int h = 0; !err && per_window > GB; h ^= 1) {
     per_window /= GB;  // the pairs the last launch left per window
     const long n = (long)W * per_window;
-    combine_kernel<NW><<<(unsigned)((n + GB - 1) / GB), COLLAPSE_THREADS, 0, stream>>>(
-        half[h], out, half[h ^ 1], cap, W, per_window, b3k);
+    const unsigned cblocks = (unsigned)((n + GB - 1) / GB);
+    if constexpr (EXT == 1)
+      combine_kernel<NW><<<cblocks, COLLAPSE_THREADS, 0, stream>>>(half[h], out, half[h ^ 1], cap, W,
+                                                                  per_window, b3k);
+    else
+      combine2_kernel<NW><<<cblocks, COLLAPSE_THREADS, 0, stream>>>(half[h], out, half[h ^ 1], cap,
+                                                                   W, per_window, b3k);
     err = (int)cudaGetLastError();
   }
   return err;
@@ -236,59 +293,66 @@ __global__ void words_to_limbs_kernel(const uint32_t* __restrict__ words,
   limbs[(size_t)(2 * r + 1) * n + i] = words[t] >> 16;
 }
 
-// x, y, z: [2 NW][W*B] int64 limbs each -> the window sums, [3][NW][W]
-// words at the head of scratch, and (out not NULL) as [3][2 NW][W] int64
-// limbs in out; the combine launches' pairs follow the sums in scratch;
-// B and m powers of two, m <= B; b3k = 3b as an integer (0 refuses the
-// launch).
-extern "C" int zp_collapse(int nw, const uint32_t* host_consts, uint32_t b3k, const int64_t* x,
-                           const int64_t* y, const int64_t* z, int64_t* out, uint32_t* scratch,
-                           int W, int B, int m, void* stream_ptr) {
-  if (b3k == 0) return -5;
+// x, y, z: [2 EXT NW][W*B] int64 limbs each -> the window sums,
+// [3][EXT NW][W] words at the head of scratch, and (out not NULL) as
+// [3][2 EXT NW][W] int64 limbs in out; the combine launches' pairs follow
+// the sums in scratch; B and m powers of two, m <= B; b3k = 3b as an
+// integer over Fq (0 refuses the launch), not read over Fq2.
+extern "C" int zp_collapse(int nw, int ext, const uint32_t* host_consts, uint32_t b3k,
+                           const int64_t* x, const int64_t* y, const int64_t* z, int64_t* out,
+                           uint32_t* scratch, int W, int B, int m, void* stream_ptr) {
+  if (ext == 1 && b3k == 0) return -5;
   if (B < 1 || (B & (B - 1)) || m < 1 || (m & (m - 1)) || m > B) return -2;
-  if ((long long)2 * nw * W * B >= (1ll << 32)) return -2;
+  if ((long long)2 * ext * nw * W * B >= (1ll << 32)) return -2;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   int err = zp_set_consts(nw, host_consts, stream);
   if (err) return err;
   const Limbs S = {x, y, z};
-  uint32_t* rest = scratch + (size_t)3 * nw * W;
-#define CALL(NW_) err = collapse_launches<NW_>(S, scratch, rest, W, B, m, b3k, stream)
-  ZP_DISPATCH_NW(nw, CALL)
+  uint32_t* rest = scratch + (size_t)3 * ext * nw * W;
+#define CALL(NW_, EXT_) err = collapse_launches<NW_, EXT_>(S, scratch, rest, W, B, m, b3k, stream)
+  ZP_DISPATCH_NW_EXT(nw, ext, CALL)
 #undef CALL
   if (err || !out) return err;
-  const int rows = 3 * nw;
+  const int rows = 3 * ext * nw;
   words_to_limbs_kernel<<<(rows * W + 127) / 128, 128, 0, stream>>>(scratch, out, rows, W);
   return (int)cudaGetLastError();
 }
 
-// out[0..4] as zp_kernel_info: which = 0 collapse_kernel, 1 combine_kernel.
-extern "C" int zp_collapse_info(int nw, int which, int* out) {
-#define CALL(NW_)                                                               \
-  return which ? zp_kernel_info(combine_kernel<NW_>, COLLAPSE_THREADS, out)     \
-               : zp_kernel_info(collapse_kernel<NW_>, COLLAPSE_THREADS, out)
-  ZP_DISPATCH_NW(nw, CALL)
+// out[0..4] as zp_kernel_info: which = 0 the collapse kernel, 1 the combine
+// kernel (of the extension degree ext).
+extern "C" int zp_collapse_info(int nw, int ext, int which, int* out) {
+#define CALL(NW_, EXT_)                                                                      \
+  if constexpr (EXT_ == 1)                                                                   \
+    return which ? zp_kernel_info(combine_kernel<NW_>, COLLAPSE_THREADS, out)                \
+                 : zp_kernel_info(collapse_kernel<NW_>, COLLAPSE_THREADS, out);              \
+  else                                                                                       \
+    return which ? zp_kernel_info(combine2_kernel<NW_>, COLLAPSE_THREADS, out)               \
+                 : zp_kernel_info(collapse2_kernel<NW_>, COLLAPSE_THREADS, out)
+  ZP_DISPATCH_NW_EXT(nw, ext, CALL)
 #undef CALL
   return -1;
 }
 
-// The window sums S [3][NW][W] words -> out [3][NW][1]; b3k = 3b as an
-// integer (0 refuses the launch: 3b does not fit a word).
-extern "C" int zp_finish(int nw, const uint32_t* host_consts, uint32_t b3k, const uint32_t* S,
-                         uint32_t* out, int W, int c, void* stream_ptr) {
-  if (b3k == 0) return -5;
+// The window sums S [3][EXT NW][W] words -> out [3][EXT NW][1]; b3k = 3b as
+// an integer over Fq (0 refuses the launch: 3b does not fit a word), not
+// read over Fq2.
+extern "C" int zp_finish(int nw, int ext, const uint32_t* host_consts, uint32_t b3k,
+                         const uint32_t* S, uint32_t* out, int W, int c, void* stream_ptr) {
+  if (ext == 1 && b3k == 0) return -5;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   int err = zp_set_consts(nw, host_consts, stream);
   if (err) return err;
-#define CALL(NW_) finish_kernel<NW_><<<1, FOLD_THREADS, 0, stream>>>(S, out, W, c, b3k)
-  ZP_DISPATCH_NW(nw, CALL)
+#define CALL(NW_, EXT_) \
+  finish_kernel<NW_, EXT_><<<1, FOLD_THREADS, 0, stream>>>(S, out, W, c, b3k)
+  ZP_DISPATCH_NW_EXT(nw, ext, CALL)
 #undef CALL
   return (int)cudaGetLastError();
 }
 
 // out[0..4] as zp_kernel_info for the fold (finish_kernel).
-extern "C" int zp_finish_info(int nw, int* out) {
-#define CALL(NW_) return zp_kernel_info(finish_kernel<NW_>, FOLD_THREADS, out)
-  ZP_DISPATCH_NW(nw, CALL)
+extern "C" int zp_finish_info(int nw, int ext, int* out) {
+#define CALL(NW_, EXT_) return zp_kernel_info(finish_kernel<NW_, EXT_>, FOLD_THREADS, out)
+  ZP_DISPATCH_NW_EXT(nw, ext, CALL)
 #undef CALL
   return -1;
 }

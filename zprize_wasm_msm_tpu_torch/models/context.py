@@ -54,25 +54,46 @@ class CurveContext:
             ints_to_limbs(ints, n_limbs).astype(np.int64), device=self.device
         )
 
-    def points_to_device(self, pts: Sequence[Optional[Tuple[int, int]]]):
-        """Affine python points (None = infinity) -> Montgomery limb batch."""
+    def _coords(self, vals) -> torch.Tensor:
+        """Host coordinates (standard domain) -> (EL, n) Montgomery limbs:
+        ints for ext=1, (c0, c1) pairs for ext=2 (component 0's limbs, then
+        component 1's, the flat layout of tower.Fq2)."""
         fq = self.spec.fq
-        xs = [0 if p is None else fq.to_mont_int(p[0]) for p in pts]
-        ys = [0 if p is None else fq.to_mont_int(p[1]) for p in pts]
-        return (self._limbs(xs, fq.n_limbs), self._limbs(ys, fq.n_limbs))
+        if self.spec.ext == 1:
+            return self._limbs([fq.to_mont_int(v) for v in vals], fq.n_limbs)
+        self.spec.field  # raises for a coordinate field that is not ported
+        return torch.cat(
+            [self._limbs([fq.to_mont_int(v[k]) for v in vals], fq.n_limbs) for k in range(2)]
+        )
+
+    def _zero_coord(self):
+        return 0 if self.spec.ext == 1 else (0,) * self.spec.ext
+
+    def points_to_device(self, pts: Sequence[Optional[Tuple]]):
+        """Affine python points (None = infinity) -> Montgomery limb batch.
+
+        Coordinates are ints for ext=1, (c0, c1) tuples for ext=2, as the
+        JAX package's points_to_device takes them."""
+        zero = self._zero_coord()
+        xs = [zero if p is None else p[0] for p in pts]
+        ys = [zero if p is None else p[1] for p in pts]
+        return (self._coords(xs), self._coords(ys))
 
     def scalars_to_device(self, ks: Sequence[int]) -> torch.Tensor:
         fr = self.spec.fr
         return self._limbs([k % (1 << fr.n_limbs * 16) for k in ks], fr.n_limbs)
 
-    def result_to_affine(self, res) -> Optional[Tuple[int, int]]:
-        """Projective device point -> python affine (None = infinity)."""
+    def result_to_affine(self, res) -> Optional[Tuple]:
+        """Projective device point -> python affine (None = infinity);
+        coordinates are (c0, c1) tuples for ext=2.  Z is inverted once
+        (over Fq2 through its norm, by the Fq inversion: tower.Fq2)."""
         F = self.spec.field
         r = tuple(c[:, None] if c.ndim == 1 else c for c in res)
         x, y = group.to_affine(self.spec, r)
         xi = F.to_host(x)[0]
         yi = F.to_host(y)[0]
-        return None if (xi == 0 and yi == 0) else (xi, yi)
+        zero = self._zero_coord()
+        return None if (xi == zero and yi == zero) else (xi, yi)
 
     # ---- MSM (the reference's g1m_multiexp_multiExp) ---------------------
 

@@ -1,9 +1,9 @@
 """One-operation launches of the CUDA device functions (csrc/check.cu).
 
-csrc/field.cuh and csrc/group.cuh hold the counterparts of the JAX
-package's in-kernel cores (ops/field/kcore.py, ops/field/ktower.py KFq,
-ops/curve/kgroup.py).  They are inlined into the MSM kernels and have no
-launch of their own; these two functions run each of them once per batch
+csrc/field.cuh, csrc/field2.cuh, csrc/group.cuh and csrc/group2.cuh hold the
+counterparts of the JAX package's in-kernel cores (ops/field/kcore.py,
+ops/field/ktower.py KFq and KFq2, ops/curve/kgroup.py), over Fq and Fq2.
+They are inlined into the MSM kernels and have no launch of their own; these two functions run each of them once per batch
 element so that they can be held bit for bit against ops.field.mont and
 ops.curve.group on the card.  CUDA tensors only: there is nothing to run
 on a CPU tensor.
@@ -20,12 +20,18 @@ from ..msm import _launch
 from .spec import CurveSpec
 
 #: fe_mul / fe_add / fe_sub / fe_neg, fe_mul_cc (the carry-chain product),
-#: fe_mul_small (3b * a by additions, as par.cuh's group ops take it) and
-#: fe_mul_coop (one product shared by several lanes, coop.cuh)
-FIELD_OPS = {"mul": 0, "add": 1, "sub": 2, "neg": 3, "mul_cc": 4, "mul_b3": 5, "mul_coop": 6}
+#: the product by 3b (over Fq fe_mul_small, by additions, as par.cuh's group
+#: ops take it; over Fq2 a product by the constant), fe_mul_coop (one
+#: product shared by several lanes, coop.cuh; over Fq2 three of them) and
+#: the square (over Fq2 the complex squaring of field2.cuh)
+FIELD_OPS = {
+    "mul": 0, "add": 1, "sub": 2, "neg": 3, "mul_cc": 4, "mul_b3": 5, "mul_coop": 6, "square": 7,
+}
 #: pt_add_mixed / pt_add / pt_double, pt_add on the carry-chain product, and
 #: the level-parallel doubling and addition of par.cuh with a product to a
-#: lane ("_par") and with cooperative products ("_coop")
+#: lane ("_par", Fq only) and with cooperative products ("_coop").  Over Fq2
+#: add_mixed and add_cc are the forms K1 and K4 run (group2.cuh, points in
+#: shared memory); add and double are built over Fq only.
 GROUP_OPS = {
     "add_mixed": 0, "add": 1, "double": 2, "add_cc": 3,
     "double_par": 4, "add_par": 5, "double_coop": 6, "add_coop": 7,
@@ -34,7 +40,7 @@ GROUP_OPS = {
 CHAIN_OPS = {"double_par": 0, "add_par": 1, "double_coop": 2, "add_coop": 3}
 
 _ARGTYPES = (
-    [ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int]
+    [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int]
     + [ctypes.c_void_p] * 3
     + [ctypes.c_int, ctypes.c_void_p]
 )
@@ -48,18 +54,19 @@ def _entry(name):
 
 
 def field_op(curve: CurveSpec, op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """fe_mul / fe_add / fe_sub / fe_neg (of a) / fe_mul_cc / fe_mul_small
-    by 3b (of a) / fe_mul_coop on (L, n) int64 batches."""
+    """fe_mul / fe_add / fe_sub / fe_neg (of a) / fe_mul_cc / the product by
+    3b (of a) / fe_mul_coop / the square (of a) on (EL, n) int64 batches of
+    the curve's coordinate field (EL = L over Fq, 2L over Fq2)."""
     _launch.use_kernel("kernel", a)
     fn = _entry("zp_field_op")
     L, n = a.shape
-    _launch.check_limbs("a", a, (curve.fq.n_limbs, n), a.device)
+    _launch.check_limbs("a", a, (curve.field.elem_len, n), a.device)
     _launch.check_limbs("b", b, (L, n), a.device)
     aw, bw = _launch.pack_point((a, b))
     out = torch.empty_like(aw)
     err = fn(
-        curve.fq.n_words, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p),
-        _build.b3_small(curve), FIELD_OPS[op], _launch.ptr(aw), _launch.ptr(bw),
+        curve.fq.n_words, curve.ext, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p),
+        _build.fold_b3k(curve), FIELD_OPS[op], _launch.ptr(aw), _launch.ptr(bw),
         _launch.ptr(out), n, _launch.stream_ptr(),
     )
     _build.check_launch(err, f"field_op {op}")
@@ -75,12 +82,12 @@ def group_op(curve: CurveSpec, op: str, p, q):
     fn = _entry("zp_group_op")
     L, n = p[0].shape
     for name, t in zip(("px", "py", "pz", "qx", "qy", "qz"), tuple(p) + tuple(q)):
-        _launch.check_limbs(name, t, (curve.fq.n_limbs, n), p[0].device)
+        _launch.check_limbs(name, t, (curve.field.elem_len, n), p[0].device)
     pw, qw = _launch.pack_point(p), _launch.pack_point(q)
     out = torch.empty_like(pw)
     err = fn(
-        curve.fq.n_words, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p),
-        _build.b3_small(curve), GROUP_OPS[op], _launch.ptr(pw), _launch.ptr(qw),
+        curve.fq.n_words, curve.ext, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p),
+        _build.fold_b3k(curve), GROUP_OPS[op], _launch.ptr(pw), _launch.ptr(qw),
         _launch.ptr(out), n, _launch.stream_ptr(),
     )
     _build.check_launch(err, f"group_op {op}")
@@ -97,8 +104,8 @@ def group_chain(curve: CurveSpec, op: str, p, q, reps: int):
     pw, qw = _launch.pack_point(p), _launch.pack_point(q)
     out = torch.empty_like(pw)
     err = fn(
-        curve.fq.n_words, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p),
-        _build.b3_small(curve), CHAIN_OPS[op], _launch.ptr(pw), _launch.ptr(qw),
+        curve.fq.n_words, curve.ext, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p),
+        _build.fold_b3k(curve), CHAIN_OPS[op], _launch.ptr(pw), _launch.ptr(qw),
         _launch.ptr(out), reps, _launch.stream_ptr(),
     )
     _build.check_launch(err, f"group_chain {op}")

@@ -74,9 +74,11 @@ class CurveSpec:
 
         if self.ext == 1:
             return tower.Fq(self.fq)
+        if self.ext == 2:
+            return tower.Fq2(self.fq, self.nr)
         raise NotImplementedError(
             f"{self.name}: extension degree {self.ext} coordinate fields "
-            "(tower.Fq2 / tower.Fq3) are not ported yet"
+            "(tower.Fq3) are not ported yet"
         )
 
     @cached_property
@@ -87,6 +89,10 @@ class CurveSpec:
         return tuple(3 * c % self.q for c in self.b)
 
     # --- Montgomery-domain constants used by the projective formulas ------
+    # b3_mont_limbs, b_mont_limbs and a_mont_limbs are Fq constants (on an
+    # Fq2 curve's pair they raise a TypeError); an extension curve's 3b
+    # reaches the kernels as b3_flat_limbs, and the plain group ops take b
+    # and 3b through curve.field.const.
 
     @cached_property
     def b3_mont_limbs(self) -> np.ndarray:

@@ -6,15 +6,23 @@ field's exported ops (wasmcurves/src/build_curve_jacobian_a0.js:29
 `prefixField` arg).  A frozen backend object carries the specialization so
 ONE generic group/MSM layer serves every coordinate field.
 
-Only the base field ``Fq`` is here so far; the quadratic and cubic
-extensions (G2, MNT6753) arrive with the G2 slice of the port.
+``Fq`` and the quadratic extension ``Fq2`` (G2) are here; the cubic
+extension (MNT6753) arrives with its slice of the port, as do Fq2's sqrt,
+sign and exp_const (with serialization).
 
-Element layout (Montgomery form): (L, *batch) int64 — as ops.field.mont.
+Element layouts (all Montgomery form):
+  Fq:   (L, *batch) int64 — as ops.field.mont.
+  Fq2:  (2L, *batch) int64 — flat: component 0 in limbs [:L], component 1
+        in [L:], so generic shape logic downstream (padding, reshapes,
+        bucket layouts) treats extension elements as wider base elements.
+        Packed to 32-bit words (utils/convert.pack_words) this is [c0
+        words][c1 words], the layout of the CUDA kernels' Fe2.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import cached_property
 from typing import Tuple, Union
 
 import numpy as np
@@ -104,3 +112,158 @@ class Fq:
 
         vals = limbs_to_ints(a.detach().cpu().numpy().astype(np.uint32))
         return [self.spec.from_mont_int(v) for v in vals]
+
+
+@dataclass(frozen=True)
+class Fq2:
+    """Quadratic extension Fq[u]/(u^2 - nr) (ref src/build_f2m.js; the JAX
+    package's ops/field/tower.py Fq2).  For BLS12-381 and BN254, nr = -1.
+
+    Flat element layout: (2L, *batch) int64 — component 0 in limbs [:L],
+    component 1 in limbs [L:].
+    """
+
+    spec: FieldSpec  # the base field
+    nr: int  # non-residue, as a signed small int (e.g. -1)
+
+    elem_ndim = 1
+
+    @property
+    def elem_len(self) -> int:
+        return 2 * self.spec.n_limbs
+
+    @cached_property
+    def _nr_is_m1(self) -> bool:
+        return self.nr % self.spec.q == self.spec.q - 1
+
+    def _split(self, a):
+        L = self.spec.n_limbs
+        return a[:L], a[L:]
+
+    def batch_shape(self, a):
+        return a.shape[1:]
+
+    def zeros(self, batch_shape=(), device=None):
+        return torch.cat(
+            [mont.zeros(self.spec, batch_shape, device), mont.zeros(self.spec, batch_shape, device)]
+        )
+
+    def one(self, batch_shape=(), device=None):
+        return torch.cat(
+            [mont.one_mont(self.spec, batch_shape, device), mont.zeros(self.spec, batch_shape, device)]
+        )
+
+    def const(self, value: IntLike, batch_shape=(), device=None):
+        """Host int or (c0, c1) pair (standard domain) -> Montgomery batch."""
+        if isinstance(value, int):
+            value = (value, 0)
+        if len(value) != 2:
+            raise TypeError(f"Fq2.const takes an int or a (c0, c1) pair, got {value!r}")
+        return torch.cat(
+            [
+                mont.full_const(self.spec, self.spec.to_mont_int(v), batch_shape, device)
+                for v in value
+            ]
+        )
+
+    def _mul_nr(self, a):
+        """Multiply a base-field batch by the non-residue."""
+        if self._nr_is_m1:
+            return mont.neg(self.spec, a)
+        c = mont.full_const(self.spec, self.spec.to_mont_int(self.nr), (1,) * (a.ndim - 1), a.device)
+        return mont.mont_mul(self.spec, a, c)
+
+    def add(self, a, b):
+        # componentwise; the base op vectorizes over the stacked limb axis
+        a0, a1 = self._split(a)
+        b0, b1 = self._split(b)
+        return torch.cat([mont.add(self.spec, a0, b0), mont.add(self.spec, a1, b1)])
+
+    def sub(self, a, b):
+        a0, a1 = self._split(a)
+        b0, b1 = self._split(b)
+        return torch.cat([mont.sub(self.spec, a0, b0), mont.sub(self.spec, a1, b1)])
+
+    def neg(self, a):
+        a0, a1 = self._split(a)
+        return torch.cat([mont.neg(self.spec, a0), mont.neg(self.spec, a1)])
+
+    def conjugate(self, a):
+        """(a0, a1) -> (a0, -a1) (ref build_f2m.js conjugate:115)."""
+        a0, a1 = self._split(a)
+        return torch.cat([a0, mont.neg(self.spec, a1)])
+
+    def mul(self, a, b):
+        """Karatsuba: 3 base products in one stacked call (ref build_f2m.js
+        mul:153)."""
+        s = self.spec
+        a0, a1 = self._split(a)
+        b0, b1 = self._split(b)
+        m0, m1, m2 = Fq(s).mul_many(
+            [(a0, b0), (a1, b1), (mont.add(s, a0, a1), mont.add(s, b0, b1))]
+        )
+        c0 = mont.add(s, m0, self._mul_nr(m1))
+        c1 = mont.sub(s, mont.sub(s, m2, m0), m1)
+        return torch.cat([c0, c1])
+
+    def mul_many(self, pairs):
+        """Independent products in one stacked Karatsuba (see Fq.mul_many)."""
+        k = len(pairs)
+        if k == 1:
+            return [self.mul(*pairs[0])]
+        shape = torch.broadcast_shapes(*(t.shape for p in pairs for t in p))
+        a = torch.stack([p[0].expand(shape) for p in pairs], dim=1)
+        b = torch.stack([p[1].expand(shape) for p in pairs], dim=1)
+        r = self.mul(a, b)
+        return [r[:, i] for i in range(k)]
+
+    def square(self, a):
+        """Complex squaring (2 base products, ref build_f2m.js square:212)."""
+        s = self.spec
+        a0, a1 = self._split(a)
+        if self._nr_is_m1:
+            p, q = Fq(s).mul_many([(mont.add(s, a0, a1), mont.sub(s, a0, a1)), (a0, a1)])
+            return torch.cat([p, mont.add(s, q, q)])
+        return self.mul(a, a)
+
+    def norm(self, a):
+        """a0^2 - nr a1^2 (base-field batch)."""
+        s = self.spec
+        a0, a1 = self._split(a)
+        sq0, sq1 = Fq(s).mul_many([(a0, a0), (a1, a1)])
+        return mont.sub(s, sq0, self._mul_nr(sq1))
+
+    def _conj_times(self, a, ninv):
+        s = self.spec
+        a0, a1 = self._split(a)
+        c0, c1 = Fq(s).mul_many([(a0, ninv), (a1, ninv)])
+        return torch.cat([c0, mont.neg(s, c1)])
+
+    def inverse(self, a):
+        """conj(a) / norm(a) (ref build_f2m.js inverse:379): one Fq
+        inversion of the norm."""
+        return self._conj_times(a, mont.inverse(self.spec, self.norm(a)))
+
+    def batch_inverse(self, a):
+        """The norms through mont.batch_inverse, whose one inversion is the
+        field inversion kernel for a tensor on the card."""
+        return self._conj_times(a, mont.batch_inverse(self.spec, self.norm(a)))
+
+    def is_zero(self, a):
+        a0, a1 = self._split(a)
+        return mont.is_zero(self.spec, a0) & mont.is_zero(self.spec, a1)
+
+    def eq(self, a, b):
+        return (a == b).all(dim=0)
+
+    def select(self, mask, a, b):
+        return torch.where(mask[None], a, b)
+
+    # host-side marshalling ------------------------------------------------
+    def to_host(self, a) -> list:
+        from ...utils.limbs import limbs_to_ints
+
+        a = a.detach().cpu().numpy().astype(np.uint32)
+        a0, a1 = self._split(a)
+        f = self.spec.from_mont_int
+        return [(f(x), f(y)) for x, y in zip(limbs_to_ints(a0), limbs_to_ints(a1))]

@@ -21,10 +21,12 @@ Engines (``impl``), chosen by where the tensors lie when ``impl="auto"``:
   "kernel"         CUDA tensors: the hand-written kernels — pl_bucket's
                    sweep and lane reduction, then pl_reduce's finish (one
                    block) or finish_large (collapse + window fold).  A
-                   private bucket row per (window, lane): c <= 7.
+                   private bucket row per (window, lane): c <= 7 over Fq,
+                   c <= 6 over Fq2 (G2).
   "kernel-sorted"  CUDA tensors, any c: pl_sorted's sort / sweep / segmented
                    scan, then pl_reduce's collapse and the window fold
-                   (finish at B = 1).  "kernel" with c > 7 routes here.
+                   (finish at B = 1).  "kernel" with c above its cap routes
+                   here.  Fq only so far: over Fq2 it raises.
   "plain"          CPU tensors: the PyTorch-op functions in this module
                    (_bucket_sweep_plain, _lane_tree_reduce, bucket_reduce,
                    window_fold).  They are also the plain versions the
@@ -228,13 +230,14 @@ def resolve_config(
     """Resolve (impl, c, lanes) for an MSM of N points (host-side).
 
     The window-size rules are the reference's, unchanged: with the kernel
-    engine the c <= 7 (Fq) cap and the "fewest windows rounded up to 8"
-    rule, with a sorted engine windows.sorted_engine_window_size, with the
+    engine the c <= 7 (Fq) / c <= 6 (Fq2) cap and the "fewest windows
+    rounded up to 8" rule, with a sorted engine windows.sorted_engine_window_size, with the
     plain engine the Pippenger heuristic and the memory-budget lane count.
     (The kernel rules come from the TPU's sublanes and on-chip memory;
     choosing c for this card is a later change.)  An explicit c above the
-    cap on the kernel engine routes to the sorted kernel engine.
-    ``device`` decides "auto": kernel on CUDA, plain on the CPU.
+    cap on the kernel engine routes to the sorted kernel engine, which over
+    Fq2 is not ported yet and raises (nothing runs the plain engine in its
+    place).  ``device`` decides "auto": kernel on CUDA, plain on the CPU.
     """
     if impl == "auto":
         if device is None:
@@ -242,16 +245,26 @@ def resolve_config(
         impl = "kernel" if torch.device(device).type == "cuda" else "plain"
     if impl not in ENGINES:
         raise ValueError(f"impl must be 'auto' or one of {ENGINES}, got {impl!r}")
-    if impl.startswith("kernel") and (curve.ext != 1 or curve.a != 0):
+    if impl.startswith("kernel") and (
+        curve.ext not in (1, 2) or curve.a != 0
+        or (curve.ext == 2 and curve.nr % curve.q != curve.q - 1)
+    ):
         raise NotImplementedError(
-            f"{curve.name}: the CUDA kernels cover a=0 curves over Fq; extension "
-            "fields and general-a curves arrive with later slices of the port "
-            "(impl='plain' runs the PyTorch-op engine)"
+            f"{curve.name}: the CUDA kernels cover a=0 curves over Fq and over "
+            "Fq2 = Fq[u]/(u^2 + 1); cubic extensions and general-a curves arrive "
+            "with later slices of the port (impl='plain' runs the PyTorch-op engine)"
         )
     c_cap = 7 if curve.ext == 1 else 6
     if impl == "kernel" and c is not None and c > c_cap:
         # explicit large window: the engine that has no bucket rows
         impl = "kernel-sorted"
+    if impl == "kernel-sorted" and curve.ext != 1:
+        raise NotImplementedError(
+            f"{curve.name}: the sorted engine's kernels (K7 sweep, K8 segmented scan) "
+            "over Fq2 arrive with the next G2 slice of the port; the bucket engine "
+            f"(impl='kernel') takes c <= {c_cap} here, and impl='plain-sorted' runs "
+            "the sorted engine in PyTorch ops"
+        )
     if c is None:
         if impl.endswith("sorted"):
             c = windows.sorted_engine_window_size(N, max_bits)

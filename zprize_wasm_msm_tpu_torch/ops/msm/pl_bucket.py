@@ -9,7 +9,8 @@ addition; then sum the lanes into dense (L, W, B) bucket sums.
 
 On the card this is two launches from csrc/bucket.cu: the sweep (one thread
 per (window, lane), a private bucket row per thread in device memory,
-direct indexing, no atomics) and the lane reduction (pl_reduce.lane_reduce's
+direct indexing, no atomics; over Fq2 bucket_sweep2_kernel, the same
+schedule on points in shared memory) and the lane reduction (pl_reduce.lane_reduce's
 kernel, one block per (window, bucket)).  The kernel engine of
 pippenger.msm picks the lane count (pippenger._kernel_lanes: one wave of
 ``resident_threads``); this module runs the lanes it is given.  What bounds them and why the
@@ -68,37 +69,42 @@ def bucket_accumulate_plain(
     return pippenger._bucket_accumulate_impl(curve, (X, Y), digits, lanes, c)
 
 
-#: threads per block of the sweep kernel (csrc/bucket.cu SWEEP_THREADS)
-SWEEP_THREADS = 64
+#: threads per block of the sweep kernel by extension degree (csrc/bucket.cu
+#: SWEEP_THREADS over Fq, SWEEP2_THREADS over Fq2)
+SWEEP_THREADS = {1: 64, 2: 32}
 
 
 @functools.lru_cache(maxsize=None)
-def _resident_threads(nw: int, device_index: int) -> int:
-    blocks = _build.kernel_info("bucket", "zp_bucket_sweep_info", nw)["blocks_per_sm"]
-    return blocks * SWEEP_THREADS * torch.cuda.get_device_properties(device_index).multi_processor_count
+def _resident_threads(nw: int, ext: int, device_index: int) -> int:
+    blocks = _build.kernel_info("bucket", "zp_bucket_sweep_info", nw, ext)["blocks_per_sm"]
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return blocks * SWEEP_THREADS[ext] * sms
 
 
 def resident_threads(curve: CurveSpec, device) -> int:
     """Sweep threads the card keeps resident at once (all SMs), as the CUDA
-    runtime reports the kernel's occupancy for this curve's field width."""
-    return _resident_threads(curve.fq.n_words, torch.device(device).index or 0)
+    runtime reports the occupancy of the sweep kernel of this curve's field
+    width and extension degree."""
+    return _resident_threads(curve.fq.n_words, curve.ext, torch.device(device).index or 0)
 
 
 def _sweep(curve: CurveSpec, Xw, Yw, digits, lanes: int, B: int) -> torch.Tensor:
-    """Launch the sweep kernel on (NW, N) word arrays; returns the
-    lane-unreduced bucket state, (W, T, B, 3*NW) int32 words."""
+    """Launch the sweep kernel on (EW, N) word arrays (EW = ext NW words an
+    element); returns the lane-unreduced bucket state, (W, T, B, 3*EW)
+    int32 words."""
     global launches
     lib = _build.load("bucket")
     fn = lib.zp_bucket_sweep
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     consts = _build.curve_consts(curve)
     NW = curve.fq.n_words
     W, N = digits.shape
-    state = torch.empty((W, lanes, B, 3 * NW), dtype=torch.int32, device=digits.device)
+    state = torch.empty((W, lanes, B, 3 * curve.ext * NW), dtype=torch.int32, device=digits.device)
     err = fn(
-        NW, consts.ctypes.data_as(ctypes.c_void_p), _launch.ptr(digits), _launch.ptr(Xw),
-        _launch.ptr(Yw), _launch.ptr(state), W, lanes, N, B, _launch.stream_ptr(),
+        NW, curve.ext, consts.ctypes.data_as(ctypes.c_void_p), _launch.ptr(digits),
+        _launch.ptr(Xw), _launch.ptr(Yw), _launch.ptr(state), W, lanes, N, B,
+        _launch.stream_ptr(),
     )
     _build.check_launch(err, "bucket_sweep")
     launches += 1

@@ -68,8 +68,9 @@ def lane_reduce_plain(curve: CurveSpec, buckets):
     )
 
 
-#: threads per block of the lane-reduction kernel (csrc/bucket.cu REDUCE_THREADS)
-REDUCE_THREADS = 128
+#: threads per block of the lane-reduction kernels by extension degree
+#: (csrc/bucket.cu reduce_threads<EXT>())
+REDUCE_THREADS = {1: 128, 2: 32}
 
 
 def _reduce_lanes(buckets: int, T: int, resident: int) -> int:
@@ -92,29 +93,30 @@ def _reduce_lanes(buckets: int, T: int, resident: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _reduce_resident_threads(nw: int, device_index: int) -> int:
-    blocks = _build.kernel_info("bucket", "zp_lane_reduce_info", nw)["blocks_per_sm"]
+def _reduce_resident_threads(nw: int, ext: int, device_index: int) -> int:
+    blocks = _build.kernel_info("bucket", "zp_lane_reduce_info", nw, ext, 0)["blocks_per_sm"]
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    return blocks * REDUCE_THREADS * sms
+    return blocks * REDUCE_THREADS[ext] * sms
 
 
 def _lane_reduce_state(curve: CurveSpec, state: torch.Tensor, lanes=None):
     """Launch the lane-reduction kernel on the sweep's native state,
-    (W, T, B, 3*NW) int32 words -> (X, Y, Z) each (L, W, B) int64.
-    ``lanes`` (a multiple of 32, at least W*B) is _reduce_lanes' choice
-    unless given."""
+    (W, T, B, 3*EW) int32 words (EW = ext NW words an element) -> (X, Y, Z)
+    each (L, W, B) int64.  ``lanes`` (a multiple of 32, at least W*B) is
+    _reduce_lanes' choice unless given."""
     lib = _build.load("bucket")
     fn = lib.zp_lane_reduce
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    NW = curve.fq.n_words
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    NW, ext = curve.fq.n_words, curve.ext
+    EW = ext * NW
     W, T, B, _ = state.shape
-    N = lanes or _reduce_lanes(W * B, T, _reduce_resident_threads(NW, state.device.index or 0))
-    out = torch.empty((3, NW, W * B), dtype=torch.int32, device=state.device)
+    N = lanes or _reduce_lanes(W * B, T, _reduce_resident_threads(NW, ext, state.device.index or 0))
+    out = torch.empty((3, EW, W * B), dtype=torch.int32, device=state.device)
     # the warps' first and last pieces, then one parked head per lane
-    pieces = torch.empty((2 * (N // 32) + N, 3 * NW), dtype=torch.int32, device=state.device)
+    pieces = torch.empty((2 * (N // 32) + N, 3 * EW), dtype=torch.int32, device=state.device)
     err = fn(
-        NW, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p),
+        NW, ext, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p),
         _launch.ptr(state), _launch.ptr(out), _launch.ptr(pieces), W, T, B, N,
         _launch.stream_ptr(),
     )
@@ -168,18 +170,18 @@ def finish(curve: CurveSpec, buckets, c: int, impl: str = "auto"):
     fn = lib.zp_finish
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32] + [ctypes.c_void_p] * 2
+        [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32] + [ctypes.c_void_p] * 2
         + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     )
-    NW = curve.fq.n_words
+    NW, ext = curve.fq.n_words, curve.ext
     # the window sums as words: at B > 1 the collapse's launches leave them
     if B > 1:
         sums = _collapse_launch(curve, buckets, limbs_out=False)
     else:
         sums = _launch.pack_point(buckets)
-    out = torch.empty((3, NW, 1), dtype=torch.int32, device=buckets[0].device)
+    out = torch.empty((3, ext * NW, 1), dtype=torch.int32, device=buckets[0].device)
     err = fn(
-        NW, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p), _build.b3_small(curve),
+        NW, ext, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p), _build.fold_b3k(curve),
         _launch.ptr(sums), _launch.ptr(out), W, c, _launch.stream_ptr(),
     )
     _build.check_launch(err, "finish")
@@ -244,7 +246,9 @@ def _collapse_links(B: int, m: int):
 
 @functools.lru_cache(maxsize=None)
 def _collapse_wave_groups(nw: int, device_index: int) -> int:
-    """Groups of lanes of one warp per scheduler of the card."""
+    """Groups of lanes of one warp per scheduler of the card (over Fq2 too:
+    a group there has the same lanes, each product being three cooperative
+    Fq products in sequence)."""
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
     return sms * SCHEDULERS_PER_SM * 32 // _collapse_lanes(nw)
 
@@ -258,27 +262,29 @@ def _collapse_launch(curve: CurveSpec, buckets, m: int = 0, limbs_out: bool = Tr
     fn = lib.zp_collapse
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32] + [ctypes.c_void_p] * 5
+        [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32] + [ctypes.c_void_p] * 5
         + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     )
     NW = curve.fq.n_words
     L, W, B = buckets[0].shape
+    EW = L // 2  # words an element: ext NW
     bx, by, bz = (t.contiguous() for t in buckets)
     m = m or _collapse_run(W, B, _collapse_wave_groups(NW, bx.device.index or 0))
     # the window sums as words, then two halves of the combine launches'
     # pairs (csrc/reduce.cu collapse_launches)
     cap = max(1, W * B // m // (COLLAPSE_THREADS // _collapse_lanes(NW)))
-    scratch = torch.empty((3 * NW * W + 2 * 2 * 3 * NW * cap,), dtype=torch.int32,
+    scratch = torch.empty((3 * EW * W + 2 * 2 * 3 * EW * cap,), dtype=torch.int32,
                           device=bx.device)
     out = torch.empty((3, L, W), dtype=torch.int64, device=bx.device) if limbs_out else None
     err = fn(
-        NW, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p), _build.b3_small(curve),
+        NW, curve.ext, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p),
+        _build.fold_b3k(curve),
         _launch.ptr(bx), _launch.ptr(by), _launch.ptr(bz),
         None if out is None else _launch.ptr(out), _launch.ptr(scratch), W, B, m,
         _launch.stream_ptr(),
     )
     _build.check_launch(err, "collapse")
-    return out if limbs_out else scratch[: 3 * NW * W].view(3, NW, W)
+    return out if limbs_out else scratch[: 3 * EW * W].view(3, EW, W)
 
 
 def collapse(curve: CurveSpec, buckets, impl: str = "auto"):

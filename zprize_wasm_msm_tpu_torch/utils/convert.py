@@ -11,7 +11,11 @@ projective triples).
 ``pack_words`` / ``unpack_words`` re-pack (L, *batch) 16-bit limbs into
 (L/2, *batch) 32-bit words and back: word j = limb 2j | limb 2j+1 << 16,
 the same integer in the same Montgomery form (L is a multiple of 4).  Word
-tensors are int32: only their bit pattern matters to a kernel.
+tensors are int32: only their bit pattern matters to a kernel.  An Fq2
+batch is (2L, *batch) limbs, component 0 then component 1 (tower.Fq2); a
+limb pair never straddles the two, so it packs to [c0 words][c1 words], NW
+each: the CUDA kernels' Fe2 layout.  from_reference carries the JAX
+package's Fq2 arrays across as they are.
 """
 
 from __future__ import annotations
