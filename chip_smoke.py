@@ -46,10 +46,18 @@ What it does, in order (any failure exits non-zero and prints no result):
      q-1, (q+-1)/2, all-ones words); K1, K4, K2 and K3 over Fq2 at small
      shapes on toy_g2, toy_bn_g2, bn254_g2 and bls12_381_g2, and on the
      adversarial cases above (K1, K4, K3, K2 on toy_g2; K1, K4 on
+     bls12_381_g2); K7 and K8 over Fq2 (the sorted engine on G2) at small
+     shapes on the four G2 curves and on k7_adversarial's streams (toy_g2,
      bls12_381_g2); every Fq2 instantiation under the same spill gate (and
      the out-of-line Fq2 product steps of group2.cuh).  BLS12-377 G1: the
      kernels at small shapes and ctx.msm at 2^16 against the oracle, the
-     default (GLV) and use_glv=False;
+     default (GLV) and use_glv=False.  Engine agreement at 2^16 (the check
+     of tools/engine_diff.py): on BLS12-381 G1 the default, use_glv=False
+     c = 7, kernel-sorted, the plain engine and msm_legacy, on BLS12-381 G2
+     kernel, kernel-sorted and msm_legacy (at 2^14), all one group element
+     and the oracle's.  Serialization at 2^16 on G1 and G2: to bytes and
+     back, compressed and uncompressed, exact, and ctx.msm over the
+     decompressed G2 bases against the oracle;
   5. drives three paths of the public API on BLS12-381 G1 at N = 2^20
      distinct bases (build_bls12381().msm -> result_to_affine), each a few
      timed repetitions, with every kernel's launch count zeroed just before
@@ -66,6 +74,9 @@ What it does, in order (any failure exits non-zero and prints no result):
        G2    build_curve(bls12_381_g2).msm(P, k) at N = 2^20: full scalars
              (no GLV), c = 6, W = 44, B = 32, K1 -> K4 -> K2 -> K3 over Fq2,
              against (sum k_i m_i mod r) G2; and BN254 G2 at 2^16;
+       G2-sorted  the same G2 bases and scalars through msm(P, k, c=10):
+             W = 27, B = 512, T = 1024 chunks, sort -> K7 -> K8 -> scatter
+             -> K2 -> K3 over Fq2, equal to path G2's point and the oracle's;
   6. calls each kernel's wrapper at its path's shapes, compares it with its
      plain version on the same inputs (exact equality of affine coordinates
      or limbs: integers, tolerance 0) and times both; K1 and K7 also report
@@ -81,7 +92,9 @@ What it does, in order (any failure exits non-zero and prints no result):
   7. the same for the Fq2 forms of K1, K4, K2 and K3 at path G2's shape
      (K1's plain version on two of its 44 windows), with their bounds (an
      Fq2 product counted as three Fq products) and K2's and K3's depth
-     floors at the Fq2 links' latency.
+     floors at the Fq2 links' latency; and for K7 and K8 over Fq2 at path
+     G2-sorted's shape (K7's plain version on window 0 of 27), with K2 over
+     Fq2 at B = 512 and K3 over Fq2 at W = 27 beside them.
 
 Output: one JSON object per line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -111,7 +124,7 @@ import torch
 SEED = 123
 LOG2N = 20
 REPS = 3
-PLAIN_LANES = 1024  # lanes of the plain sweep at the main path's shape
+PLAIN_LANES = 4096  # lanes of the plain sweep at the main path's shape (256 serial steps)
 C_SORTED = 10  # window of path B: above the bucket kernel's cap, so the sorted engine
 
 # NVIDIA H100 SXM peaks the bounds are computed against.  Memory: 3.35 TB/s
@@ -513,6 +526,52 @@ def kernel_checks(curve, dev, rng, log2n, c, max_bits, lanes, tag):
     return errs
 
 
+def sorted_checks(curve, dev, rng, log2n, c, chunks, tag):
+    """The sorted engine's kernels against their plain versions on one
+    given sorted stream, and its dense buckets against the bucket
+    engine's plain version."""
+    import zprize_wasm_msm_tpu_torch as Z
+    from zprize_wasm_msm_tpu_torch.ops.msm import pl_bucket, pl_reduce, pl_sorted
+
+    ctx = Z.build_curve(curve, device=dev)
+    (X, Y), _, _ = _make_bases(ctx, log2n, rng, dev)
+    N = 1 << log2n
+    B = 1 << (c - 1)
+    steps = N // chunks
+    digits = torch.as_tensor(rng.integers(-B, B + 1, size=(5, N)).astype(np.int32), device=dev)
+    digits[:, 0:8] = 0
+    digits[:, 8:12] = B
+    digits[:, 12:16] = -B
+    X[:, 16:20], Y[:, 16:20] = 0, 0  # (0,0) points
+    X[:, 25], Y[:, 25] = X[:, 24], Y[:, 24]
+    digits[:, 25] = digits[:, 24]  # same point twice in one run: the doubling case
+    digits[1, :] = 0  # an all-zero window
+    digits[2, :] = 2  # every chunk is all one bucket: ONE run spanning all chunks
+    digits[2, 5] = -1  # and a single-entry run before it
+    digits[3, : 3 * steps + 1] = -3  # a run spanning several chunks, ending inside one
+    digits[4, 1::2] = 0
+    perm, skey, meta = pl_sorted.sort_runs(digits, c, chunks)
+    slot, seg = pl_sorted.compact_index(skey, meta, c, chunks)
+    K = seg.shape[1]
+    pieces = pl_sorted.sweep(curve, (X, Y), perm, meta, slot, K, chunks)
+    pieces_plain = pl_sorted.sweep_plain(curve, (X, Y), perm, meta, slot, K, chunks)
+    errs = {"sorted_sweep": affine_err(curve, pieces, pieces_plain)}
+    errs["segscan"] = affine_err(
+        curve, pl_sorted.segscan(curve, pieces_plain, seg, chunks),
+        pl_sorted.segscan_plain(curve, pieces_plain, seg, chunks),
+    )
+    dense = pl_sorted.bucket_accumulate_sorted(curve, (X, Y), digits, c, chunks)
+    ref = pl_bucket.bucket_accumulate_plain(curve, (X, Y), digits, lanes=16, c=c)
+    errs["sort+sweep+segscan+scatter"] = affine_err(curve, dense, ref)
+    errs[f"collapse(B={B})"] = affine_err(
+        curve, pl_reduce.collapse(curve, ref), pl_reduce.collapse_plain(curve, ref)
+    )
+    torch.cuda.synchronize()
+    for name, e in errs.items():
+        check(e == 0, f"{tag}: kernel {name} disagrees with its plain version (max |err| {e})")
+    return errs
+
+
 def fq2_device_check(curve, dev, rng, n_random=500):
     """The Fq2 device functions (csrc/field2.cuh; the group ops of K1 and K4
     in csrc/group2.cuh, and the level-parallel doubling and addition of
@@ -587,9 +646,10 @@ def oracle_of(curve):
     return OracleCurve(q=curve.q, a=0, b=curve.b, r=curve.r, gx=curve.gx, gy=curve.gy, field=field)
 
 
-def bases_and_scalars(ctx, log2n, rng, dev):
+def bases_and_scalars(ctx, log2n, rng, dev, prefix=None):
     """2^log2n distinct bases [m_i]G (_make_bases), full scalars below r,
-    and the oracle's (sum k_i m_i mod r) G."""
+    and the oracle's (sum k_i m_i mod r) G; with ``prefix``, also the
+    oracle's sum over the first ``prefix`` points."""
     curve = ctx.spec
     (X, Y), m0, ds = _make_bases(ctx, log2n, rng, dev)
     n = 1 << log2n
@@ -600,9 +660,12 @@ def bases_and_scalars(ctx, log2n, rng, dev):
     mults = np.full(n, m0, dtype=object)
     for k, d in enumerate(ds):
         mults = mults + ((idx >> k) & 1).astype(object) * d
-    total = int((np.array(kints, dtype=object) * (mults % curve.r)).sum() % curve.r)
+    terms = np.array(kints, dtype=object) * (mults % curve.r)
     oc = oracle_of(curve)
-    return (X, Y), ctx.scalars_to_device(kints), oc.mul(oc.g, total)
+    out = (X, Y), ctx.scalars_to_device(kints), oc.mul(oc.g, int(terms.sum() % curve.r))
+    if prefix is None:
+        return out
+    return out + (oc.mul(oc.g, int(terms[:prefix].sum() % curve.r)),)
 
 
 def msm_oracle_check(curve, dev, rng, log2n, variants):
@@ -630,6 +693,112 @@ def msm_oracle_check(curve, dev, rng, log2n, variants):
         launches = {"bucket_sweep": pl_bucket.launches, **pl_reduce.launches, **field_kernels.launches}
         out[name] = {"ms": ms, "launches": {a: b for a, b in launches.items() if b},
                      "verified_against_oracle": True}
+    return out
+
+
+def engine_agreement(dev, rng, log2n, log2n_legacy_g2):
+    """The port's counterpart of tools/engine_diff.py: every engine on one
+    input, all equal as group elements (the same affine point) and equal to
+    the oracle.  BLS12-381 G1 at 2^log2n: the default (GLV split, bucket
+    kernels), use_glv=False c = 7, kernel-sorted, the plain engine (c = 8,
+    1 024 lanes: its own memory-budget rule picks c = 13 and 128 lanes, 1 024
+    serial steps of PyTorch ops) and msm_legacy (a per-point ladder and a tree
+    sum: no stage shared with the others).  BLS12-381 G2: kernel,
+    kernel-sorted, and msm_legacy on the first 2^log2n_legacy_g2 of the same
+    points (held against their own oracle sum).  Returns
+    {curve: {engine: {ms, ...}}}; fails on any disagreement."""
+    import zprize_wasm_msm_tpu_torch as Z
+    from zprize_wasm_msm_tpu_torch.models.curves import bls12_381, bls12_381_g2
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    out = {}
+    for curve, engines in (
+        (bls12_381, {"default (GLV, kernel)": {}, "use_glv=False c=7": {"use_glv": False, "c": 7},
+                     "kernel-sorted": {"impl": "kernel-sorted"},
+                     "plain c=8 T=1024": {"impl": "plain", "c": 8, "lanes": 1024}}),
+        (bls12_381_g2, {"kernel": {"impl": "kernel"}, "kernel-sorted": {"impl": "kernel-sorted"}}),
+    ):
+        ctx = Z.build_curve(curve, device=dev)
+        n_leg = 1 << (log2n if curve.ext == 1 else log2n_legacy_g2)
+        P, k, expected, want = bases_and_scalars(ctx, log2n, rng, dev, prefix=n_leg)
+        res = {}
+        points = []
+        for name, kw in engines.items():
+            if kw.get("impl") != "plain":  # the plain engine is timed cold: ~14 s a call
+                ctx.msm(P, k, **kw)  # warm
+            pt, ms = timed(lambda: ctx.msm(P, k, **kw))
+            points.append(pt)
+            res[name] = {"ms": ms, "n": 1 << log2n}
+        # msm_legacy on all points, or on the first n_leg (their own oracle
+        # sum, which the kernel engine must give on them too)
+        sub, k_sub = tuple(a[:, :n_leg].contiguous() for a in P), k[:, :n_leg].contiguous()
+        pt, ms = timed(lambda: ctx.msm_legacy(sub, k_sub))
+        points.append(pt)
+        if n_leg < 1 << log2n:
+            check(ctx.result_to_affine(ctx.msm(sub, k_sub)) == want,
+                  f"{curve.name}: msm at {n_leg} points disagrees with the oracle")
+        res["msm_legacy"] = {"ms": ms, "n": n_leg}
+        got = [ctx.result_to_affine(p) for p in points[:-1]]
+        check(all(g == expected for g in got), f"{curve.name}: the engines disagree with the oracle at 2^{log2n}")
+        check(ctx.result_to_affine(points[-1]) == want, f"{curve.name}: msm_legacy disagrees at {n_leg} points")
+        # as group elements, projective to projective (the representatives differ)
+        from zprize_wasm_msm_tpu_torch.ops.curve import group
+
+        ref = tuple(c[:, None] for c in points[0])
+        for p in points[1:-1]:
+            check(bool(group.eq(curve, ref, tuple(c[:, None] for c in p)).all()),
+                  f"{curve.name}: two engines' points are not the same group element")
+        for name in res:
+            res[name]["equal"] = True
+        out[curve.name] = res
+    return out
+
+
+def serde_phase(dev, rng, log2n):
+    """G1 and G2 points at 2^log2n to bytes and back on the card, compressed
+    and uncompressed (the JAX package's wire formats), exact, and infinity
+    (the 0x40 flag) in a batch of eight; then ctx.msm over the decompressed
+    G2 bases against the oracle (a G2 prover's path).  Returns timings."""
+    import zprize_wasm_msm_tpu_torch as Z
+    from zprize_wasm_msm_tpu_torch.models.curves import bls12_381, bls12_381_g2
+
+    out = {}
+    for curve in (bls12_381, bls12_381_g2):
+        ctx = Z.build_curve(curve, device=dev)
+        (X, Y), k, expected = bases_and_scalars(ctx, log2n, rng, dev)
+        rep = {"n": 1 << log2n}
+        for fmt, enc, dec in (("uncompressed", ctx.to_uncompressed, ctx.from_uncompressed),
+                              ("compressed", ctx.to_compressed, ctx.from_compressed)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            raw = enc(X, Y)
+            t1 = time.perf_counter()
+            X2, Y2 = dec(raw)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            check(X2.device == X.device and torch.equal(X2, X) and torch.equal(Y2, Y),
+                  f"{curve.name}: {fmt} round trip is not exact")
+            rep[f"to_{fmt}_ms"] = (t1 - t) * 1e3
+            rep[f"from_{fmt}_ms"] = (t2 - t1) * 1e3
+            rep[f"{fmt}_bytes_per_point"] = int(raw.shape[1])
+            Xi, Yi = X[:, :8].clone(), Y[:, :8].clone()
+            Xi[:, 3], Yi[:, 3] = 0, 0  # infinity
+            raw_i = enc(Xi, Yi)
+            Xj, Yj = dec(raw_i)
+            check(raw_i[3, 0] == 0x40 and not raw_i[3, 1:].any() and torch.equal(Xj, Xi)
+                  and torch.equal(Yj, Yi), f"{curve.name}: {fmt} infinity does not round-trip")
+        if curve.ext == 2:
+            # the G2 prover's path: compressed bases in, decompressed, msm
+            check(ctx.result_to_affine(ctx.msm((X2, Y2), k)) == expected,
+                  "msm over decompressed G2 bases does not match the oracle")
+            rep["msm_over_decompressed_bases_verified_against_oracle"] = True
+        out[curve.name] = rep
     return out
 
 
@@ -750,7 +919,8 @@ def main() -> None:
         (name, nw): kernel_resources(stem, kernel, entry, (nw,), 64, *args)
         for name, stem, kernel, entry, args in (
             ("bucket_sweep", "bucket", "bucket_sweep_kernel", "zp_bucket_sweep_info", (1,)),
-            ("sorted_sweep", "sorted", "sorted_sweep_kernel", "zp_sorted_sweep_info", ()),
+            ("sorted_sweep", "sorted", "sorted_sweep_kernel", "zp_sorted_sweep_info", (1,)),
+            ("segscan", "sorted", "segscan_kernel", "zp_segscan_info", (1,)),
         )
         for nw in _build.SUPPORTED_WORDS
     }
@@ -780,6 +950,8 @@ def main() -> None:
             ("collapse", "reduce", "collapse2_kernel", "zp_collapse_info", (nw,), 128, (2, 0)),
             ("collapse (combine)", "reduce", "combine2_kernel", "zp_collapse_info", (nw,), 128, (2, 1)),
             ("finish (fold)", "reduce", "finish_kernel", "zp_finish_info", (nw, 2), 32, (2,)),
+            ("sorted_sweep", "sorted", "sorted_sweep2_kernel", "zp_sorted_sweep_info", (nw,), 32, (2,)),
+            ("segscan", "sorted", "segscan2_kernel", "zp_segscan_info", (nw,), 32, (2,)),
         )
     }
     emit({"fq2_resources": {f"{k[0]} NW={k[1]}": v for k, v in fq2_res.items()}})
@@ -907,48 +1079,6 @@ def main() -> None:
         "seconds": round(time.perf_counter() - t0, 2)}})
 
     # ---- 4. kernels against their plain versions, small shapes ---------------
-    def sorted_checks(curve, log2n, c, chunks, tag):
-        """The sorted engine's kernels against their plain versions on one
-        given sorted stream, and its dense buckets against the bucket
-        engine's plain version."""
-        ctx = Z.build_curve(curve)
-        (X, Y), _, _ = make_bases(ctx, log2n, rng)
-        N = 1 << log2n
-        B = 1 << (c - 1)
-        steps = N // chunks
-        digits = torch.as_tensor(rng.integers(-B, B + 1, size=(5, N)).astype(np.int32), device=dev)
-        digits[:, 0:8] = 0
-        digits[:, 8:12] = B
-        digits[:, 12:16] = -B
-        X[:, 16:20], Y[:, 16:20] = 0, 0  # (0,0) points
-        X[:, 25], Y[:, 25] = X[:, 24], Y[:, 24]
-        digits[:, 25] = digits[:, 24]  # same point twice in one run: the doubling case
-        digits[1, :] = 0  # an all-zero window
-        digits[2, :] = 2  # every chunk is all one bucket: ONE run spanning all chunks
-        digits[2, 5] = -1  # and a single-entry run before it
-        digits[3, : 3 * steps + 1] = -3  # a run spanning several chunks, ending inside one
-        digits[4, 1::2] = 0
-        perm, skey, meta = pl_sorted.sort_runs(digits, c, chunks)
-        slot, seg = pl_sorted.compact_index(skey, meta, c, chunks)
-        K = seg.shape[1]
-        pieces = pl_sorted.sweep(curve, (X, Y), perm, meta, slot, K, chunks)
-        pieces_plain = pl_sorted.sweep_plain(curve, (X, Y), perm, meta, slot, K, chunks)
-        errs = {"sorted_sweep": affine_err(curve, pieces, pieces_plain)}
-        errs["segscan"] = affine_err(
-            curve, pl_sorted.segscan(curve, pieces_plain, seg, chunks),
-            pl_sorted.segscan_plain(curve, pieces_plain, seg, chunks),
-        )
-        dense = pl_sorted.bucket_accumulate_sorted(curve, (X, Y), digits, c, chunks)
-        ref = pl_bucket.bucket_accumulate_plain(curve, (X, Y), digits, lanes=16, c=c)
-        errs["sort+sweep+segscan+scatter"] = affine_err(curve, dense, ref)
-        errs[f"collapse(B={B})"] = affine_err(
-            curve, pl_reduce.collapse(curve, ref), pl_reduce.collapse_plain(curve, ref)
-        )
-        torch.cuda.synchronize()
-        for name, e in errs.items():
-            check(e == 0, f"{tag}: kernel {name} disagrees with its plain version (max |err| {e})")
-        return errs
-
     def collapse_check(curve, B):
         """collapse_kernel above its former cap, against bucket_reduce_grouped."""
         ctx = Z.build_curve(curve)
@@ -973,10 +1103,10 @@ def main() -> None:
         "bn254 c=5 W=52 B=16": kernel_checks(bn254, dev, rng, 10, 5, 254, 32, "bn254 c=5"),
         "bls12_381 c=7 W=38 B=64": kernel_checks(bls12_381, dev, rng, 12, 7, 255, 64, "bls12_381 c=7"),
         "bls12_381 c=6 W=23 B=32": kernel_checks(bls12_381, dev, rng, 10, 6, 132, 32, "bls12_381 c=6"),
-        "sorted toy c=4 T=16": sorted_checks(toy, 9, 4, 16, "sorted toy c=4"),
-        "sorted toy c=10 T=64": sorted_checks(toy, 11, 10, 64, "sorted toy c=10"),
-        "sorted bn254 c=8 T=32": sorted_checks(bn254, 9, 8, 32, "sorted bn254 c=8"),
-        "sorted bls12_381 c=10 T=64": sorted_checks(bls12_381, 10, 10, 64, "sorted bls12_381 c=10"),
+        "sorted toy c=4 T=16": sorted_checks(toy, dev, rng, 9, 4, 16, "sorted toy c=4"),
+        "sorted toy c=10 T=64": sorted_checks(toy, dev, rng, 11, 10, 64, "sorted toy c=10"),
+        "sorted bn254 c=8 T=32": sorted_checks(bn254, dev, rng, 9, 8, 32, "sorted bn254 c=8"),
+        "sorted bls12_381 c=10 T=64": sorted_checks(bls12_381, dev, rng, 10, 10, 64, "sorted bls12_381 c=10"),
         "bls12_381 collapse B=512": collapse_check(bls12_381, 512),
         "bls12_381 collapse B=4096": collapse_check(bls12_381, 4096),
     }
@@ -1048,6 +1178,34 @@ def main() -> None:
           "fq2_adversarial_max_abs_err": adversarial, "tolerance": 0,
           "seconds": round(time.perf_counter() - t0, 2)})
 
+    # K7 and K8 over Fq2 (the sorted engine on G2) against their plain
+    # versions on given sorted streams: small shapes on the four G2 curves
+    # (zero digits, digits at +-B, (0,0) points, a point twice in one run,
+    # runs spanning chunks, an all-zero window), then k7_adversarial's
+    # streams (runs crossing every lane, zero and negative digits) on
+    # toy_g2 and bls12_381_g2.  A generator of its own: path G2 keeps its data
+    t0 = time.perf_counter()
+    g2s_rng = np.random.default_rng(SEED + 6)
+    small_g2s = {
+        "sorted toy_g2 c=4 T=16": sorted_checks(toy_g2, dev, g2s_rng, 9, 4, 16, "sorted toy_g2 c=4"),
+        "sorted toy_bn_g2 c=5 T=16": sorted_checks(toy_bn_g2, dev, g2s_rng, 9, 5, 16, "sorted toy_bn_g2 c=5"),
+        "sorted bn254_g2 c=8 T=32": sorted_checks(bn254_g2, dev, g2s_rng, 9, 8, 32, "sorted bn254_g2 c=8"),
+        "sorted bls12_381_g2 c=10 T=64": sorted_checks(bls12_381_g2, dev, g2s_rng, 10, 10, 64,
+                                                       "sorted bls12_381_g2 c=10"),
+    }
+    adversarial = {}
+    for c_curve, shapes in ((toy_g2, ((16, 37), (4, 5), (8, 71), (4, 100), (2, 64))),
+                            (bls12_381_g2, ((16, 37),))):
+        for chunks, steps in shapes:
+            for case, e in k7_adversarial(c_curve, dev, g2s_rng, chunks, steps).items():
+                adversarial[f"K7 {c_curve.name} T={chunks} steps={steps}: {case}"] = e
+    torch.cuda.synchronize()
+    for case, e in adversarial.items():
+        check(e == 0, f"{case}: kernel disagrees with its plain version (max |err| {e})")
+    emit({"fq2_sorted_small_shapes_max_abs_err": small_g2s,
+          "fq2_sorted_adversarial_max_abs_err": adversarial, "tolerance": 0,
+          "seconds": round(time.perf_counter() - t0, 2)})
+
     # BLS12-377 G1 (a 377-bit q, NW = 12 with a free top bit, 3b = 3, GLV):
     # the kernels at small shapes, then ctx.msm at 2^16 against the oracle,
     # the default (GLV split, K5) and use_glv=False
@@ -1062,6 +1220,16 @@ def main() -> None:
             "default (GLV)": {}, "use_glv=False": {"use_glv": False}}),
     }
     emit({"bls12_377": bls377, "tolerance": 0, "seconds": round(time.perf_counter() - t0, 2)})
+
+    # every engine on one input (tools/engine_diff.py's check), then the
+    # wire formats and the G2 prover's decompress-then-msm; generators of
+    # their own
+    t0 = time.perf_counter()
+    engines = engine_agreement(dev, np.random.default_rng(SEED + 7), 16, 14)
+    emit({"engine_agreement": engines, "seconds": round(time.perf_counter() - t0, 2)})
+    t0 = time.perf_counter()
+    serde_report = serde_phase(dev, np.random.default_rng(SEED + 8), 16)
+    emit({"serde": serde_report, "seconds": round(time.perf_counter() - t0, 2)})
 
     # ---- 5. the main path ---------------------------------------------------
     curve = bls12_381
@@ -1305,6 +1473,50 @@ def main() -> None:
     emit({"path_G2_bn254": {"curve": bn254_g2.name, "n": 1 << 16, "scalar_bits": 256, "glv": False,
                             "c": c_bn, **path_bn}})
 
+    # -- path G2-sorted: the same bases and scalars through the sorted engine,
+    # ctx.msm(P, k, c=10): W = 27, B = 512, T = 1024 chunks, K = 1536; digits
+    # -> sort -> compact -> K7 -> K8 -> scatter -> K2 at B = 512 -> K3 at B = 1,
+    # all over Fq2.  It must give path G2's point and the oracle's.
+    impl, cgs, _ = pippenger.resolve_config(g2, n, 256, C_SORTED, None, 2 << 30, "auto", device=dev)
+    Wgs, Bgs = windows.num_windows(256, cgs), 1 << (cgs - 1)
+    check((impl, cgs, Wgs, Bgs) == ("kernel-sorted", 10, 27, 512), f"path G2-sorted resolved to {(impl, cgs, Wgs, Bgs)}")
+    check(pippenger.resolve_config(g2, n, 256, None, None, 2 << 30, "kernel-sorted")[1] == cgs,
+          "impl='kernel-sorted' with c unset should resolve to the same window on G2")
+    paths["G2 sorted"] = lambda: ctx_g2.msm((Xg, Yg), scalars_g, c=C_SORTED)
+    path_g2s = drive("G2 sorted", paths["G2 sorted"],
+                     ("sorted_sweep", "segscan", "collapse", "finish", "field_inverse"),
+                     ctx=ctx_g2, expected=expected_g)
+    check("bucket_sweep" not in path_g2s["launches"], "path G2-sorted ran the bucket sweep")
+    point_g2 = ctx_g2.result_to_affine(paths["G2"]())
+    point_g2s = ctx_g2.result_to_affine(paths["G2 sorted"]())
+    check(point_g2s == point_g2 == expected_g, "paths G2 and G2-sorted give different points")
+    TGs = pl_sorted.GRID
+    digits_gs, digits_gs_ms = staged(lambda: windows.signed_window_digits(scalars_g, cgs, 256))
+    (perm_gs, skey_gs, meta_gs), sort_gs_ms = staged(lambda: pl_sorted.sort_runs(digits_gs, cgs, TGs))
+    (slot_gs, seg_gs), compact_gs_ms = staged(lambda: pl_sorted.compact_index(skey_gs, meta_gs, cgs, TGs))
+    del skey_gs
+    Kgs = seg_gs.shape[1]
+    pieces_gs, sweep_gs_ms = staged(lambda: pl_sorted.sweep(g2, (Xg, Yg), perm_gs, meta_gs, slot_gs, Kgs, TGs))
+    scanned_gs, segscan_gs_ms = staged(lambda: pl_sorted.segscan(g2, pieces_gs, seg_gs, TGs))
+    dense_gs, scatter_gs_ms = staged(lambda: pl_sorted.scatter_dense(g2, scanned_gs, seg_gs, cgs))
+    sums_gs, collapse_gs_ms = staged(lambda: pl_reduce.collapse(g2, dense_gs))
+    fold_gs = tuple(a[:, :, None].contiguous() for a in sums_gs)
+    point_gs, finish_gs_ms = staged(lambda: pl_reduce.finish(g2, fold_gs, cgs))
+    check(ctx_g2.result_to_affine(point_gs) == expected_g, "path G2-sorted's stages, run one by one, miss the oracle")
+    del scanned_gs
+    emit({
+        "path_G2_sorted": {
+            "curve": g2.name, "n": n, "scalar_bits": 256, "glv": False, "c": cgs, "W": Wgs, "B": Bgs,
+            "chunks": TGs, "K": Kgs, **path_g2s, "equal_to_path_G2": True,
+            "stage_ms": {
+                "digits": digits_gs_ms, "sort": sort_gs_ms, "compact": compact_gs_ms,
+                "sweep(K7)": sweep_gs_ms, "segscan(K8)": segscan_gs_ms, "scatter": scatter_gs_ms,
+                "collapse(K2)": collapse_gs_ms, "finish(K3)": finish_gs_ms,
+                "result_to_affine": path_g2s["result_to_affine_ms"],
+            },
+        }
+    })
+
     if args.profile is not None:
         emit({"profile": {name: profile_msm(run, args.profile, name) for name, run in paths.items()}})
 
@@ -1347,7 +1559,8 @@ def main() -> None:
         "launches": main_launches["bucket_sweep"], "max_abs_err": k1_err, "ms": k1_ms,
         "plain_ms": k1_plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": f"digits ({W},{n}) X,Y ({2 * NW},{n}) -> state ({W},{T},{B},3x{NW}w)",
-        "compared": "after lane reduction, as affine points, against the plain sweep + tree",
+        "compared": f"after lane reduction, as affine points, against the plain sweep + tree "
+                    f"(plain_ms: the plain sweep at {PLAIN_LANES} lanes)",
         "x_bound": k1_ms / b_ms, "mixed_adds": nonzero, "ns_per_add": k1_ms * 1e6 / nonzero,
         **sweep_res[("bucket_sweep", NW)],
         "kernel_lanes": T, "threads": W * T,
@@ -1820,10 +2033,99 @@ def main() -> None:
         "shape": f"({LG},{Wg},1)x3, c={cg} -> ({LG},)x3; ms is the pl_reduce.finish wrapper",
         "compared": "as affine points against bucket_reduce + window_fold, and against the oracle",
     })
+    # K7 over Fq2 at path G2-sorted's shape, all 27 windows, on the stream
+    # its own stages made above: the wrapper and the launch on words; its
+    # plain version on window 0 only (1 024 serial steps of the plain Fq2
+    # mixed add take about a minute whatever the window count)
+    SUB_WS = 1
+    pl_sorted.sweep(g2, (Xg, Yg), perm_gs, meta_gs, slot_gs, Kgs, TGs)
+    pieces_gs, k7g_ms = sync_ms(lambda: pl_sorted.sweep(g2, (Xg, Yg), perm_gs, meta_gs, slot_gs, Kgs, TGs), 2)
+    pts_gs = _launch.point_words((Xg, Yg))
+    stream_gs = (perm_gs.contiguous(), meta_gs.contiguous(), slot_gs.contiguous())
+    _, k7g_launch_ms = sync_ms(lambda: pl_sorted._sweep_words(g2, pts_gs, *stream_gs, Kgs, TGs), 2)
+    del pts_gs, stream_gs
+    sub_stream = tuple(a[:SUB_WS].contiguous() for a in (perm_gs, meta_gs, slot_gs))
+    k7g_plain, k7g_plain_ms = staged(lambda: pl_sorted.sweep_plain(g2, (Xg, Yg), *sub_stream, Kgs, TGs))
+    k7g_err = affine_err(g2, tuple(a[:, :SUB_WS] for a in pieces_gs), k7g_plain)
+    check(k7g_err == 0, f"sorted sweep over Fq2 at path G2-sorted's shape disagrees with plain (max |err| {k7g_err})")
+    del k7g_plain, sub_stream
+    k7g_adds = int((((meta_gs & pl_sorted.META_ZERO) == 0) & ~zero_pts_g[perm_gs.long()]).sum().item())
+    b_ms, b_by = bound(2 * EW * 4 * n + 3 * 4 * Wgs * n + 3 * EW * 4 * Wgs * Kgs, k7g_adds * ADD_MIXED2)
+    fq2_entries.append({
+        "name": "sorted_sweep_fq2", "route": "cuda",
+        "source": "zprize_wasm_msm_tpu_torch/csrc/sorted.cu",
+        "replaces": "zprize_wasm_msm_tpu/ops/msm/pl_sorted.py:127",
+        "launches": path_g2s["launches"]["sorted_sweep"], "max_abs_err": k7g_err, "ms": k7g_ms,
+        "plain_ms": k7g_plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "launch_ms": k7g_launch_ms, "x_bound": k7g_ms / b_ms, "mixed_adds": k7g_adds,
+        "ns_per_add": k7g_ms * 1e6 / k7g_adds, "threads": Wgs * TGs * 32,
+        **fq2_res[("sorted_sweep", NW)],
+        "shape": f"X,Y ({LG},{n}), perm/meta/slot ({Wgs},{n}), T={TGs} -> ({LG},{Wgs},{Kgs})x3; "
+                 "ms is the wrapper, launch_ms the launch on point-contiguous words",
+        "compared": f"every entry as an affine point against sweep_plain on the same stream, windows "
+                    f"0-{SUB_WS - 1} of {Wgs} (plain_ms: those windows)",
+    })
+    # K8 over Fq2 on the sweep's own entries
+    pl_sorted.segscan(g2, pieces_gs, seg_gs, TGs)
+    k8g_out, k8g_ms = sync_ms(lambda: pl_sorted.segscan(g2, pieces_gs, seg_gs, TGs), 3)
+    k8g_ref, k8g_plain_ms = staged(lambda: pl_sorted.segscan_plain(g2, pieces_gs, seg_gs, TGs))
+    k8g_err = affine_err(g2, k8g_out, k8g_ref)
+    check(k8g_err == 0, f"segscan over Fq2 at path G2-sorted's shape disagrees with plain (max |err| {k8g_err})")
+    del k8g_ref, pieces_gs
+    used_g = seg_gs < Bgs
+    heads_g = used_g & (seg_gs != torch.cat([torch.full_like(seg_gs[:, :1], -1), seg_gs[:, :-1]], dim=1))
+    k8g_adds = int(used_g.sum().item() - heads_g.sum().item())
+    longest_g = int(torch.stack([torch.bincount(row[row < Bgs], minlength=Bgs).max() for row in seg_gs]).max().item())
+    b_ms, b_by = bound(2 * 3 * EW * 4 * Wgs * Kgs + 4 * Wgs * Kgs, k8g_adds * ADD2)
+    fq2_entries.append({
+        "name": "segscan_fq2", "route": "cuda",
+        "source": "zprize_wasm_msm_tpu_torch/csrc/sorted.cu",
+        "replaces": "zprize_wasm_msm_tpu/ops/msm/pl_sorted.py:238",
+        "launches": path_g2s["launches"]["segscan"], "max_abs_err": k8g_err, "ms": k8g_ms,
+        "plain_ms": k8g_plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "adds": k8g_adds, "entries_in_use": int(used_g.sum().item()), "longest_segment": longest_g,
+        **fq2_res[("segscan", NW)],
+        "shape": f"({LG},{Wgs},{Kgs})x3, seg ({Wgs},{Kgs}) -> ({LG},{Wgs},{Kgs})x3; ms is the wrapper",
+        "compared": "every entry as an affine point against segscan_plain (Hillis-Steele rounds)",
+    })
+    # K2 over Fq2 at B = 512 and K3 over Fq2 at W = 27, B = 1: path
+    # G2-sorted's shapes, new to the Fq2 forms
+    dense_gs = pl_sorted.scatter_dense(g2, k8g_out, seg_gs, cgs)
+    del k8g_out
+    pl_reduce.collapse(g2, dense_gs)
+    sums_gs, k2gs_ms = sync_ms(lambda: pl_reduce.collapse(g2, dense_gs), 3)
+    k2gs_ref, k2gs_plain_ms = staged(lambda: pl_reduce.collapse_plain(g2, dense_gs))
+    k2gs_err = affine_err(g2, sums_gs, k2gs_ref)
+    check(k2gs_err == 0, f"collapse over Fq2 at B = {Bgs} disagrees with plain (max |err| {k2gs_err})")
+    m_gs = pl_reduce._collapse_run(Wgs, Bgs, pl_reduce._collapse_wave_groups(NW, 0))
+    adds_gs, dbls_gs = pl_reduce._collapse_links(Bgs, m_gs)
+    fold_gs = tuple(a[:, :, None].contiguous() for a in sums_gs)
+    pl_reduce.finish(g2, fold_gs, cgs)
+    k3gs_out, k3gs_ms = sync_ms(lambda: pl_reduce.finish(g2, fold_gs, cgs), 3)
+    k3gs_ref, k3gs_plain_ms = staged(lambda: pl_reduce.finish_plain(g2, fold_gs, cgs))
+    k3gs_err = affine_err(g2, tuple(x[:, None] for x in k3gs_out), tuple(x[:, None] for x in k3gs_ref))
+    check(k3gs_err == 0, f"finish over Fq2 at W = {Wgs} disagrees with plain (max |err| {k3gs_err})")
+    check(ctx_g2.result_to_affine(k3gs_out) == expected_g, "finish over Fq2 at path G2-sorted: not the MSM result")
+    other_g2 = {
+        "collapse_fq2": {"path_G2_sorted": {
+            "shape": f"({LG},{Wgs},{Bgs})x3", "ms": k2gs_ms, "plain_ms": k2gs_plain_ms, "max_abs_err": k2gs_err,
+            **dict(zip(("bound_ms", "bound_by"), bound((Wgs * Bgs + Wgs) * 3 * EW * 4,
+                                                       Wgs * 2 * (Bgs - 1) * ADD2))),
+            "buckets_per_run": m_gs, "groups": Wgs * Bgs // m_gs,
+            "depth_floor_ms": (adds_gs * link2_us["add_coop"] + dbls_gs * link2_us["double_coop"]) / 1e3}},
+        "finish_fq2": {"path_G2_sorted": {
+            "shape": f"({LG},{Wgs},1)x3, c={cgs}", "ms": k3gs_ms, "plain_ms": k3gs_plain_ms, "max_abs_err": k3gs_err,
+            **dict(zip(("bound_ms", "bound_by"), bound((Wgs + 1) * 3 * EW * 4,
+                                                       cgs * (Wgs - 1) * DOUBLE2 + (Wgs - 1) * ADD2))),
+            "depth_floor_ms": (cgs * (Wgs - 1) * link2_us["double_coop"] + (Wgs - 1) * link2_us["add_coop"]) / 1e3}},
+    }
+    del dense_gs, sums_gs, fold_gs
     for entry in fq2_entries:
-        entry["launches_by_path"] = {"G2": entry["launches"],
-                                     "G2 bn254": path_bn["launches"].get(entry["name"][:-4], 0)}
+        entry["launches_by_path"] = {p: counts.get(entry["name"][:-4], 0) for p, counts in (
+            ("G2", path_g2["launches"]), ("G2 bn254", path_bn["launches"]), ("G2 sorted", path_g2s["launches"]))}
         entry["no_library_because"] = ops_library
+        if entry["name"] in other_g2:
+            entry["other_shapes"] = other_g2[entry["name"]]
     kernels += fq2_entries
     del buckets_g, sums_g, fold_g
 

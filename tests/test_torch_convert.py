@@ -148,7 +148,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "zprize_wasm_msm_tpu_torch.ops.curve.device_check, zprize_wasm_msm_tpu_torch.utils.convert, "
         "zprize_wasm_msm_tpu_torch.ops.msm.pl_sorted, zprize_wasm_msm_tpu_torch.ops.msm.glv, "
         "zprize_wasm_msm_tpu_torch.ops.field.batch, zprize_wasm_msm_tpu_torch.ops.field.intops, "
-        "zprize_wasm_msm_tpu_torch.ops.field.kernels, zprize_wasm_msm_tpu_torch.oracle; "
+        "zprize_wasm_msm_tpu_torch.ops.field.kernels, zprize_wasm_msm_tpu_torch.oracle, "
+        "zprize_wasm_msm_tpu_torch.ops.msm.naive, zprize_wasm_msm_tpu_torch.ops.msm.utility, "
+        "zprize_wasm_msm_tpu_torch.ops.field.f1, zprize_wasm_msm_tpu_torch.utils.serde; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'zprize_wasm_msm_tpu' or m.startswith('zprize_wasm_msm_tpu.')]; "
         "assert not bad, bad; print('clean')"

@@ -451,8 +451,9 @@ def test_g2_kernel_constant_block():
 def test_g2_resolves_to_the_bucket_kernel_engine():
     """auto on a CUDA tensor picks the bucket kernel engine for G2 with the
     reference's c <= 6 rule (c = 6, W = 44, B = 32 at 256 bits); the sorted
-    kernel engine, or an explicit c above 6, raises instead of running the
-    plain engine; the plain engines still resolve."""
+    kernel engine, or an explicit c above 6, resolves as the reference's
+    pallas-sorted does (c = 10 at 2^20 when c is unset); the plain engines
+    still resolve, and a kernel engine on CPU tensors raises."""
     g2 = port_curves.bls12_381_g2
     got = pippenger.resolve_config(g2, 1 << 20, 256, None, None, 2 << 30, "auto", device="cuda")
     want = ref_pippenger.resolve_config(ref_curves.bls12_381_g2, 1 << 20, 256, None, None, 2 << 30, "pallas")
@@ -460,13 +461,16 @@ def test_g2_resolves_to_the_bucket_kernel_engine():
     assert windows.num_windows(256, 6) == 44
     assert pippenger.resolve_config(port_curves.bn254_g2, 1 << 16, 256, 4, None, 2 << 30, "kernel") == (
         "kernel", 4, None)
-    for impl, c in (("kernel-sorted", None), ("kernel-sorted", 10), ("kernel", 7)):
-        with pytest.raises(NotImplementedError, match="next G2 slice"):
-            pippenger.resolve_config(g2, 1 << 20, 256, c, None, 2 << 30, impl)
+    for impl, c, ref_impl in (("kernel-sorted", None, "pallas-sorted"), ("kernel-sorted", 10, "pallas-sorted"),
+                              ("kernel", 7, "pallas")):
+        got = pippenger.resolve_config(g2, 1 << 20, 256, c, None, 2 << 30, impl)
+        want = ref_pippenger.resolve_config(ref_curves.bls12_381_g2, 1 << 20, 256, c, None, 2 << 30, ref_impl)
+        assert got == ("kernel-sorted", want[1], None) and want[0] == "pallas-sorted"
+    assert pippenger.resolve_config(g2, 1 << 20, 256, None, None, 2 << 30, "kernel-sorted")[1] == 10
     assert pippenger.resolve_config(g2, 64, 256, 7, 2, 2 << 30, "plain") == ("plain", 7, 2)
     assert pippenger.resolve_config(g2, 64, 256, 7, None, 2 << 30, "plain-sorted")[0] == "plain-sorted"
     assert pippenger.resolve_config(g2, 64, 256, None, None, 2 << 30, "auto", device="cpu")[0] == "plain"
-    with pytest.raises(ValueError, match="CUDA"):
-        ZT.build_curve(g2, device="cpu").msm(
-            ZT.build_curve(g2, device="cpu").points_to_device([None]), torch.zeros((16, 1), dtype=torch.int64),
-            impl="kernel")
+    ctx = ZT.build_curve(g2, device="cpu")
+    for impl in ("kernel", "kernel-sorted"):
+        with pytest.raises(ValueError, match="CUDA"):
+            ctx.msm(ctx.points_to_device([None]), torch.zeros((16, 1), dtype=torch.int64), impl=impl)

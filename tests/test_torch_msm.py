@@ -206,8 +206,11 @@ def test_context_device_and_glv_default():
     # GLV is this curve's default: 5 * G through the split equals the oracle
     oc = oracle_of(ctx.spec)
     assert ctx.result_to_affine(ctx.msm(P, s)) == oc.mul(oc.g, 5)
-    for absent in ("msm_legacy", "pairing", "fft", "to_compressed", "in_group"):
+    for absent in ("pairing", "fft", "in_group"):  # later slices of the port
         assert not hasattr(ctx, absent)
+    for present in ("msm_legacy", "to_compressed", "from_compressed", "to_uncompressed",
+                    "from_uncompressed", "field_exp"):
+        assert callable(getattr(ctx, present))
 
 
 def test_kernel_engine_refuses_cpu_tensors():

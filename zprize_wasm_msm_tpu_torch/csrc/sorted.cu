@@ -56,11 +56,28 @@
 // of group.cuh; the combine's complete adds (6 per lane, against ~64 mixed
 // adds per lane at path B's shape) are group.cuh's out-of-line pt_add, in
 // its carry-chain form (see pt_add).
+//
+// Over Fq2 (G2; the TPU kernels take the coordinate field from
+// ops/field/ktower.py kfield, so `_sweep` and `_segscan` run G2 too):
+// sorted_sweep2_kernel and segscan2_kernel, the same schedules on the group
+// ops of group2.cuh.  A point is 72 words at NW = 12, so nothing of a point
+// lives in registers: every Fq2 product reads and writes shared memory (see
+// group2.cuh), the accumulator is the thread's own shared slot, and the
+// scan's carries travel through shared memory instead of shuffles.  Blocks
+// are one warp (FQ2_BLOCK), so that a block's slots fit static shared
+// memory; shared bytes a thread, not registers, set the residency, hence:
+//   * the two point buffers of the prefetch are, after the walk, the
+//     thread's exchange slot of the scan (a union);
+//   * the head piece is not parked in shared memory: every flush, the first
+//     included, is stored to its slot in `out`, and the first is read back
+//     from there once, after the scan, to add the run that comes into it;
+//   * TILE2 = 4 positions a lane are staged per copy group (an Fq2 mixed add
+//     takes ~3x as long as an Fq one, so fewer positions hide the latency).
 
 #include <cuda_runtime.h>
 
 #include "async.cuh"
-#include "group.cuh"
+#include "group2.cuh"
 
 #define SORTED_THREADS 64  // two warps: two (window, chunk) pairs per block
 #define SUBCHUNKS 32       // S: lanes per chunk, one warp
@@ -206,42 +223,226 @@ __global__ void __launch_bounds__(SORTED_THREADS)
   }
 }
 
-// Returns the CUDA error code of the launch (0 = launched).
-extern "C" int zp_sorted_sweep(int nw, const uint32_t* host_consts, const uint32_t* pts,
-                               const int32_t* perm, const int32_t* meta, const int32_t* slot,
-                               uint32_t* out, int W, int T, int steps, int K,
-                               void* stream_ptr) {
+#define TILE2 4  // stream positions a lane stages per copy group, over Fq2
+
+// The thread's shared slot of the Fq2 sweep: the prefetch's two point
+// buffers during the walk, the scan's exchange slot after it.
+template <int NW>
+union Sweep2Slot {
+  AffinePt<NW, 2> pt[2];
+  Pt<NW, 2> ex;
+};
+
+// The head's read-back and store after the scan, a word at a time in a
+// loop that is not unrolled: ptxas holds an unrolled copy (pt_load_soa /
+// pt_store_soa) of the whole 72-word point in registers there and spills
+// 48 bytes at NW = 12.  They run once a lane.
+template <int NW>
+__device__ __forceinline__ void pt2_get_soa(Pt<NW, 2>& a, const uint32_t* base, size_t n,
+                                            size_t i) {
+  uint32_t* d = reinterpret_cast<uint32_t*>(&a);
+#pragma unroll 1
+  for (int k = 0; k < 6 * NW; ++k) d[k] = base[(size_t)k * n + i];
+}
+
+template <int NW>
+__device__ __forceinline__ void pt2_put_soa(uint32_t* base, size_t n, size_t i,
+                                            const Pt<NW, 2>& a) {
+  const uint32_t* s = reinterpret_cast<const uint32_t*>(&a);
+#pragma unroll 1
+  for (int k = 0; k < 6 * NW; ++k) base[(size_t)k * n + i] = s[k];
+}
+
+// sorted_sweep_kernel over Fq2: pts [N][4 NW] words (x's c0, c1 words, then
+// y's), perm, meta, slot [W][N], out [3][2 NW][W*K] words pre-filled with
+// the identity.  One block (one warp) per (window, chunk); the same walk,
+// flushes and segmented scan as the Fq form.
+template <int NW>
+__global__ void __launch_bounds__(FQ2_BLOCK, 1)
+    sorted_sweep2_kernel(const uint32_t* __restrict__ pts, const int32_t* __restrict__ perm,
+                         const int32_t* __restrict__ meta, const int32_t* __restrict__ slot,
+                         uint32_t* __restrict__ out, int W, int T, int steps, int K) {
+  static_assert(FQ2_BLOCK == SUBCHUNKS, "a block is the warp of one chunk");
+  constexpr int PW = 4 * NW;  // words of an affine Fq2 point
+  __shared__ Sweep2Slot<NW> sh_slot[FQ2_BLOCK];
+  __shared__ Pt<NW, 2> sh_acc[FQ2_BLOCK];
+  __shared__ int32_t sh_ix[2][3][TILE2][FQ2_BLOCK];  // perm, meta, slot
+
+  const int lane = threadIdx.x;
+  const size_t chunk = blockIdx.x;
+  if (chunk >= (size_t)W * T) return;  // whole blocks only
+  const int w = (int)(chunk / T);
+  const int sub = (steps + SUBCHUNKS - 1) / SUBCHUNKS;
+  const int lo = min(lane * sub, steps), n = min(lo + sub, steps) - lo;
+  const size_t p0 = chunk * steps + lo;
+  const size_t nout = (size_t)W * K;
+
+  auto stage = [&](int buf, int j0) {
+    for (int i = 0; i < TILE2 && j0 + i < n; ++i) {
+      cp_async4(&sh_ix[buf][0][i][lane], perm + p0 + j0 + i);
+      cp_async4(&sh_ix[buf][1][i][lane], meta + p0 + j0 + i);
+      cp_async4(&sh_ix[buf][2][i][lane], slot + p0 + j0 + i);
+    }
+  };
+  auto fetch = [&](int buf, int idx) {
+    const uint32_t* src = pts + (size_t)idx * PW;
+    uint32_t* dst = reinterpret_cast<uint32_t*>(&sh_slot[lane].pt[buf]);
+#pragma unroll
+    for (int k = 0; k < PW; k += 4) cp_async16(dst + k, src + k);
+  };
+
+  Pt<NW, 2>& acc = sh_acc[lane];
+  pt_identity<NW>(acc);
+  bool has_b = false;  // a boundary lies in this sub-chunk
+  int first_slot = -1;
+  if (n > 0) {
+    stage(0, 0);
+    cp_async_wait_all();
+    if (!(sh_ix[0][1][0][lane] & META_ZERO)) fetch(0, sh_ix[0][0][0][lane]);
+    cp_async_wait_all();
+  }
+  for (int j = 0; j < n; ++j) {
+    const int tb = (j / TILE2) & 1, ti = j % TILE2, cb = j & 1;
+    const int m = sh_ix[tb][1][ti][lane], sl = sh_ix[tb][2][ti][lane];
+    if (ti == 0 && j + TILE2 < n) stage(tb ^ 1, j + TILE2);
+    if (j + 1 < n) {
+      const int tb1 = ((j + 1) / TILE2) & 1, ti1 = (j + 1) % TILE2;
+      if (!(sh_ix[tb1][1][ti1][lane] & META_ZERO)) fetch(cb ^ 1, sh_ix[tb1][0][ti1][lane]);
+    }
+    cp_async_commit();
+    if (!(m & META_ZERO)) {
+      AffinePt<NW, 2>& p = sh_slot[lane].pt[cb];
+      if (m & META_NEG) {
+        Fe2<NW> y;
+        sh_get<NW>(y, p.y);
+        fe_neg<NW>(y, y);
+        sh_put<NW>(p.y, y);
+      }
+      pt2_add_mixed_sh<NW>(acc, p.x, p.y);
+    }
+    if (m & META_BOUNDARY) {
+      if (!has_b) {  // the head piece: its run may have begun in an earlier lane
+        has_b = true;
+        first_slot = sl;
+      }
+      if (sl >= 0) pt_store_soa<NW>(out, nout, (size_t)w * K + sl, acc);
+      pt_identity<NW>(acc);
+    }
+    cp_async_wait_all();
+  }
+
+  // Segmented inclusive scan of the carries over the warp, each round's
+  // values exchanged through the lanes' slots (the point buffers are free
+  // once every lane has left the walk: the first __syncwarp).
+  bool f = has_b;
+  for (int d = 1; d < SUBCHUNKS; d <<= 1) {
+    __syncwarp();
+    sh_slot[lane].ex = acc;
+    __syncwarp();
+    const bool fo = __shfl_up_sync(0xFFFFFFFFu, (int)f, d) != 0;
+    if (lane >= d) {
+      if (!f) pt2_add_sh<NW>(acc, sh_slot[lane - d].ex);
+      f = f || fo;
+    }
+  }
+  __syncwarp();
+  sh_slot[lane].ex = acc;  // lane k's run so far; lane k+1's incoming run
+  __syncwarp();
+  // the head's run: its stored piece plus the run coming in from the lanes
+  // before (none for lane 0)
+  if (has_b && first_slot >= 0 && lane > 0) {
+    const size_t i = (size_t)w * K + first_slot;
+    pt2_get_soa<NW>(acc, out, nout, i);
+    pt2_add_sh<NW>(acc, sh_slot[lane - 1].ex);
+    pt2_put_soa<NW>(out, nout, i, acc);
+  }
+}
+
+// segscan_kernel over Fq2: P, out [3][2 NW][W*K] words.  One thread per
+// segment head, the running sum and the next piece in the thread's shared
+// slots, group2.cuh's complete add.
+template <int NW>
+__global__ void __launch_bounds__(FQ2_BLOCK, 1)
+    segscan2_kernel(const uint32_t* __restrict__ P, const int32_t* __restrict__ seg,
+                    uint32_t* __restrict__ out, int W, int K) {
+  __shared__ Pt<NW, 2> sh[2][FQ2_BLOCK];
+  const int tid = threadIdx.x;
+  const size_t gid = (size_t)blockIdx.x * FQ2_BLOCK + tid;
+  const size_t n = (size_t)W * K;
+  if (gid >= n) return;
+  const int k = (int)(gid % K);
+  const int s = seg[gid];
+  if (k > 0 && seg[gid - 1] == s) return;  // not the head of its segment
+  Pt<NW, 2>& acc = sh[0][tid];
+  Pt<NW, 2>& p = sh[1][tid];
+  pt_load_soa<NW>(acc, P, n, gid);
+  pt_store_soa<NW>(out, n, gid, acc);
+  for (int j = 1; k + j < K && seg[gid + j] == s; ++j) {
+    pt_load_soa<NW>(p, P, n, gid + j);
+    pt2_add_sh<NW>(acc, p);
+    pt_store_soa<NW>(out, n, gid + j, acc);
+  }
+}
+
+// Entry points take the field's word count and extension degree (1: Fq,
+// 2: Fq2).  Each returns the CUDA error code of the launch (0 = launched).
+extern "C" int zp_sorted_sweep(int nw, int ext, const uint32_t* host_consts,
+                               const uint32_t* pts, const int32_t* perm, const int32_t* meta,
+                               const int32_t* slot, uint32_t* out, int W, int T, int steps,
+                               int K, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   int err = zp_set_consts(nw, host_consts, stream);
   if (err) return err;
   const size_t threads = (size_t)W * T * SUBCHUNKS;
-  const unsigned blocks = (unsigned)((threads + SORTED_THREADS - 1) / SORTED_THREADS);
-#define CALL(NW_)                                                                         \
-  sorted_sweep_kernel<NW_><<<blocks, SORTED_THREADS, 0, stream>>>(pts, perm, meta, slot, \
-                                                                  out, W, T, steps, K)
-  ZP_DISPATCH_NW(nw, CALL)
+  const int bt = ext == 1 ? SORTED_THREADS : FQ2_BLOCK;
+  const unsigned blocks = (unsigned)((threads + bt - 1) / bt);
+#define CALL(NW_, EXT_)                                                                     \
+  if constexpr (EXT_ == 1)                                                                  \
+    sorted_sweep_kernel<NW_><<<blocks, bt, 0, stream>>>(pts, perm, meta, slot, out, W, T,  \
+                                                        steps, K);                          \
+  else                                                                                      \
+    sorted_sweep2_kernel<NW_><<<blocks, bt, 0, stream>>>(pts, perm, meta, slot, out, W, T, \
+                                                         steps, K)
+  ZP_DISPATCH_NW_EXT(nw, ext, CALL)
 #undef CALL
   return (int)cudaGetLastError();
 }
 
 // out[0..4]: registers, local bytes, static shared bytes, resident blocks
-// per SM of sorted_sweep_kernel<nw> (zp_kernel_info).
-extern "C" int zp_sorted_sweep_info(int nw, int* out) {
-#define CALL(NW_) return zp_kernel_info(sorted_sweep_kernel<NW_>, SORTED_THREADS, out)
-  ZP_DISPATCH_NW(nw, CALL)
+// per SM of the sweep kernel of (nw, ext) (zp_kernel_info).
+extern "C" int zp_sorted_sweep_info(int nw, int ext, int* out) {
+#define CALL(NW_, EXT_)                                                                   \
+  if constexpr (EXT_ == 1) return zp_kernel_info(sorted_sweep_kernel<NW_>, SORTED_THREADS, out); \
+  else return zp_kernel_info(sorted_sweep2_kernel<NW_>, FQ2_BLOCK, out)
+  ZP_DISPATCH_NW_EXT(nw, ext, CALL)
 #undef CALL
   return -1;
 }
 
-extern "C" int zp_segscan(int nw, const uint32_t* host_consts, const uint32_t* P,
+extern "C" int zp_segscan(int nw, int ext, const uint32_t* host_consts, const uint32_t* P,
                           const int32_t* seg, uint32_t* out, int W, int K, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   int err = zp_set_consts(nw, host_consts, stream);
   if (err) return err;
   const size_t threads = (size_t)W * K;
-  const unsigned blocks = (unsigned)((threads + SORTED_THREADS - 1) / SORTED_THREADS);
-#define CALL(NW_) segscan_kernel<NW_><<<blocks, SORTED_THREADS, 0, stream>>>(P, seg, out, W, K)
-  ZP_DISPATCH_NW(nw, CALL)
+  const int bt = ext == 1 ? SORTED_THREADS : FQ2_BLOCK;
+  const unsigned blocks = (unsigned)((threads + bt - 1) / bt);
+#define CALL(NW_, EXT_)                                                             \
+  if constexpr (EXT_ == 1)                                                          \
+    segscan_kernel<NW_><<<blocks, bt, 0, stream>>>(P, seg, out, W, K);              \
+  else                                                                              \
+    segscan2_kernel<NW_><<<blocks, bt, 0, stream>>>(P, seg, out, W, K)
+  ZP_DISPATCH_NW_EXT(nw, ext, CALL)
 #undef CALL
   return (int)cudaGetLastError();
+}
+
+// out[0..4] as zp_sorted_sweep_info, of the segmented scan of (nw, ext).
+extern "C" int zp_segscan_info(int nw, int ext, int* out) {
+#define CALL(NW_, EXT_)                                                              \
+  if constexpr (EXT_ == 1) return zp_kernel_info(segscan_kernel<NW_>, SORTED_THREADS, out); \
+  else return zp_kernel_info(segscan2_kernel<NW_>, FQ2_BLOCK, out)
+  ZP_DISPATCH_NW_EXT(nw, ext, CALL)
+#undef CALL
+  return -1;
 }

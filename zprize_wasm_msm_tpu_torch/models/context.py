@@ -10,8 +10,8 @@ The device is explicit.  ``device=None`` means the card: it resolves to
 on its own to run on the CPU.  Pass ``device="cpu"`` to do so.
 
 Only the surface whose modules are ported exists; the rest of the JAX
-package's CurveContext (legacy engine, subgroup checks, pairings,
-serialization, FFT) arrives with its slices.
+package's CurveContext (subgroup checks, pairings, FFT) arrives with its
+slices.
 """
 
 from __future__ import annotations
@@ -127,6 +127,17 @@ class CurveContext:
         s = self.scalars_to_device(ks)
         return self.result_to_affine(self.msm(P, s, **kw))
 
+    def msm_legacy(self, points, scalars, max_bits=None):
+        """The reference's second engine (g1m_multiexpAffine_wasmcurve,
+        build_multiexp.js:251), a differential oracle for msm()
+        (test/batchAffine.js:1258-1301): a per-point double-and-add and a
+        tree sum (ops.msm.naive) that shares no pipeline stage with the
+        bucket engines, so a fault in a shared stage cannot cancel out of
+        the comparison.  Plain PyTorch on the points' device."""
+        from ..ops.msm.naive import msm_naive
+
+        return msm_naive(self.spec, points, scalars, max_bits=max_bits)
+
     # ---- group-op parity surface (build_curve_jacobian_a0.js exports) -----
 
     def add(self, p, q):
@@ -155,6 +166,16 @@ class CurveContext:
 
     def times_scalar(self, points, scalars):
         return group.times_scalar(self.spec, points, scalars)
+
+    def field_exp(self, a, e):
+        """Runtime-exponent field exponentiation (ref f1m_exp,
+        build_timesscalar.js wired at build_f1m.js:1375-1384): a and e are
+        batches on the device, e as int64 16-bit limbs, an exponent a lane."""
+        if self.spec.ext != 1:
+            raise ValueError(f"{self.spec.name}: field_exp is a base-field op")
+        from ..ops.field import mont
+
+        return mont.exp(self.spec.fq, a, e)
 
     def to_affine(self, p):
         """normalize / batchToAffine (ref :940-1128) — batched by nature."""
@@ -189,6 +210,29 @@ class CurveContext:
 
     def batch_from_mont(self, a):
         return batch.batch_from_mont(self.spec.fq, a)
+
+    # ---- serialization (ref LEMtoU/LEMtoC/UtoLEM/CtoLEM + batch*) ---------
+    # bytes are numpy arrays on the host; points land on this context's device
+
+    def to_uncompressed(self, X, Y):
+        from ..utils import serde
+
+        return serde.points_to_uncompressed(self.spec, X, Y)
+
+    def from_uncompressed(self, raw):
+        from ..utils import serde
+
+        return serde.points_from_uncompressed(self.spec, raw, self.device)
+
+    def to_compressed(self, X, Y):
+        from ..utils import serde
+
+        return serde.points_to_compressed(self.spec, X, Y)
+
+    def from_compressed(self, raw):
+        from ..utils import serde
+
+        return serde.points_from_compressed(self.spec, raw, self.device)
 
     @property
     def g1(self):

@@ -168,6 +168,15 @@ def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     acc = torch.zeros((2 * L + 1,) + tuple(batch), dtype=I64, device=a.device)
     for i in range(L):
         acc[i : i + L] += a[i] * b
+    return _mont_reduce(spec, acc)
+
+
+def _mont_reduce(spec: FieldSpec, acc: torch.Tensor) -> torch.Tensor:
+    """acc * R^{-1} mod q from a redundant (2L+1, *batch) int64 accumulator
+    (limbs below ~2^40), updated in place: L rounds, each clearing one low
+    limb with an m*q row update, one carry pass, one conditional subtract.
+    Canonical when acc < q R (a product of canonical operands is)."""
+    L = spec.n_limbs
     qv = _q(spec, acc)
     np16 = spec.np16
     for i in range(L):
@@ -186,6 +195,26 @@ def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def mont_square(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     """Montgomery squaring (same canonical value as mont_mul(a, a))."""
     return mont_mul(spec, a, a)
+
+
+def reduce_redundant(spec: FieldSpec, acc: torch.Tensor) -> torch.Tensor:
+    """Reduce a redundant multi-limb accumulator to a canonical element.
+
+    acc: (K, *batch) int64, K <= 2L, whose limbs may hold up to
+    ~2^26 (the raw sum of up to 2^10 canonical elements), read in the same
+    domain as its summands (Montgomery in, Montgomery out).  Returns
+    acc mod q as canonical (L, *batch) limbs: one Montgomery reduction
+    (acc R^{-1}) and one product by R^2 mod q.  The sparse linear
+    combinations of the polynomial layer sum in raw limbs and reduce once.
+    """
+    L = spec.n_limbs
+    K = acc.shape[0]
+    if K > 2 * L:
+        raise ValueError(f"reduce_redundant: an accumulator of {K} limbs is wider than 2L = {2 * L}")
+    wide = torch.zeros((2 * L + 1,) + tuple(acc.shape[1:]), dtype=I64, device=acc.device)
+    wide[:K] = acc
+    reduced = _mont_reduce(spec, wide)
+    return mont_mul(spec, reduced, _col(_limb_const(spec, "r2_limbs", acc.device), acc.ndim - 1))
 
 
 # ---------------------------------------------------------------------------
@@ -219,6 +248,22 @@ def eq(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a == b).all(dim=0)
 
 
+def sign(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """Sign convention of the reference (build_f1m.js sign:135): 0 for zero,
+    -1 if the standard-domain value is > (q-1)/2, else +1; int32, batch
+    shaped.  a is Montgomery."""
+    std = from_mont(spec, a)
+    half_plus1 = _col(_int_const(spec, (spec.q - 1) // 2 + 1, a.device), a.ndim - 1)
+    _, borrow = _resolve(std - half_plus1)  # -1 iff std < (q+1)/2
+    out = torch.where(borrow == 0, -1, 1).to(torch.int32)
+    return torch.where(is_zero(spec, a), 0, out)
+
+
+def is_negative(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """build_f1m.js isNegative:120 — True iff sign == -1."""
+    return sign(spec, a) == -1
+
+
 # ---------------------------------------------------------------------------
 # exponentiation / inverse
 # ---------------------------------------------------------------------------
@@ -240,9 +285,78 @@ def exp_const(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
     return acc
 
 
+def exp(spec: FieldSpec, a: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """a^e for exponents on the device, one a lane (the reference's runtime
+    f1m_exp, build_timesscalar.js wired at build_f1m.js:1375-1384).
+
+    a: (L, *batch) Montgomery; e: (Le, *batch) int64 16-bit limbs, standard
+    domain, little-endian.  MSB-first square-and-multiply over all Le*16
+    bits, branch-free (the product is selected per lane).
+    """
+    acc = one_mont(spec, a.shape[1:], a.device)
+    for limb in range(e.shape[0] - 1, -1, -1):
+        for bit in range(15, -1, -1):
+            acc = mont_square(spec, acc)
+            acc = _select(((e[limb] >> bit) & 1) == 1, mont_mul(spec, acc, a), acc)
+    return acc
+
+
 def inverse(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     """a^{-1} in Montgomery form via Fermat: a^(q-2).  Returns 0 for 0."""
     return exp_const(spec, a, spec.q - 2)
+
+
+def sqrt(spec: FieldSpec, a: torch.Tensor):
+    """Square root in Montgomery form (Tonelli-Shanks, ref
+    build_f1m.js:1147-1215).  Returns (root, has_root mask).
+
+    For q = 3 (mod 4) this is one exponentiation a^((q+1)/4); otherwise the
+    fixed-bound Tonelli-Shanks loop with masks.  Where a has no root, the
+    root returned is whatever the loop leaves (the mask says so).
+    """
+    if spec.q % 4 == 3:
+        r = exp_const(spec, a, (spec.q + 1) // 4)
+    else:
+        r = _tonelli_shanks(spec, a)
+    return r, eq(spec, mont_square(spec, r), a) | is_zero(spec, a)
+
+
+def _tonelli_shanks(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """Fixed-bound, branch-free Tonelli-Shanks (ref build_f1m.js:1147-1215).
+
+    Classic loop state (x, w, c, m); every data-dependent inner loop runs to
+    the static bound s with masks, so all lanes run the same code.  j, m
+    and m - j - 1 are 32-bit unsigned values, as in the JAX package, so a
+    non-residue gives the same (meaningless) root there and here.
+    """
+    s, t, q = spec.sqrt_s, spec.sqrt_t, spec.q
+    batch, dev = a.shape[1:], a.device
+    # generator of the 2-Sylow subgroup, precomputed as the reference does
+    c = full_const(spec, spec.to_mont_int(pow(spec.nqr, t, q)), batch, dev)
+    x = exp_const(spec, a, (t + 1) // 2)
+    w = exp_const(spec, a, t)
+    one = one_mont(spec, batch, dev)
+    m = torch.full(tuple(batch), s, dtype=I64, device=dev)
+    for _ in range(s):
+        done = eq(spec, w, one)
+        # j = least j with w^(2^j) == 1, by a masked chain of squarings
+        wj, j, found = w, torch.zeros_like(m), eq(spec, w, one)
+        for _k in range(s):
+            not_found = ~found
+            wj = _select(not_found, mont_square(spec, wj), wj)
+            j = j + not_found.to(I64)
+            found = found | eq(spec, wj, one)
+        # b = c^(2^(m-j-1)) by masked repeated squaring
+        b = c
+        nsq = (m - j - 1) & 0xFFFFFFFF  # valid only where ~done (j < m there)
+        for k in range(s):
+            b = _select((k < nsq) & ~done, mont_square(spec, b), b)
+        b2 = mont_square(spec, b)
+        x = _select(~done, mont_mul(spec, x, b), x)
+        w = _select(~done, mont_mul(spec, w, b2), w)
+        c = _select(~done, b2, c)
+        m = torch.where(done, m, j)
+    return x
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,7 @@ field's exported ops (wasmcurves/src/build_curve_jacobian_a0.js:29
 ONE generic group/MSM layer serves every coordinate field.
 
 ``Fq`` and the quadratic extension ``Fq2`` (G2) are here; the cubic
-extension (MNT6753) arrives with its slice of the port, as do Fq2's sqrt,
-sign and exp_const (with serialization).
+extension (MNT6753) arrives with its slice of the port.
 
 Element layouts (all Montgomery form):
   Fq:   (L, *batch) int64 — as ops.field.mont.
@@ -105,6 +104,9 @@ class Fq:
 
     def select(self, mask, a, b):
         return torch.where(mask[None], a, b)
+
+    def sqrt(self, a):
+        return mont.sqrt(self.spec, a)
 
     # host-side marshalling ------------------------------------------------
     def to_host(self, a) -> list:
@@ -258,6 +260,45 @@ class Fq2:
 
     def select(self, mask, a, b):
         return torch.where(mask[None], a, b)
+
+    def sign(self, a):
+        """sign(a1) if a1 != 0 else sign(a0) (ref build_f2m.js sign:411)."""
+        a0, a1 = self._split(a)
+        s1 = mont.sign(self.spec, a1)
+        return torch.where(s1 != 0, s1, mont.sign(self.spec, a0))
+
+    def exp_const(self, a, e: int):
+        """a^e for a host-known exponent (MSB-first square-and-multiply, the
+        Fq2 instantiation of build_timesscalar.js); the multiply is skipped
+        on zero bits."""
+        if e == 0:
+            return self.one(self.batch_shape(a), a.device)
+        acc = a  # the top bit is always 1
+        for i in range(e.bit_length() - 2, -1, -1):
+            acc = self.square(acc)
+            if (e >> i) & 1:
+                acc = self.mul(acc, a)
+        return acc
+
+    def sqrt(self, a):
+        """Square root in Fq2 for q = 3 (mod 4): algorithm 9 (adjusted) of
+        eprint 2012/685, the reference's f2m sqrt (build_f2m.js
+        buildSqrt:453-522), for any non-residue nr.  Returns (root,
+        has_root mask); branch-free (the reference traps on non-residues
+        instead)."""
+        q = self.spec.q
+        if q % 4 != 3:
+            raise NotImplementedError(f"Fq2.sqrt: q = {q} is not 3 mod 4 (as in the reference)")
+        batch, dev = self.batch_shape(a), a.device
+        a1 = self.exp_const(a, (q - 3) // 4)
+        alpha = self.mul(self.square(a1), a)
+        x0 = self.mul(a1, a)
+        alpha_is_m1 = self.eq(alpha, self.neg(self.one(batch, dev)))
+        # alpha = -1: x = u x0; otherwise x = (1 + alpha)^((q-1)/2) x0
+        xa = self.mul(self.const((0, 1), batch, dev), x0)
+        b = self.exp_const(self.add(self.one(batch, dev), alpha), (q - 1) // 2)
+        x = self.select(alpha_is_m1, xa, self.mul(b, x0))
+        return x, self.eq(self.square(x), a) | self.is_zero(a)
 
     # host-side marshalling ------------------------------------------------
     def to_host(self, a) -> list:

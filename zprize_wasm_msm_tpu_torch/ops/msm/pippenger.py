@@ -26,7 +26,7 @@ Engines (``impl``), chosen by where the tensors lie when ``impl="auto"``:
   "kernel-sorted"  CUDA tensors, any c: pl_sorted's sort / sweep / segmented
                    scan, then pl_reduce's collapse and the window fold
                    (finish at B = 1).  "kernel" with c above its cap routes
-                   here.  Fq only so far: over Fq2 it raises.
+                   here, over Fq and Fq2 alike.
   "plain"          CPU tensors: the PyTorch-op functions in this module
                    (_bucket_sweep_plain, _lane_tree_reduce, bucket_reduce,
                    window_fold).  They are also the plain versions the
@@ -235,9 +235,10 @@ def resolve_config(
     plain engine the Pippenger heuristic and the memory-budget lane count.
     (The kernel rules come from the TPU's sublanes and on-chip memory;
     choosing c for this card is a later change.)  An explicit c above the
-    cap on the kernel engine routes to the sorted kernel engine, which over
-    Fq2 is not ported yet and raises (nothing runs the plain engine in its
-    place).  ``device`` decides "auto": kernel on CUDA, plain on the CPU.
+    cap on the kernel engine routes to the sorted kernel engine, over Fq
+    and Fq2 alike.  ``device`` decides "auto": kernel on CUDA, plain on the
+    CPU (the reference's _default_impl picks its bucket kernel for G1 and
+    G2).
     """
     if impl == "auto":
         if device is None:
@@ -258,13 +259,6 @@ def resolve_config(
     if impl == "kernel" and c is not None and c > c_cap:
         # explicit large window: the engine that has no bucket rows
         impl = "kernel-sorted"
-    if impl == "kernel-sorted" and curve.ext != 1:
-        raise NotImplementedError(
-            f"{curve.name}: the sorted engine's kernels (K7 sweep, K8 segmented scan) "
-            "over Fq2 arrive with the next G2 slice of the port; the bucket engine "
-            f"(impl='kernel') takes c <= {c_cap} here, and impl='plain-sorted' runs "
-            "the sorted engine in PyTorch ops"
-        )
     if c is None:
         if impl.endswith("sorted"):
             c = windows.sorted_engine_window_size(N, max_bits)

@@ -38,6 +38,10 @@ window that the TPU kernel writes in full; here the slots are numbered
 first and the sweep writes only the K entries.  All windows go through each
 stage at once.
 
+Over Fq2 (G2) the stages are the same, elements are (2L, ...) flat limbs
+(tower.Fq2), and the sweep and the scan launch their Fq2 kernels
+(csrc/sorted.cu sorted_sweep2_kernel, segscan2_kernel).
+
 Digit semantics match windows.signed_window_digits; results equal the other
 engines as group elements (the addition order differs).  The sort's order
 among equal keys is not defined, so per-entry values may differ from run to
@@ -225,17 +229,18 @@ def sweep(
 
 
 def _sweep_words(curve: CurveSpec, pts, perm, meta, slot, K: int, chunks: int) -> torch.Tensor:
-    """Launch the sweep kernel on point-contiguous words pts (n, 2, NW) and
-    contiguous (W, N) stream tensors; returns the (3, NW, W*K) int32 words
-    of the K entries per window."""
+    """Launch the sweep kernel on point-contiguous words pts (n, 2, EW) and
+    contiguous (W, N) stream tensors (EW = ext * NW words an element: over
+    Fq2 the Fq2 kernel); returns the (3, EW, W*K) int32 words of the K
+    entries per window."""
     lib = _build.load("sorted")
     fn = lib.zp_sorted_sweep
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     W, N = perm.shape
     out = _launch.pack_point(group.zero(curve, (W * K,), pts.device))
     err = fn(
-        curve.fq.n_words, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p),
+        curve.fq.n_words, curve.ext, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p),
         _launch.ptr(pts), _launch.ptr(perm), _launch.ptr(meta), _launch.ptr(slot),
         _launch.ptr(out), W, chunks, N // chunks, K, _launch.stream_ptr(),
     )
@@ -296,11 +301,11 @@ def segscan(curve: CurveSpec, pieces, seg: torch.Tensor, max_len: int, impl: str
     lib = _build.load("sorted")
     fn = lib.zp_segscan
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     P = _launch.pack_point(pieces)
     out = torch.empty_like(P)
     err = fn(
-        curve.fq.n_words, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p),
+        curve.fq.n_words, curve.ext, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p),
         _launch.ptr(P), _launch.ptr(seg.contiguous()), _launch.ptr(out), W, K,
         _launch.stream_ptr(),
     )
