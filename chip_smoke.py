@@ -49,7 +49,7 @@ What it does, in order (any failure exits non-zero and prints no result):
      bls12_381_g2); K7 and K8 over Fq2 (the sorted engine on G2) at small
      shapes on the four G2 curves and on k7_adversarial's streams (toy_g2,
      bls12_381_g2); every Fq2 instantiation under the same spill gate (and
-     the out-of-line Fq2 product steps of group2.cuh).  BLS12-377 G1: the
+     the out-of-line step loop of group2.cuh).  BLS12-377 G1: the
      kernels at small shapes and ctx.msm at 2^16 against the oracle, the
      default (GLV) and use_glv=False.  Engine agreement at 2^16 (the check
      of tools/engine_diff.py): on BLS12-381 G1 the default, use_glv=False
@@ -458,12 +458,17 @@ def k2_adversarial(curve, dev, rng):
         calls = [(f"{cases[i]}, W=1", [cases[i]])]
         calls += [(f"the five cases and random windows, W={W}", list(cases) + ["random"] * (W - 5))
                   for W in (15, 38)]
+        # the plain version sums each window alone, so one call over the
+        # three calls' windows side by side gives each call's sums
+        wins = [window(k, B) for _, kinds in calls for k in kinds]
+        bk = tuple(torch.stack([w[i] for w in wins], dim=1).contiguous() for i in range(3))
+        want = pl_reduce.collapse_plain(curve, bk)
+        lo = 0
         for name, kinds in calls:
-            wins = [window(k, B) for k in kinds]
-            bk = tuple(torch.stack([w[i] for w in wins], dim=1).contiguous() for i in range(3))
-            got = pl_reduce.collapse(curve, bk)
-            want = pl_reduce.collapse_plain(curve, bk)
-            out[f"B={B}: {name}"] = affine_err(curve, got, want)
+            part = tuple(a[:, lo : lo + len(kinds)].contiguous() for a in bk)
+            got = pl_reduce.collapse(curve, part)
+            out[f"B={B}: {name}"] = affine_err(curve, got, tuple(a[:, lo : lo + len(kinds)] for a in want))
+            lo += len(kinds)
     return out
 
 
@@ -504,10 +509,8 @@ def kernel_checks(curve, dev, rng, log2n, c, max_bits, lanes, tag):
     errs["lane_reduce"] = affine_err(
         curve, pl_reduce.lane_reduce(curve, lanes3), pl_reduce.lane_reduce_plain(curve, lanes3)
     )
-    errs["collapse"] = affine_err(
-        curve, pl_reduce.collapse(curve, ref), pl_reduce.collapse_plain(curve, ref)
-    )
     sums = pl_reduce.collapse_plain(curve, ref)
+    errs["collapse"] = affine_err(curve, pl_reduce.collapse(curve, ref), sums)
     fold_in = tuple(a[:, :, None] for a in sums)
     errs["finish(B=1)"] = affine_err(
         curve,
@@ -878,10 +881,10 @@ def main() -> None:
                 name = line.split("'")[1]
                 ptxas.append(f"{stem}:{name[:48]}: {used.split(':')[-1].strip()} | {spill.strip()}")
                 ptxas_by_kernel[name] = {"used": used.split(":")[-1].strip(), "spill": spill.strip()}
-        # the out-of-line Fq2 product steps the Fq2 sweep and lane reduction
-        # call (csrc/group2.cuh sh_mul*): their own stack and spills
+        # the out-of-line Fq2 step loop every Fq2 group op calls
+        # (csrc/group2.cuh pt2_run): its own stack and spills
         for i, line in enumerate(lines):
-            if "Function properties for" in line and "sh_mul" in line:
+            if "Function properties for" in line and "pt2_run" in line:
                 name = line.split("for ")[-1].strip()
                 spill = lines[i + 1].strip()
                 spills = [int(w) for w in spill.split() if w.isdigit()]
@@ -913,7 +916,8 @@ def main() -> None:
         info = _build.kernel_info(stem, entry, targs[0], *args) if entry else {}
         return {"ptxas": found[0], "stack_frame_bytes": spill[0], "spill_store_bytes": spill[1],
                 "spill_load_bytes": spill[2], **info, "threads_per_block": threads,
-                **({"resident_warps_per_sm": info["blocks_per_sm"] * threads // 32} if info else {})}
+                **({"resident_warps_per_sm": info["blocks_per_sm"] * threads // 32,
+                    "shared_bytes_per_thread": info["shared_bytes"] / threads} if info else {})}
 
     sweep_res = {
         (name, nw): kernel_resources(stem, kernel, entry, (nw,), 64, *args)
@@ -1933,9 +1937,14 @@ def main() -> None:
     SUB_W, PLAIN_LANES_G2 = 2, 16384
     words_g = _launch.pack_point((Xg, Yg))
     pl_bucket._sweep(g2, words_g[0], words_g[1], digits_g, Tg, Bg)  # warm-up
-    state_g, k1g_ms = sync_ms(lambda: pl_bucket._sweep(g2, words_g[0], words_g[1], digits_g, Tg, Bg), 2)
+    k1g_runs = [sync_ms(lambda: pl_bucket._sweep(g2, words_g[0], words_g[1], digits_g, Tg, Bg))
+                for _ in range(3)]
+    state_g = k1g_runs[-1][0]
+    k1g_runs = [ms for _, ms in k1g_runs]
+    k1g_ms = sorted(k1g_runs)[1]  # the median of three
     buckets_g, k4g_ms = sync_ms(lambda: pl_reduce._lane_reduce_state(g2, state_g), 2)
     del words_g
+    k1g_resident = pl_bucket.resident_threads(g2, dev)
     t0 = time.perf_counter()
     plain_g = pippenger._bucket_sweep_plain(g2, (Xg, Yg), digits_g[:SUB_W].contiguous(), PLAIN_LANES_G2, cg)
     torch.cuda.synchronize()
@@ -1958,6 +1967,9 @@ def main() -> None:
                     f"windows 0-{SUB_W - 1} of {Wg} (plain_ms: those windows at {PLAIN_LANES_G2} lanes)",
         "x_bound": k1g_ms / b_ms, "mixed_adds": nonzero_g, "ns_per_add": k1g_ms * 1e6 / nonzero_g,
         **fq2_res[("bucket_sweep", NW)], "kernel_lanes": Tg, "threads": Wg * Tg,
+        "lanes": Tg, "waves": Wg * Tg / k1g_resident, "rounds": -(-Wg * Tg // k1g_resident),
+        "steps": -(-n // Tg), "resident_threads": k1g_resident, "ms_runs": k1g_runs,
+        "ms_is": "the median of ms_runs, three timed launches (CUDA events) after a warm-up",
     }]
     # K4 on the sweep's own state, against the plain lane tree on all of it
     lanes_g = unpack_words(state_g.permute(3, 0, 1, 2).contiguous())  # (3 LG, W, T, B)

@@ -32,6 +32,12 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+#: nvcc flags of single libraries: -split-compile optimizes and assembles
+#: parts of one source on 4 threads, so the two that build longest no longer
+#: run alone on one core each after the others are done (chip_smoke.py's
+#: build_seconds_by_library).  Not for sorted.cu: its Fq sweep then spilled
+#: (chip_smoke.py's spill gate)
+STEM_FLAGS = {"reduce": ("-split-compile=4",), "check": ("-split-compile=4",)}
 #: field widths (32-bit words per element) the sources instantiate
 SUPPORTED_WORDS = (2, 8, 12)
 #: words per constant array in csrc/field.cuh's FieldConsts
@@ -79,6 +85,7 @@ def _source_hash() -> str:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(STEM_FLAGS.items())).encode())
     return h.hexdigest()[:16]
 
 
@@ -108,7 +115,7 @@ def build(stems: Iterable[str] = STEMS) -> Dict[str, str]:
     for stem in todo:
         tmp = library_path(stem).with_suffix(f".{os.getpid()}.tmp")
         out = tmp.with_suffix(".log")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *STEM_FLAGS.get(stem, ()), "-o", str(tmp), str(CSRC / f"{stem}.cu")]
         with open(out, "w") as f:
             procs[stem] = (subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT), tmp, out)
     pending = set(todo)

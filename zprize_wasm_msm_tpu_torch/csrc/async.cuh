@@ -2,8 +2,9 @@
 // prefetch, and the kernel attributes their entry points report.
 //
 // Each thread copies only into its own shared slots and reads only its own,
-// so no barrier is needed between threads: cp.async.wait_all (commit +
-// wait for every group this thread issued) is the only synchronisation.
+// so no barrier is needed between threads: cp.async.wait_all / wait_group
+// (for every group this thread committed, or all but the newest N) is the
+// only synchronisation.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -27,6 +28,12 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's newest committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // out[0..4] = registers per thread, local (stack + spill) bytes per thread,

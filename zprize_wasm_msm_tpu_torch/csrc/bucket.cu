@@ -76,9 +76,8 @@
 
 #define SWEEP_THREADS 64
 #define REDUCE_THREADS 128
-// Over Fq2 (G2): one warp a block, so that a block's shared slots (three
-// points a thread at 72 words each, at NW = 12) stay under the 48 KB of
-// static shared memory.
+// Over Fq2 (G2): one warp a block, so that a block's shared slots (864
+// bytes a thread at NW = 12) stay under the 48 KB of static shared memory.
 #define SWEEP2_THREADS 32
 #define REDUCE2_THREADS 32
 
@@ -133,15 +132,20 @@ __global__ void __launch_bounds__(SWEEP_THREADS)
   };
 
   const int32_t* drow = digits + (size_t)w * N;
-  const int S = N / T;  // steps
-  int d0 = S > 0 ? drow[t] : 0;
-  int d1 = S > 1 ? drow[(size_t)t + T] : 0;
+  // steps: the last may be ragged, and a lane's steps past N are zero digits
+  const int S = (N + T - 1) / T;
+  auto digit = [&](int s) {
+    const size_t n = (size_t)t + (size_t)s * T;
+    return n < (size_t)N ? drow[n] : 0;
+  };
+  int d0 = digit(0);
+  int d1 = digit(1);
   if (d0 != 0) fetch(0, 0, d0, true);
   cp_async_wait_all();
   bool carried = false;  // acc already holds step s's bucket (the hazard case)
   for (int s = 0; s < S; ++s) {
     const int cb = s & 1;
-    const int d2 = s + 2 < S ? drow[(size_t)t + (size_t)(s + 2) * T] : 0;
+    const int d2 = digit(s + 2);
     const int a0 = d0 < 0 ? -d0 : d0, a1 = d1 < 0 ? -d1 : d1;
     const bool carry_next = d0 != 0 && a1 == a0;
     if (d1 != 0) fetch(cb ^ 1, s + 1, d1, !carry_next);
@@ -176,16 +180,24 @@ __global__ void __launch_bounds__(SWEEP_THREADS)
   }
 }
 
-// The sweep over Fq2 (G2): the same schedule as bucket_sweep_kernel (the
-// point and bucket of step s+1 in flight by cp.async while step s adds,
-// the digit two steps ahead, same-bucket forwarding), with the Fq2 mixed
-// add of group2.cuh, which reads its operands where it uses them from the
-// thread's shared slots and writes the sum back there: the accumulator is
-// the bucket's shared slot, and forwarding copies it to the next step's
-// slot instead of keeping it in registers.  Each slot is one point,
-// contiguous ([buffer][thread][words]).  A thread may use all 255
-// registers (one block of 32 threads per SM is the floor; shared memory
-// sets the residency).
+// The sweep over Fq2 (G2): the schedule of bucket_sweep_kernel with the Fq2
+// mixed add of group2.cuh, which reads its operands from the thread's shared
+// slots and writes the sum back there.  Shared bytes a thread, not
+// registers, set the residency of this kernel (a thread may use all 255
+// registers: 8 one-warp blocks fill the register file), so its slots are
+// few: the accumulator (the bucket's slot), the point in two buffers and
+// the add's two scratch elements, 864 bytes at NW = 12, 8 warps a SM (a
+// second bucket buffer would cost 3 of them).  Hence:
+//   * the point of step s+2 is in flight by cp.async while step s adds, and
+//     the digit two steps ahead is in a register, as over Fq;
+//   * the bucket of step s+1 is copied into the accumulator's slot after
+//     step s has stored its sum, and waited for: one copy's latency a step,
+//     against a mixed add of thousands of dependent instructions, while
+//     the SM's other warps issue.  When step s+1 hits step s's bucket the
+//     sum is already in the slot and nothing is copied (same-bucket
+//     forwarding, now a skipped copy); a bucket stored at an earlier step is
+//     copied after its store, by the same thread, in program order.
+// The lanes (pippenger.fit_lanes) fill whole waves of this residency.
 template <int NW>
 __global__ void __launch_bounds__(SWEEP2_THREADS, 1)
     bucket_sweep2_kernel(const int32_t* __restrict__ digits, const uint32_t* __restrict__ X,
@@ -193,21 +205,20 @@ __global__ void __launch_bounds__(SWEEP2_THREADS, 1)
                          int T, int N, int B) {
   constexpr int EW = 2 * NW;  // words of an element
   constexpr int BW = 3 * EW;  // words of a bucket
+  __shared__ Pt<NW, 2> sh_acc[SWEEP2_THREADS];
   __shared__ AffinePt<NW, 2> sh_pt[2][SWEEP2_THREADS];
-  __shared__ Pt<NW, 2> sh_bk[2][SWEEP2_THREADS];
+  __shared__ __align__(16) Fe2<NW> sh_s[SWEEP2_THREADS][g2s::MIXED_SCRATCH];
 
   const int tid = threadIdx.x;
   const size_t gid = (size_t)blockIdx.x * blockDim.x + tid;
   if (gid >= (size_t)W * T) return;
   const int w = (int)(gid / T), t = (int)(gid % T);
   uint32_t* row = state + gid * (size_t)B * BW;
-  {
-    Pt<NW, 2> id;
-    pt_identity<NW>(id);
-    for (int b = 0; b < B; ++b) pt_store_aos<NW>(row + (size_t)b * BW, id);
-  }
+  Pt<NW, 2>& acc = sh_acc[tid];
+  pt_identity<NW>(acc);
+  for (int b = 0; b < B; ++b) pt_store_aos<NW>(row + (size_t)b * BW, acc);
 
-  auto fetch = [&](int buf, int s, int d, bool bucket) {
+  auto fetch_pt = [&](int buf, int s) {
     const size_t n = (size_t)t + (size_t)s * T;
     uint32_t* px = reinterpret_cast<uint32_t*>(&sh_pt[buf][tid].x);
     uint32_t* py = reinterpret_cast<uint32_t*>(&sh_pt[buf][tid].y);
@@ -216,28 +227,35 @@ __global__ void __launch_bounds__(SWEEP2_THREADS, 1)
       cp_async4(px + k, X + (size_t)k * N + n);
       cp_async4(py + k, Y + (size_t)k * N + n);
     }
-    if (!bucket) return;
+  };
+  auto fetch_bucket = [&](int d) {
     const uint32_t* src = row + (size_t)((d < 0 ? -d : d) - 1) * BW;
-    uint32_t* dst = reinterpret_cast<uint32_t*>(&sh_bk[buf][tid]);
+    uint32_t* dst = reinterpret_cast<uint32_t*>(&acc);
 #pragma unroll
     for (int k = 0; k < BW; k += 4) cp_async16(dst + k, src + k);
   };
 
   const int32_t* drow = digits + (size_t)w * N;
-  const int S = N / T;  // steps
-  int d0 = S > 0 ? drow[t] : 0;
-  int d1 = S > 1 ? drow[(size_t)t + T] : 0;
-  if (d0 != 0) fetch(0, 0, d0, true);
-  cp_async_wait_all();
+  // steps: the last may be ragged, and a lane's steps past N are zero digits
+  const int S = (N + T - 1) / T;
+  auto digit = [&](int s) {
+    const size_t n = (size_t)t + (size_t)s * T;
+    return n < (size_t)N ? drow[n] : 0;
+  };
+  int d0 = digit(0);
+  int d1 = digit(1);
+  if (d0 != 0) {
+    fetch_pt(0, 0);
+    fetch_bucket(d0);
+  }
+  cp_async_commit();
+  if (d1 != 0) fetch_pt(1, 1);
+  cp_async_commit();
+  cp_async_wait_group<1>();  // step 0's point and bucket
   for (int s = 0; s < S; ++s) {
     const int cb = s & 1;
-    const int d2 = s + 2 < S ? drow[(size_t)t + (size_t)(s + 2) * T] : 0;
+    const int d2 = digit(s + 2);
     const int a0 = d0 < 0 ? -d0 : d0, a1 = d1 < 0 ? -d1 : d1;
-    // step s+1 hits this step's bucket: its copy would be stale, so the sum
-    // is forwarded into its slot below instead
-    const bool carry_next = d0 != 0 && a1 == a0;
-    if (d1 != 0) fetch(cb ^ 1, s + 1, d1, !carry_next);
-    cp_async_commit();
     if (d0 != 0) {
       AffinePt<NW, 2>& p = sh_pt[cb][tid];
       if (d0 < 0) {
@@ -246,19 +264,15 @@ __global__ void __launch_bounds__(SWEEP2_THREADS, 1)
         fe_neg<NW>(y, y);
         sh_put<NW>(p.y, y);
       }
-      Pt<NW, 2>& acc = sh_bk[cb][tid];
-      pt2_add_mixed_sh<NW>(acc, p.x, p.y);
-      const uint4* a4 = reinterpret_cast<const uint4*>(&acc);
-      uint4* dst = reinterpret_cast<uint4*>(row + (size_t)(a0 - 1) * BW);
-      uint4* fwd = reinterpret_cast<uint4*>(&sh_bk[cb ^ 1][tid]);
-#pragma unroll
-      for (int k = 0; k < BW / 4; ++k) {
-        const uint4 v = a4[k];
-        dst[k] = v;
-        if (carry_next) fwd[k] = v;
-      }
+      pt2_add_mixed_sh<NW>(acc, p.x, sh_s[tid]);
+      pt_store_aos<NW>(row + (size_t)(a0 - 1) * BW, acc);
     }
-    cp_async_wait_all();
+    // step s+1's bucket, unless it is this step's (then its sum is in the slot)
+    if (d1 != 0 && !(d0 != 0 && a1 == a0)) fetch_bucket(d1);
+    cp_async_commit();
+    if (d2 != 0) fetch_pt(cb, s + 2);  // step s's buffer is free
+    cp_async_commit();
+    cp_async_wait_group<1>();  // all but step s+2's point
     d0 = d1;
     d1 = d2;
   }
@@ -441,7 +455,8 @@ __global__ void __launch_bounds__(reduce_threads<EXT>())
 }
 
 // digits [W][N] int32, X / Y [EXT NW][N] words, state [W][T][B][3 EXT NW]
-// words (scratch, fully written here).  N must be a multiple of T.  Returns
+// words (scratch, fully written here); any N (lane t takes points t, t+T,
+// ... below N).  Returns
 // the CUDA error code of the launch (0 = launched).
 extern "C" int zp_bucket_sweep(int nw, int ext, const uint32_t* host_consts,
                                const int32_t* digits, const uint32_t* X, const uint32_t* Y,

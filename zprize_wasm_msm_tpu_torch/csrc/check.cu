@@ -9,9 +9,10 @@
 #include "par.cuh"
 
 // a, b, r: [EXT NW][n] words.  op: 0 mul, 1 add, 2 sub, 3 neg (of a), 4
-// mul_cc (the carry-chain product of the sweeps), 5 the product by 3b (over
-// Fq k * a by additions, fe_mul_small, k = b3k: the fold's group ops take it
-// so; over Fq2 a product by the constant 3b), 7 square (over Fq2 the complex
+// mul_cc (over Fq the carry-chain product of the Fq sweeps; over Fq2 the
+// one Fq2 product, as op 0), 5 the product by 3b (over Fq k * a by
+// additions, fe_mul_small, k = b3k: the fold's group ops take it so; over
+// Fq2 a product by the constant 3b), 7 square (over Fq2 the complex
 // squaring of field2.cuh; over Fq fe_mul(a, a)).
 template <int NW, int EXT>
 __global__ void field_op_kernel(int op, const uint32_t* a, const uint32_t* b, uint32_t* r,
@@ -25,7 +26,10 @@ __global__ void field_op_kernel(int op, const uint32_t* a, const uint32_t* b, ui
   else if (op == 1) fe_add<NW>(z, x, y);
   else if (op == 2) fe_sub<NW>(z, x, y);
   else if (op == 3) fe_neg<NW>(z, x);
-  else if (op == 4) fe_mul_cc<NW>(z, x, y);
+  else if (op == 4) {
+    if constexpr (EXT == 1) fe_mul_cc<NW>(z, x, y);
+    else fe_mul<NW>(z, x, y);  // Fq2 has one product form (field2.cuh)
+  }
   else if (op == 5) {
     if constexpr (EXT == 1) {
       fe_mul_small<NW>(z, x, b3k);
@@ -73,8 +77,8 @@ __global__ void __launch_bounds__(FQ2_BLOCK, 1)
   Pt<NW, 2>& b = sh[1][threadIdx.x];
   pt_load_soa<NW>(a, p, (size_t)n, (size_t)i);
   pt_load_soa<NW>(b, q, (size_t)n, (size_t)i);
-  if (op == 0) pt2_add_mixed_sh<NW>(a, b.x, b.y);
-  else pt2_add_sh<NW>(a, b);
+  if (op == 0) pt2_add_mixed_sh<NW>(a, b.x, stage_elems<NW>());
+  else pt2_add_sh<NW>(a, b, stage_elems<NW>());
   pt_store_soa<NW>(r, (size_t)n, (size_t)i, a);
 }
 

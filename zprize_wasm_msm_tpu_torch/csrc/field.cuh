@@ -166,16 +166,21 @@ __device__ __forceinline__ void fe_neg(Fe<NW>& r, const Fe<NW>& a) {
 // IMAD.WIDEs of a row do not wait on one another: the shortest dependent
 // path, at the price of 64-bit register pairs.  fe_mul_cc writes them as
 // PTX carry chains (Chains::mac, Chains::reduce: mad.lo.cc / madc.hi.cc,
-// four chains a row): ptxas makes each step IMAD + IADD3.X waiting on the
-// step before, a longer path in fewer registers (32 against 44 in a loop
-// of products).  Measured on the H100 (csrc/diag/mul_variants.cu, numbers
-// in PERF.md): one product alone, fe_mul is 29 % faster; under load the two
-// are within 4 %; inside the sweeps fe_mul's register pairs cost resident
-// warps, and the sweeps' threads are few (see bucket.cu).  So the
-// sweeps' inlined mixed add (group.cuh pt_add_mixed) and K7's combine take
-// fe_mul_cc, and everything else (the out-of-line group ops of K2-K4 and
-// K8, whose chains run nearly alone, and the elementwise kernels) takes
-// fe_mul.
+// four chains a row): ptxas makes each step an IMAD or IMAD.HI and an
+// IADD3.X whose carry waits on the step before (it keeps two or three
+// chains apart in predicate registers, no more), a longer path in fewer
+// registers (32 against 44 in a loop of products).  Measured on the H100
+// (csrc/diag/mul_variants.cu, numbers in PERF.md): one product alone,
+// fe_mul is 29 % faster; under load the two are within 4 %; inside the Fq
+// sweeps fe_mul's register pairs cost resident warps (12 a SM, set by
+// registers: see bucket.cu).  So the Fq sweeps' inlined mixed add (group.cuh
+// pt_add_mixed) and K7's combine take fe_mul_cc, and everything else takes
+// fe_mul: the out-of-line group ops of K2-K4 and K8, whose chains run nearly
+// alone, the elementwise kernels, and every Fq2 product (field2.cuh
+// fe2_mul_rows, three rows of it interleaved).  Over Fq2 shared memory, not
+// registers, sets the residency (6-8 warps a SM at up to 255 registers), so
+// the register pairs cost no warps there, and the Fq2 sweeps, one chain a
+// thread at under two warps a scheduler, are bound by that chain's latency.
 // r may alias a or b.
 template <int NW>
 __device__ __forceinline__ void fe_mul(Fe<NW>& r, const Fe<NW>& a, const Fe<NW>& b) {

@@ -65,14 +65,22 @@
 // group2.cuh), the accumulator is the thread's own shared slot, and the
 // scan's carries travel through shared memory instead of shuffles.  Blocks
 // are one warp (FQ2_BLOCK), so that a block's slots fit static shared
-// memory; shared bytes a thread, not registers, set the residency, hence:
-//   * the two point buffers of the prefetch are, after the walk, the
-//     thread's exchange slot of the scan (a union);
+// memory; shared bytes a thread, not registers, set the residency (a
+// thread may use all 255 registers: 8 one-warp blocks fill the register
+// file), so the sweep keeps 864 bytes a thread at NW = 12, 8 warps a SM
+// (a second point buffer would cost 2 of them), hence:
+//   * one point slot, which after the walk is the thread's exchange slot of
+//     the scan (a union); the next position's point is copied into it as
+//     soon as the add that read the slot has finished, and waited for at
+//     the next step: one copy's latency a step, against a mixed add of
+//     thousands of dependent instructions, while the SM's other warps issue;
+//   * perm, meta and slot of the positions ahead in registers, loaded a step
+//     before they are needed (no staged tiles);
+//   * three scratch elements (group2.cuh: the complete add of the scan needs
+//     three beside the element its step loop holds in registers);
 //   * the head piece is not parked in shared memory: every flush, the first
 //     included, is stored to its slot in `out`, and the first is read back
-//     from there once, after the scan, to add the run that comes into it;
-//   * TILE2 = 4 positions a lane are staged per copy group (an Fq2 mixed add
-//     takes ~3x as long as an Fq one, so fewer positions hide the latency).
+//     from there once, after the scan, to add the run that comes into it.
 
 #include <cuda_runtime.h>
 
@@ -223,13 +231,11 @@ __global__ void __launch_bounds__(SORTED_THREADS)
   }
 }
 
-#define TILE2 4  // stream positions a lane stages per copy group, over Fq2
-
-// The thread's shared slot of the Fq2 sweep: the prefetch's two point
-// buffers during the walk, the scan's exchange slot after it.
+// The thread's shared slot of the Fq2 sweep: the walk's point, the scan's
+// exchange slot after it.
 template <int NW>
 union Sweep2Slot {
-  AffinePt<NW, 2> pt[2];
+  AffinePt<NW, 2> pt;
   Pt<NW, 2> ex;
 };
 
@@ -256,7 +262,10 @@ __device__ __forceinline__ void pt2_put_soa(uint32_t* base, size_t n, size_t i,
 // sorted_sweep_kernel over Fq2: pts [N][4 NW] words (x's c0, c1 words, then
 // y's), perm, meta, slot [W][N], out [3][2 NW][W*K] words pre-filled with
 // the identity.  One block (one warp) per (window, chunk); the same walk,
-// flushes and segmented scan as the Fq form.
+// flushes and segmented scan as the Fq form.  A lane's perm, meta and slot
+// of the next position are loaded into registers a step ahead; its point is
+// copied into its one point slot (cp.async) when the slot is free, right
+// after the step before has added, and waited for before the add.
 template <int NW>
 __global__ void __launch_bounds__(FQ2_BLOCK, 1)
     sorted_sweep2_kernel(const uint32_t* __restrict__ pts, const int32_t* __restrict__ perm,
@@ -266,7 +275,6 @@ __global__ void __launch_bounds__(FQ2_BLOCK, 1)
   constexpr int PW = 4 * NW;  // words of an affine Fq2 point
   __shared__ Sweep2Slot<NW> sh_slot[FQ2_BLOCK];
   __shared__ Pt<NW, 2> sh_acc[FQ2_BLOCK];
-  __shared__ int32_t sh_ix[2][3][TILE2][FQ2_BLOCK];  // perm, meta, slot
 
   const int lane = threadIdx.x;
   const size_t chunk = blockIdx.x;
@@ -276,50 +284,40 @@ __global__ void __launch_bounds__(FQ2_BLOCK, 1)
   const int lo = min(lane * sub, steps), n = min(lo + sub, steps) - lo;
   const size_t p0 = chunk * steps + lo;
   const size_t nout = (size_t)W * K;
+  Fe2<NW>* S = stage_elems<NW>();
 
-  auto stage = [&](int buf, int j0) {
-    for (int i = 0; i < TILE2 && j0 + i < n; ++i) {
-      cp_async4(&sh_ix[buf][0][i][lane], perm + p0 + j0 + i);
-      cp_async4(&sh_ix[buf][1][i][lane], meta + p0 + j0 + i);
-      cp_async4(&sh_ix[buf][2][i][lane], slot + p0 + j0 + i);
-    }
-  };
-  auto fetch = [&](int buf, int idx) {
+  auto fetch = [&](int idx) {
     const uint32_t* src = pts + (size_t)idx * PW;
-    uint32_t* dst = reinterpret_cast<uint32_t*>(&sh_slot[lane].pt[buf]);
+    uint32_t* dst = reinterpret_cast<uint32_t*>(&sh_slot[lane].pt);
 #pragma unroll
     for (int k = 0; k < PW; k += 4) cp_async16(dst + k, src + k);
+    cp_async_commit();
   };
 
   Pt<NW, 2>& acc = sh_acc[lane];
   pt_identity<NW>(acc);
   bool has_b = false;  // a boundary lies in this sub-chunk
   int first_slot = -1;
-  if (n > 0) {
-    stage(0, 0);
-    cp_async_wait_all();
-    if (!(sh_ix[0][1][0][lane] & META_ZERO)) fetch(0, sh_ix[0][0][0][lane]);
-    cp_async_wait_all();
-  }
+  // position j's meta, perm index and slot; position j+1's meta and perm
+  // index, loaded one step ahead
+  int m = n > 0 ? meta[p0] : 0, sl = n > 0 ? slot[p0] : 0;
+  int m1 = n > 1 ? meta[p0 + 1] : 0, i1 = n > 1 ? perm[p0 + 1] : 0;
+  if (n > 0 && !(m & META_ZERO)) fetch(perm[p0]);
   for (int j = 0; j < n; ++j) {
-    const int tb = (j / TILE2) & 1, ti = j % TILE2, cb = j & 1;
-    const int m = sh_ix[tb][1][ti][lane], sl = sh_ix[tb][2][ti][lane];
-    if (ti == 0 && j + TILE2 < n) stage(tb ^ 1, j + TILE2);
-    if (j + 1 < n) {
-      const int tb1 = ((j + 1) / TILE2) & 1, ti1 = (j + 1) % TILE2;
-      if (!(sh_ix[tb1][1][ti1][lane] & META_ZERO)) fetch(cb ^ 1, sh_ix[tb1][0][ti1][lane]);
-    }
-    cp_async_commit();
+    const int sl1 = j + 1 < n ? slot[p0 + j + 1] : 0;
+    const int m2 = j + 2 < n ? meta[p0 + j + 2] : 0, i2 = j + 2 < n ? perm[p0 + j + 2] : 0;
     if (!(m & META_ZERO)) {
-      AffinePt<NW, 2>& p = sh_slot[lane].pt[cb];
+      cp_async_wait_all();
+      AffinePt<NW, 2>& p = sh_slot[lane].pt;
       if (m & META_NEG) {
         Fe2<NW> y;
         sh_get<NW>(y, p.y);
         fe_neg<NW>(y, y);
         sh_put<NW>(p.y, y);
       }
-      pt2_add_mixed_sh<NW>(acc, p.x, p.y);
+      pt2_add_mixed_sh<NW>(acc, p.x, S);
     }
+    if (j + 1 < n && !(m1 & META_ZERO)) fetch(i1);  // the slot is free again
     if (m & META_BOUNDARY) {
       if (!has_b) {  // the head piece: its run may have begun in an earlier lane
         has_b = true;
@@ -328,11 +326,14 @@ __global__ void __launch_bounds__(FQ2_BLOCK, 1)
       if (sl >= 0) pt_store_soa<NW>(out, nout, (size_t)w * K + sl, acc);
       pt_identity<NW>(acc);
     }
-    cp_async_wait_all();
+    m = m1;
+    sl = sl1;
+    m1 = m2;
+    i1 = i2;
   }
 
   // Segmented inclusive scan of the carries over the warp, each round's
-  // values exchanged through the lanes' slots (the point buffers are free
+  // values exchanged through the lanes' slots (the point slots are free
   // once every lane has left the walk: the first __syncwarp).
   bool f = has_b;
   for (int d = 1; d < SUBCHUNKS; d <<= 1) {
@@ -341,7 +342,7 @@ __global__ void __launch_bounds__(FQ2_BLOCK, 1)
     __syncwarp();
     const bool fo = __shfl_up_sync(0xFFFFFFFFu, (int)f, d) != 0;
     if (lane >= d) {
-      if (!f) pt2_add_sh<NW>(acc, sh_slot[lane - d].ex);
+      if (!f) pt2_add_sh<NW>(acc, sh_slot[lane - d].ex, S);
       f = f || fo;
     }
   }
@@ -353,7 +354,7 @@ __global__ void __launch_bounds__(FQ2_BLOCK, 1)
   if (has_b && first_slot >= 0 && lane > 0) {
     const size_t i = (size_t)w * K + first_slot;
     pt2_get_soa<NW>(acc, out, nout, i);
-    pt2_add_sh<NW>(acc, sh_slot[lane - 1].ex);
+    pt2_add_sh<NW>(acc, sh_slot[lane - 1].ex, S);
     pt2_put_soa<NW>(out, nout, i, acc);
   }
 }
@@ -379,7 +380,7 @@ __global__ void __launch_bounds__(FQ2_BLOCK, 1)
   pt_store_soa<NW>(out, n, gid, acc);
   for (int j = 1; k + j < K && seg[gid + j] == s; ++j) {
     pt_load_soa<NW>(p, P, n, gid + j);
-    pt2_add_sh<NW>(acc, p);
+    pt2_add_sh<NW>(acc, p, stage_elems<NW>());
     pt_store_soa<NW>(out, n, gid + j, acc);
   }
 }

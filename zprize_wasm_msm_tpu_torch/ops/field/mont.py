@@ -21,7 +21,9 @@ intermediate stay un-normalized until ONE carry pass at the end:
 These functions are the plain version of the field core.  They run on any
 device a tensor lies on; the CUDA kernels (csrc/field.cuh) compute the same
 canonical values on 32-bit words, and are held against these bit for bit.
-Limb loops are Python loops: there is no trace or compile step.
+Limb loops are Python loops: there is no trace or compile step.  Every
+op pays one launch per loop step on the card, so the loops are kept short
+(_resolve walks limb pairs).
 """
 
 from __future__ import annotations
@@ -94,19 +96,32 @@ def one_mont(spec: FieldSpec, batch_shape=(), device=None) -> torch.Tensor:
 
 
 def _resolve(x: torch.Tensor):
-    """Carry-resolve a redundant SIGNED (K, *batch) limb tensor.
+    """Carry-resolve a redundant SIGNED (K, *batch) limb tensor, |limbs| < 2^46,
+    in place (x is overwritten; callers pass a temporary).
 
     Returns (canonical limbs in [0, 2^16), carry_out).  ``>>`` on int64 is an
     arithmetic shift, so a negative limb propagates a borrow (carry -1); a
-    final carry_out of -1 means the value was negative.
+    final carry_out of -1 means the value was negative.  The serial pass runs
+    over pairs of limbs as 32-bit digits (x_2j + 2^16 x_2j+1 < 2^62): three
+    launches a pair where a pass over limbs takes four a limb.  Eager
+    PyTorch pays per launch, and this pass is most of the launches of every
+    field op.
     """
-    out = torch.empty_like(x)
+    K, P = x.shape[0], x.shape[0] // 2
+    even, odd = x[0 : 2 * P : 2], x[1 : 2 * P : 2]
+    even.add_(odd, alpha=1 << LIMB_BITS)
     carry = None
-    for k in range(x.shape[0]):
-        s = x[k] if carry is None else x[k] + carry
-        out[k] = s & LIMB_MASK
+    for j in range(P):
+        d = even[j] if carry is None else even[j] + carry
+        carry = d >> (2 * LIMB_BITS)
+        torch.bitwise_and(d, 0xFFFFFFFF, out=even[j])
+    torch.bitwise_right_shift(even, LIMB_BITS, out=odd)
+    even.bitwise_and_(LIMB_MASK)
+    if K % 2:
+        s = x[K - 1] if carry is None else x[K - 1] + carry
         carry = s >> LIMB_BITS
-    return out, carry
+        torch.bitwise_and(s, LIMB_MASK, out=x[K - 1])
+    return x, carry
 
 
 def _resolve_pair(x: torch.Tensor, y: torch.Tensor):

@@ -175,20 +175,24 @@ class Fq2:
         c = mont.full_const(self.spec, self.spec.to_mont_int(self.nr), (1,) * (a.ndim - 1), a.device)
         return mont.mont_mul(self.spec, a, c)
 
+    def _pair(self, a):
+        """(2L, *batch) -> the (L, 2, *batch) view: both components in one
+        base-field batch, so a componentwise op is one base op (one carry
+        pass, not two)."""
+        L = self.spec.n_limbs
+        return a.reshape((2, L) + tuple(a.shape[1:])).transpose(0, 1)
+
+    def _unpair(self, r):
+        return r.transpose(0, 1).reshape((2 * self.spec.n_limbs,) + tuple(r.shape[2:]))
+
     def add(self, a, b):
-        # componentwise; the base op vectorizes over the stacked limb axis
-        a0, a1 = self._split(a)
-        b0, b1 = self._split(b)
-        return torch.cat([mont.add(self.spec, a0, b0), mont.add(self.spec, a1, b1)])
+        return self._unpair(mont.add(self.spec, self._pair(a), self._pair(b)))
 
     def sub(self, a, b):
-        a0, a1 = self._split(a)
-        b0, b1 = self._split(b)
-        return torch.cat([mont.sub(self.spec, a0, b0), mont.sub(self.spec, a1, b1)])
+        return self._unpair(mont.sub(self.spec, self._pair(a), self._pair(b)))
 
     def neg(self, a):
-        a0, a1 = self._split(a)
-        return torch.cat([mont.neg(self.spec, a0), mont.neg(self.spec, a1)])
+        return self._unpair(mont.neg(self.spec, self._pair(a)))
 
     def conjugate(self, a):
         """(a0, a1) -> (a0, -a1) (ref build_f2m.js conjugate:115)."""

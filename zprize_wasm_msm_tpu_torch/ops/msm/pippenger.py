@@ -40,6 +40,7 @@ Asking for a kernel engine on a CPU tensor raises; nothing falls back.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -276,20 +277,44 @@ def resolve_config(
     return impl, c, lanes
 
 
+@functools.lru_cache(maxsize=None)
+def fit_lanes(W: int, N: int, resident: int) -> int:
+    """Lanes per window T of the Fq2 sweep that fit W*T threads to whole
+    waves of ``resident`` threads: the multiple of 32 (whole warps a window)
+    that minimises ceil(W T / resident) * ceil(N / T), the rounds of waves
+    times the steps of each thread's chain, the smaller T on a tie (fewer
+    partials for the lane reduction).  T need not divide N or be a power of
+    two: the sweep's lanes past N take zero digits, which add nothing.
+    A pure function of its arguments (the CPU tests call it), cached: its
+    search runs once a shape, not once an MSM."""
+    if W < 1 or N < 1 or resident < 1:
+        raise ValueError(f"fit_lanes: W={W}, N={N}, resident={resident} must be positive")
+    best_cost, best_T = None, 32
+    for T in range(32, -(-N // 32) * 32 + 1, 32):
+        cost = -(-W * T // resident) * -(-N // T)
+        if best_cost is None or cost < best_cost:
+            best_cost, best_T = cost, T
+    return best_T
+
+
 def _kernel_lanes(curve, W: int, N: int, lanes: Optional[int], device) -> int:
     """Lanes per window of the bucket-sweep kernel for W windows of N
-    digits: ``lanes`` if the caller names them, else KERNEL_LANES (a power
-    of two, no more than the points) doubled while W times the lanes is
-    still one wave of the sweep's resident threads on the card and every
-    lane keeps a point.  A sweep thread's time is its own chain's latency
+    digits: ``lanes`` if the caller names them.  Over Fq, KERNEL_LANES (a
+    power of two, no more than the points) doubled while W times the lanes
+    is still one wave of the sweep's resident threads on the card and every
+    lane keeps a point.  Over Fq2, fit_lanes at the Fq2 sweep's residency:
+    at path G2's shape doubling from 1 024 gave 2.13 waves, whose third
+    round ran 13 % full.  A sweep thread's time is its own chain's latency
     (csrc/bucket.cu), so lanes beyond one wave only queue and lanes short of
     it leave the card idle; the lane reduction then sums the extra lanes."""
     if lanes is not None:
         return lanes
     from . import pl_bucket  # it imports this module
 
-    T = min(KERNEL_LANES, 1 << max(0, N.bit_length() - 1))
     resident = pl_bucket.resident_threads(curve, device)
+    if curve.ext == 2:
+        return fit_lanes(W, N, resident)
+    T = min(KERNEL_LANES, 1 << max(0, N.bit_length() - 1))
     while W * 2 * T <= resident and 2 * T <= N:
         T *= 2
     return T

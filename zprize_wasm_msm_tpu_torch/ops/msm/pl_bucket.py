@@ -41,7 +41,8 @@ launches = 0
 
 def _pad(curve, points, digits, lanes):
     """Pad N to a multiple of the lane count with (0,0) points and zero
-    digits: identity adds, so the kernel masks nothing."""
+    digits: identity adds, so every lane of the plain version takes a whole
+    chunk."""
     X, Y = points
     W, N = digits.shape
     pad = (-N) % lanes
@@ -125,7 +126,8 @@ def bucket_accumulate(
     points: affine (X, Y), each (L, N) int64 Montgomery.
     digits: (W, N) int32 signed digits (windows.signed_window_digits),
             values in [-2^(c-1), 2^(c-1)].
-    lanes:  T, lanes per window (N is padded to a multiple).
+    lanes:  T, lanes per window (any T; the plain version pads N to a
+            multiple, the kernel's lanes past N take zero digits).
     Returns dense bucket sums (X, Y, Z), each (L, W, B), B = 2^(c-1).
 
     CUDA tensors go through the kernels, CPU tensors through
@@ -143,7 +145,7 @@ def bucket_accumulate(
     if lanes < 1 or not 1 <= c <= 8:
         raise ValueError(f"lanes={lanes}, c={c}: need lanes >= 1 and 1 <= c <= 8")
     B = 1 << (c - 1)
-    X, Y, digits = _pad(curve, points, digits, lanes)
+    # no padding: the kernel's lanes past N take zero digits
     words = _launch.pack_point((X, Y))
     state = _sweep(curve, words[0], words[1], digits.contiguous(), lanes, B)
     return pl_reduce._lane_reduce_state(curve, state)
