@@ -48,8 +48,13 @@ What it does, in order (any failure exits non-zero and prints no result):
      adversarial cases above (K1, K4, K3, K2 on toy_g2; K1, K4 on
      bls12_381_g2); K7 and K8 over Fq2 (the sorted engine on G2) at small
      shapes on the four G2 curves and on k7_adversarial's streams (toy_g2,
-     bls12_381_g2); every Fq2 instantiation under the same spill gate (and
-     the out-of-line step loop of group2.cuh).  BLS12-377 G1: the
+     bls12_381_g2), and K8 over Fq2 on k8_adversarial's seg layouts (every
+     segment a singleton, one over all K, segments ending on or starting at
+     the last entry of a tile or of a level-1 tile, the host's padding ids,
+     K from one tile to three levels); every Fq2 instantiation under the
+     same spill gate (and the out-of-line step loop of group2.cuh), and K4
+     and K8 over Fq2 under their budget of 864 shared bytes a thread and 8
+     warps a SM.  BLS12-377 G1: the
      kernels at small shapes and ctx.msm at 2^16 against the oracle, the
      default (GLV) and use_glv=False.  Engine agreement at 2^16 (the check
      of tools/engine_diff.py): on BLS12-381 G1 the default, use_glv=False
@@ -77,6 +82,10 @@ What it does, in order (any failure exits non-zero and prints no result):
        G2-sorted  the same G2 bases and scalars through msm(P, k, c=10):
              W = 27, B = 512, T = 1024 chunks, sort -> K7 -> K8 -> scatter
              -> K2 -> K3 over Fq2, equal to path G2's point and the oracle's;
+       G2 skewed  the same G2 bases with every scalar 1 through msm(P, k,
+             c=10) (one bucket of window 0 over all 1 024 chunks: a segment
+             of 1 024 for K8), equal to the oracle's (sum m_i mod r) G2 and
+             to the bucket engine's point;
   6. calls each kernel's wrapper at its path's shapes, compares it with its
      plain version on the same inputs (exact equality of affine coordinates
      or limbs: integers, tolerance 0) and times both; K1 and K7 also report
@@ -88,13 +97,21 @@ What it does, in order (any failure exits non-zero and prints no result):
      the same latencies) and its time at every run length up to 64 (each
      held against the plain version), at the full path's and path B's
      shapes;
-     the inversion at one element;
+     the inversion at one element; K8 also on the skewed stream at path
+     B's shape (every scalar 1);
   7. the same for the Fq2 forms of K1, K4, K2 and K3 at path G2's shape
      (K1's plain version on two of its 44 windows), with their bounds (an
      Fq2 product counted as three Fq products) and K2's and K3's depth
      floors at the Fq2 links' latency; and for K7 and K8 over Fq2 at path
-     G2-sorted's shape (K7's plain version on window 0 of 27), with K2 over
-     Fq2 at B = 512 and K3 over Fq2 at W = 27 beside them.
+     G2-sorted's shape (K7's plain version on window 0 of 27), K8 also on
+     the skewed stream, with K2 over Fq2 at B = 512 and K3 over Fq2 at
+     W = 27 beside them.  K4 and K8 over Fq2 are timed in turns (old, new,
+     new, old) against their former forms, kept as baselines in the same
+     libraries (csrc/bucket.cu zp_lane_reduce_two_slots, csrc/sorted.cu
+     zp_segscan_walk); their entries carry both times, K4's lanes, K8's
+     levels, the kernels a call of it launched (as its entry counts them,
+     checked against its schedule) and its depth (a model figure,
+     pl_sorted.scan_depth).
 
 Output: one JSON object per line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -227,6 +244,96 @@ def _make_bases(ctx, log2n: int, rng, dev):
         S = tuple(torch.cat([a, b], dim=1) for a, b in zip(S, more))
     X, Y = group.to_affine(curve, S)
     return (X.contiguous(), Y.contiguous()), ms[0], ms[1:]
+
+
+def segscan_walk(curve, pieces, seg):
+    """The former K8 over Fq2, one thread a segment head walking its
+    segment (csrc/sorted.cu zp_segscan_walk), on the arguments of
+    pl_sorted.segscan: the baseline the log-depth scan is timed against in
+    the same run.  Not counted in pl_sorted.launches."""
+    import ctypes
+
+    from zprize_wasm_msm_tpu_torch import _build
+    from zprize_wasm_msm_tpu_torch.ops.msm import _launch
+
+    fn = _build.load("sorted").zp_segscan_walk
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    W, K = seg.shape
+    P = _launch.pack_point(pieces)
+    out = torch.empty_like(P)
+    err = fn(curve.fq.n_words, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p), _launch.ptr(P),
+             _launch.ptr(seg.contiguous()), _launch.ptr(out), W, K, _launch.stream_ptr())
+    _build.check_launch(err, "segscan_walk")
+    return _launch.unpack_point(out, (W, K))
+
+
+def lane_reduce_two_slots(curve, state):
+    """The former K4 over Fq2, its partials in two slots (csrc/bucket.cu
+    zp_lane_reduce_two_slots), at the lanes _reduce_lanes gives its own
+    residency, on the sweep's state: the baseline the one-slot form is timed
+    against in the same run.  Returns (buckets, lanes); not counted."""
+    import ctypes
+
+    from zprize_wasm_msm_tpu_torch import _build
+    from zprize_wasm_msm_tpu_torch.ops.msm import _launch, pl_reduce
+
+    fn = _build.load("bucket").zp_lane_reduce_two_slots
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    NW = curve.fq.n_words
+    W, T, B, PW = state.shape
+    sms = torch.cuda.get_device_properties(state.device.index or 0).multi_processor_count
+    blocks = _build.kernel_info("bucket", "zp_lane_reduce_info", NW, 2, 2)["blocks_per_sm"]
+    N = pl_reduce._reduce_lanes(W * B, T, blocks * pl_reduce.REDUCE_THREADS[2] * sms)
+    out = torch.empty((3, PW // 3, W * B), dtype=torch.int32, device=state.device)
+    pieces = torch.empty((2 * (N // 32) + N, PW), dtype=torch.int32, device=state.device)
+    err = fn(NW, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p), _launch.ptr(state),
+             _launch.ptr(out), _launch.ptr(pieces), W, T, B, N, _launch.stream_ptr())
+    _build.check_launch(err, "lane_reduce_two_slots")
+    return _launch.unpack_point(out, (W, B)), N
+
+
+def k8_adversarial(curve, dev, rng):
+    """K8 (the log-depth scan over Fq2, its tiles, levels and fix-ups)
+    against segscan_plain, every entry as an affine point, on seg layouts
+    aimed at its schedule, one layout a row of one call: every segment a
+    singleton; one segment over all K; segments ending on every tile border
+    and on every border of a level-1 tile; segments starting on every
+    tile's last entry and on the last entry of every level-1 tile; buckets
+    of 1-150 pieces, then the host's padding ids; at K = 5, 33, 1 056 and
+    2 100 (one tile; a level of one element; a second level with a ragged
+    tile; three levels).  Returns {case: max |err|}."""
+    import zprize_wasm_msm_tpu_torch as Z
+    from zprize_wasm_msm_tpu_torch.ops.curve import group
+    from zprize_wasm_msm_tpu_torch.ops.msm import pl_sorted
+
+    ctx = Z.build_curve(curve, device=dev)
+    (X, Y), _, _ = _make_bases(ctx, 9, rng, dev)
+    P = group.double(curve, group.from_affine(curve, (X, Y)))  # Z != 1
+    n = X.shape[1]
+    names = ("singletons", "one segment over all K", "segments of a tile", "segments of a level-1 tile",
+             "segments from a tile's last entry", "segments from a level-1 tile's last entry",
+             "buckets, then padding ids")
+    out = {}
+    for K in (5, 33, 1056, 2100):
+        k = torch.arange(K, device=dev)
+        lengths = torch.as_tensor(rng.integers(1, 151, size=512), device=dev)
+        host = torch.repeat_interleave(torch.arange(512, device=dev), lengths)[: 3 * K // 5]
+        host = torch.cat([host, 512 + torch.arange(K - host.numel(), device=dev)])
+        seg = torch.stack([k, torch.zeros_like(k), k // 32, k // 1024, (k + 1) // 32, (k + 1) // 1024,
+                           host]).to(torch.int32).contiguous()
+        W = seg.shape[0]
+        idx = torch.as_tensor(rng.integers(0, n, size=W * K), device=dev)
+        idx[::9] = 0
+        pieces = tuple(a[:, idx].reshape(a.shape[0], W, K).contiguous() for a in P)
+        for i, coord in enumerate(group.zero(curve, (), dev)):
+            pieces[i][:, :, 7::13] = coord[:, None, None]  # identities among the pieces
+        got = pl_sorted.segscan(curve, pieces, seg, K)
+        want = pl_sorted.segscan_plain(curve, pieces, seg, K)
+        for w, name in enumerate(names):
+            out[f"K={K}: {name}"] = affine_err(curve, tuple(a[:, w] for a in got), tuple(a[:, w] for a in want))
+    return out
 
 
 def k1_adversarial(curve, dev, rng, log2n=10, c=5, lanes=32):
@@ -649,10 +756,11 @@ def oracle_of(curve):
     return OracleCurve(q=curve.q, a=0, b=curve.b, r=curve.r, gx=curve.gx, gy=curve.gy, field=field)
 
 
-def bases_and_scalars(ctx, log2n, rng, dev, prefix=None):
+def bases_and_scalars(ctx, log2n, rng, dev, prefix=None, base_sum=False):
     """2^log2n distinct bases [m_i]G (_make_bases), full scalars below r,
     and the oracle's (sum k_i m_i mod r) G; with ``prefix``, also the
-    oracle's sum over the first ``prefix`` points."""
+    oracle's sum over the first ``prefix`` points; with ``base_sum``, also
+    (sum m_i mod r) G, the MSM with every scalar 1."""
     curve = ctx.spec
     (X, Y), m0, ds = _make_bases(ctx, log2n, rng, dev)
     n = 1 << log2n
@@ -666,9 +774,11 @@ def bases_and_scalars(ctx, log2n, rng, dev, prefix=None):
     terms = np.array(kints, dtype=object) * (mults % curve.r)
     oc = oracle_of(curve)
     out = (X, Y), ctx.scalars_to_device(kints), oc.mul(oc.g, int(terms.sum() % curve.r))
-    if prefix is None:
-        return out
-    return out + (oc.mul(oc.g, int(terms[:prefix].sum() % curve.r)),)
+    if prefix is not None:
+        out += (oc.mul(oc.g, int(terms[:prefix].sum() % curve.r)),)
+    if base_sum:
+        out += (oc.mul(oc.g, int(mults.sum() % curve.r)),)
+    return out
 
 
 def msm_oracle_check(curve, dev, rng, log2n, variants):
@@ -924,7 +1034,7 @@ def main() -> None:
         for name, stem, kernel, entry, args in (
             ("bucket_sweep", "bucket", "bucket_sweep_kernel", "zp_bucket_sweep_info", (1,)),
             ("sorted_sweep", "sorted", "sorted_sweep_kernel", "zp_sorted_sweep_info", (1,)),
-            ("segscan", "sorted", "segscan_kernel", "zp_segscan_info", (1,)),
+            ("segscan", "sorted", "segscan_kernel", "zp_segscan_info", (1, 0)),
         )
         for nw in _build.SUPPORTED_WORDS
     }
@@ -936,7 +1046,7 @@ def main() -> None:
             ("finish (fold)", "reduce", "finish_kernel", "zp_finish_info", (nw, 1), 32, (1,)),
             ("collapse", "reduce", "collapse_kernel", "zp_collapse_info", (nw,), 128, (1, 0)),
             ("collapse (combine)", "reduce", "combine_kernel", "zp_collapse_info", (nw,), 128, (1, 1)),
-            ("lane_reduce", "bucket", "lane_reduce_kernel", "zp_lane_reduce_info", (nw, 1), 128, (1, 0)),
+            ("lane_reduce", "bucket", "lane_reduce_kernel", "zp_lane_reduce_info", (nw, 1, 2), 128, (1, 0)),
             ("lane_reduce (combine)", "bucket", "lane_combine_kernel", "zp_lane_reduce_info", (nw, 1),
              128, (1, 1)),
         )
@@ -948,17 +1058,29 @@ def main() -> None:
         for nw in _build.SUPPORTED_WORDS
         for name, stem, kernel, entry, targs, threads, args in (
             ("bucket_sweep", "bucket", "bucket_sweep2_kernel", "zp_bucket_sweep_info", (nw,), 32, (2,)),
-            ("lane_reduce", "bucket", "lane_reduce_kernel", "zp_lane_reduce_info", (nw, 2), 32, (2, 0)),
+            ("lane_reduce", "bucket", "lane_reduce_kernel", "zp_lane_reduce_info", (nw, 2, 1), 32, (2, 0)),
+            ("lane_reduce (two slots)", "bucket", "lane_reduce_kernel", "zp_lane_reduce_info", (nw, 2, 2),
+             32, (2, 2)),
             ("lane_reduce (combine)", "bucket", "lane_combine_kernel", "zp_lane_reduce_info", (nw, 2),
              32, (2, 1)),
             ("collapse", "reduce", "collapse2_kernel", "zp_collapse_info", (nw,), 128, (2, 0)),
             ("collapse (combine)", "reduce", "combine2_kernel", "zp_collapse_info", (nw,), 128, (2, 1)),
             ("finish (fold)", "reduce", "finish_kernel", "zp_finish_info", (nw, 2), 32, (2,)),
             ("sorted_sweep", "sorted", "sorted_sweep2_kernel", "zp_sorted_sweep_info", (nw,), 32, (2,)),
-            ("segscan", "sorted", "segscan2_kernel", "zp_segscan_info", (nw,), 32, (2,)),
+            ("segscan", "sorted", "segscan_tile_kernel", "zp_segscan_info", (nw, 2), 32, (2, 0)),
+            ("segscan (fix-up)", "sorted", "segscan_fix_kernel", "zp_segscan_info", (nw, 2), 32, (2, 1)),
+            ("segscan (walk)", "sorted", "segscan_walk2_kernel", "zp_segscan_info", (nw,), 32, (2, 2)),
         )
     }
     emit({"fq2_resources": {f"{k[0]} NW={k[1]}": v for k, v in fq2_res.items()}})
+    # the budgets of the Fq2 reductions redesigned for 8 warps a SM: 864
+    # shared bytes a thread at NW = 12 (a point, one more slot, the add's
+    # three scratch elements) and 8 one-warp blocks resident
+    for name in ("lane_reduce", "segscan", "segscan (fix-up)"):
+        r = fq2_res[(name, 12)]
+        check(r["shared_bytes_per_thread"] <= 864 and r["resident_warps_per_sm"] >= 8,
+              f"{name} over Fq2 keeps {r['shared_bytes_per_thread']} shared bytes a thread and "
+              f"{r['resident_warps_per_sm']} warps a SM; its budget is 864 and 8")
     field_res = {
         (kernel, nw): kernel_resources("field_kernels", kernel, "zp_field_info", (nw,), threads, which)
         for which, (kernel, threads) in enumerate(
@@ -1186,7 +1308,8 @@ def main() -> None:
     # versions on given sorted streams: small shapes on the four G2 curves
     # (zero digits, digits at +-B, (0,0) points, a point twice in one run,
     # runs spanning chunks, an all-zero window), then k7_adversarial's
-    # streams (runs crossing every lane, zero and negative digits) on
+    # streams (runs crossing every lane, zero and negative digits) and
+    # k8_adversarial's seg layouts (K8's tiles, levels and fix-ups) on
     # toy_g2 and bls12_381_g2.  A generator of its own: path G2 keeps its data
     t0 = time.perf_counter()
     g2s_rng = np.random.default_rng(SEED + 6)
@@ -1203,6 +1326,8 @@ def main() -> None:
         for chunks, steps in shapes:
             for case, e in k7_adversarial(c_curve, dev, g2s_rng, chunks, steps).items():
                 adversarial[f"K7 {c_curve.name} T={chunks} steps={steps}: {case}"] = e
+        for case, e in k8_adversarial(c_curve, dev, g2s_rng).items():
+            adversarial[f"K8 {c_curve.name} {case}"] = e
     torch.cuda.synchronize()
     for case, e in adversarial.items():
         check(e == 0, f"{case}: kernel disagrees with its plain version (max |err| {e})")
@@ -1440,7 +1565,8 @@ def main() -> None:
     g2 = bls12_381_g2
     ctx_g2 = Z.build_curve(g2)
     t0 = time.perf_counter()
-    (Xg, Yg), scalars_g, expected_g = bases_and_scalars(ctx_g2, LOG2N, g2_rng, dev)
+    (Xg, Yg), scalars_g, expected_g, ones_expected_g = bases_and_scalars(ctx_g2, LOG2N, g2_rng, dev,
+                                                                       base_sum=True)
     torch.cuda.synchronize()
     bases_g_s = time.perf_counter() - t0
     impl, cg, _ = pippenger.resolve_config(g2, n, 256, None, None, 2 << 30, "auto", device=dev)
@@ -1520,6 +1646,32 @@ def main() -> None:
             },
         }
     })
+
+    # -- the skewed stream: path G2's bases with every scalar 1 (a Groth16
+    # witness is full of 0/1 scalars) through the sorted engine, msm(P, k,
+    # c=10): window 0 has one bucket over every one of the 1 024 chunks, a
+    # segment of 1 024 pieces for K8, and the other windows are all zero.
+    # Equal to the oracle's (sum m_i mod r) G2 and to the bucket engine's point
+    ones_g = torch.zeros_like(scalars_g)
+    ones_g[0] = 1
+    reset_counts()
+    skew_pt, skew_first_ms = staged(lambda: ctx_g2.msm((Xg, Yg), ones_g, c=C_SORTED))
+    skew_launches = {k: v for k, v in read_counts().items() if v}
+    check(ctx_g2.result_to_affine(skew_pt) == ones_expected_g,
+          "the skewed stream (every scalar 1) through the sorted engine misses the oracle")
+    check(ctx_g2.result_to_affine(ctx_g2.msm((Xg, Yg), ones_g)) == ones_expected_g,
+          "the skewed stream through the bucket engine misses the oracle")
+    skew_ms = [staged(lambda: ctx_g2.msm((Xg, Yg), ones_g, c=C_SORTED))[1] for _ in range(REPS)]
+    digits_sk = windows.signed_window_digits(ones_g, cgs, 256)
+    perm_sk, skey_sk, meta_sk = pl_sorted.sort_runs(digits_sk, cgs, TGs)
+    slot_sk, seg_sk = pl_sorted.compact_index(skey_sk, meta_sk, cgs, TGs)
+    pieces_sk = pl_sorted.sweep(g2, (Xg, Yg), perm_sk, meta_sk, slot_sk, Kgs, TGs)
+    del digits_sk, perm_sk, skey_sk, meta_sk, slot_sk
+    emit({"path_G2_skewed": {
+        "curve": g2.name, "n": n, "scalars": "every scalar 1", "c": cgs, "chunks": TGs, "K": Kgs,
+        "verified_against_oracle": True, "equal_to_bucket_engine": True, "first_call_s": skew_first_ms / 1e3,
+        "msm_s": [ms / 1e3 for ms in skew_ms], "best_msm_s": min(skew_ms) / 1e3, "launches": skew_launches,
+    }})
 
     if args.profile is not None:
         emit({"profile": {name: profile_msm(run, args.profile, name) for name, run in paths.items()}})
@@ -1838,6 +1990,33 @@ def main() -> None:
         "shape": f"({L},{WB},{KB})x3, seg ({WB},{KB}) -> ({L},{WB},{KB})x3; ms is the wrapper",
         "compared": "every entry as an affine point against segscan_plain (Hillis-Steele rounds)",
     })
+    # the same kernel (over Fq, its walk of one thread a segment head) on the
+    # skewed stream at path B's shape: every scalar 1, so after the GLV split
+    # half the points hold digit 1 in window 0 and one bucket spans half the
+    # chunks
+    ones = torch.zeros_like(scalars)
+    ones[0] = 1
+    (X2s, Y2s), k2s = glv.preprocess_endomorphism(curve, (X, Y), ones)
+    perm_s, skey_s, meta_s = pl_sorted.sort_runs(windows.signed_window_digits(k2s, cB, glv.MAX_BITS), cB, TB)
+    slot_s, seg_s = pl_sorted.compact_index(skey_s, meta_s, cB, TB)
+    pieces_s = pl_sorted.sweep(curve, (X2s, Y2s), perm_s, meta_s, slot_s, KB, TB)
+    del X2s, Y2s, k2s, perm_s, skey_s, meta_s, slot_s
+    pl_sorted.segscan(curve, pieces_s, seg_s, TB)
+    k8s_out, k8s_ms = sync_ms(lambda: pl_sorted.segscan(curve, pieces_s, seg_s, TB), 3)
+    k8s_ref, k8s_plain_ms = staged(lambda: pl_sorted.segscan_plain(curve, pieces_s, seg_s, TB))
+    k8s_err = affine_err(curve, k8s_out, k8s_ref)
+    check(k8s_err == 0, f"segscan on the skewed stream at path B's shape disagrees with plain (max |err| {k8s_err})")
+    used_s = seg_s < BB
+    heads_s = used_s & (seg_s != torch.cat([torch.full_like(seg_s[:, :1], -1), seg_s[:, :-1]], dim=1))
+    k8s_adds = int(used_s.sum().item() - heads_s.sum().item())
+    kernels[-1]["skewed_stream"] = {
+        "scalars": "every scalar 1 (GLV half-scalars 1 and 0)", "ms": k8s_ms, "plain_ms": k8s_plain_ms,
+        "max_abs_err": k8s_err, "adds": k8s_adds,
+        "longest_segment": int(torch.stack([torch.bincount(row[row < BB], minlength=BB).max()
+                                            for row in seg_s]).max().item()),
+        **dict(zip(("bound_ms", "bound_by"), bound(2 * 3 * NW * 4 * WB * KB + 4 * WB * KB, k8s_adds * ADD))),
+    }
+    del pieces_s, seg_s, k8s_out, k8s_ref, ones
 
     # K2 and K3 at path B's shapes and K1, K4, K3 at path A's: times only
     # (each is held against its plain version above at both small and full shapes)
@@ -1942,8 +2121,20 @@ def main() -> None:
     state_g = k1g_runs[-1][0]
     k1g_runs = [ms for _, ms in k1g_runs]
     k1g_ms = sorted(k1g_runs)[1]  # the median of three
-    buckets_g, k4g_ms = sync_ms(lambda: pl_reduce._lane_reduce_state(g2, state_g), 2)
-    del words_g
+    # K4 over Fq2 and its former two-slot form in turns (old, new, new, old),
+    # each at the lanes its own residency gives
+    lane_reduce_two_slots(g2, state_g)
+    k4g_runs = {"new": [], "old": []}
+    for form in ("old", "new", "new", "old"):
+        if form == "new":
+            buckets_g, ms = sync_ms(lambda: pl_reduce._lane_reduce_state(g2, state_g))
+        else:
+            (k4g_old, k4g_old_lanes), ms = sync_ms(lambda: lane_reduce_two_slots(g2, state_g))
+        k4g_runs[form].append(ms)
+    k4g_ms, k4g_old_ms = (sum(k4g_runs[f]) / 2 for f in ("new", "old"))
+    k4g_old_err = affine_err(g2, k4g_old, buckets_g)
+    check(k4g_old_err == 0, f"the two-slot lane reduction over Fq2 differs from the one-slot (max |err| {k4g_old_err})")
+    del words_g, k4g_old
     k1g_resident = pl_bucket.resident_threads(g2, dev)
     t0 = time.perf_counter()
     plain_g = pippenger._bucket_sweep_plain(g2, (Xg, Yg), digits_g[:SUB_W].contiguous(), PLAIN_LANES_G2, cg)
@@ -1988,6 +2179,14 @@ def main() -> None:
         "plain_ms": k4g_plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "x_bound": k4g_ms / b_ms,
         "lanes": pl_reduce._reduce_lanes(Wg * Bg, Tg, pl_reduce._reduce_resident_threads(NW, 2, 0)),
+        "partials_per_lane": Wg * Bg * Tg / pl_reduce._reduce_lanes(
+            Wg * Bg, Tg, pl_reduce._reduce_resident_threads(NW, 2, 0)),
+        "ms_runs": k4g_runs["new"],
+        "old_ms": k4g_old_ms, "old_ms_runs": k4g_runs["old"], "old_lanes": k4g_old_lanes,
+        "old_max_abs_err": k4g_old_err,
+        "old_resources": fq2_res[("lane_reduce (two slots)", NW)],
+        "old_is": "the partials in two slots (lane_reduce_kernel<NW, 2, 2>), timed in turns with the "
+                  "one-slot form in this run: old, new, new, old",
         **fq2_res[("lane_reduce", NW)], "combine_ptxas": fq2_res[("lane_reduce (combine)", NW)]["ptxas"],
         "shape": f"state ({Wg},{Tg},{Bg},3x{EW}w) -> ({LG},{Wg},{Bg})x3; ms is _lane_reduce_state",
         "compared": "as affine points against the plain lane tree on the same state",
@@ -2077,27 +2276,66 @@ def main() -> None:
         "compared": f"every entry as an affine point against sweep_plain on the same stream, windows "
                     f"0-{SUB_WS - 1} of {Wgs} (plain_ms: those windows)",
     })
-    # K8 over Fq2 on the sweep's own entries
-    pl_sorted.segscan(g2, pieces_gs, seg_gs, TGs)
-    k8g_out, k8g_ms = sync_ms(lambda: pl_sorted.segscan(g2, pieces_gs, seg_gs, TGs), 3)
-    k8g_ref, k8g_plain_ms = staged(lambda: pl_sorted.segscan_plain(g2, pieces_gs, seg_gs, TGs))
-    k8g_err = affine_err(g2, k8g_out, k8g_ref)
-    check(k8g_err == 0, f"segscan over Fq2 at path G2-sorted's shape disagrees with plain (max |err| {k8g_err})")
-    del k8g_ref, pieces_gs
-    used_g = seg_gs < Bgs
-    heads_g = used_g & (seg_gs != torch.cat([torch.full_like(seg_gs[:, :1], -1), seg_gs[:, :-1]], dim=1))
-    k8g_adds = int(used_g.sum().item() - heads_g.sum().item())
-    longest_g = int(torch.stack([torch.bincount(row[row < Bgs], minlength=Bgs).max() for row in seg_gs]).max().item())
+    # K8 over Fq2 on the sweep's own entries and on the skewed stream's,
+    # against its plain version and, in turns (old, new, new, old), against
+    # the former walk of one thread a segment head
+    def k8g_case(pieces_, seg_):
+        pl_sorted.segscan(g2, pieces_, seg_, TGs)
+        segscan_walk(g2, pieces_, seg_)
+        runs = {"new": [], "old": []}
+        pl_sorted.scan_kernels["segscan"] = 0
+        for form in ("old", "new", "new", "old"):
+            if form == "new":
+                out_, ms = sync_ms(lambda: pl_sorted.segscan(g2, pieces_, seg_, TGs))
+            else:
+                old_, ms = sync_ms(lambda: segscan_walk(g2, pieces_, seg_))
+            runs[form].append(ms)
+        # the device kernels a call launched, as zp_segscan_limbs counts them
+        kernels, model = pl_sorted.scan_kernels["segscan"], pl_sorted.scan_kernel_count(seg_.shape[1])
+        check(kernels == model * len(runs["new"]),
+              f"the Fq2 scan launched {kernels} kernels in {len(runs['new'])} calls; its schedule has {model} a call")
+        ref_, plain_ms = staged(lambda: pl_sorted.segscan_plain(g2, pieces_, seg_, TGs))
+        err, old_err = affine_err(g2, out_, ref_), affine_err(g2, old_, ref_)
+        used = seg_ < Bgs
+        heads = used & (seg_ != torch.cat([torch.full_like(seg_[:, :1], -1), seg_[:, :-1]], dim=1))
+        longest = int(torch.stack([torch.bincount(row[row < Bgs], minlength=Bgs).max() for row in seg_]).max().item())
+        return out_, {
+            "ms": sum(runs["new"]) / 2, "ms_runs": runs["new"], "plain_ms": plain_ms, "max_abs_err": err,
+            "old_ms": sum(runs["old"]) / 2, "old_ms_runs": runs["old"], "old_max_abs_err": old_err,
+            "adds": int(used.sum().item() - heads.sum().item()), "entries_in_use": int(used.sum().item()),
+            "longest_segment": longest, "kernels_per_call": kernels // len(runs["new"]),
+            # counted from seg by the schedule's model (pl_sorted.scan_depth), not measured
+            "depth_model": pl_sorted.scan_depth(seg_),
+        }
+
+    k8g_out, k8g = k8g_case(pieces_gs, seg_gs)
+    check(k8g["max_abs_err"] == k8g["old_max_abs_err"] == 0,
+          f"segscan over Fq2 at path G2-sorted's shape disagrees with plain (max |err| {k8g['max_abs_err']}, "
+          f"the walk {k8g['old_max_abs_err']})")
+    _, k8g_skew = k8g_case(pieces_sk, seg_sk)
+    check(k8g_skew["max_abs_err"] == k8g_skew["old_max_abs_err"] == 0,
+          f"segscan over Fq2 on the skewed stream disagrees with plain (max |err| {k8g_skew['max_abs_err']}, "
+          f"the walk {k8g_skew['old_max_abs_err']})")
+    check(k8g_skew["longest_segment"] == TGs, f"the skewed stream's longest segment is {k8g_skew['longest_segment']}")
+    k8g_skew["bound_ms"], k8g_skew["bound_by"] = bound(2 * 3 * EW * 4 * Wgs * Kgs + 4 * Wgs * Kgs,
+                                                       k8g_skew["adds"] * ADD2)
+    del pieces_gs, pieces_sk
+    k8g_ms, k8g_err, k8g_adds = k8g["ms"], k8g["max_abs_err"], k8g["adds"]
     b_ms, b_by = bound(2 * 3 * EW * 4 * Wgs * Kgs + 4 * Wgs * Kgs, k8g_adds * ADD2)
     fq2_entries.append({
         "name": "segscan_fq2", "route": "cuda",
         "source": "zprize_wasm_msm_tpu_torch/csrc/sorted.cu",
         "replaces": "zprize_wasm_msm_tpu/ops/msm/pl_sorted.py:238",
-        "launches": path_g2s["launches"]["segscan"], "max_abs_err": k8g_err, "ms": k8g_ms,
-        "plain_ms": k8g_plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "adds": k8g_adds, "entries_in_use": int(used_g.sum().item()), "longest_segment": longest_g,
-        **fq2_res[("segscan", NW)],
-        "shape": f"({LG},{Wgs},{Kgs})x3, seg ({Wgs},{Kgs}) -> ({LG},{Wgs},{Kgs})x3; ms is the wrapper",
+        "launches": path_g2s["launches"]["segscan"], "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        **k8g, "x_bound": k8g_ms / b_ms,
+        "levels": pl_sorted.scan_levels(Kgs), "tile": pl_sorted.SCAN_TILE,
+        "skewed_stream": k8g_skew,
+        "old_is": "the walk of one thread a segment head (segscan_walk2_kernel), timed in turns with the "
+                  "scan in this run: old, new, new, old",
+        **fq2_res[("segscan", NW)], "fix_up_resources": fq2_res[("segscan (fix-up)", NW)],
+        "old_resources": fq2_res[("segscan (walk)", NW)],
+        "shape": f"({LG},{Wgs},{Kgs})x3, seg ({Wgs},{Kgs}) -> ({LG},{Wgs},{Kgs})x3; ms is the wrapper; "
+                 "skewed_stream: path G2's bases with every scalar 1",
         "compared": "every entry as an affine point against segscan_plain (Hillis-Steele rounds)",
     })
     # K2 over Fq2 at B = 512 and K3 over Fq2 at W = 27, B = 1: path

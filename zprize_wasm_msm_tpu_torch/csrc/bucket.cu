@@ -89,6 +89,13 @@ __host__ __device__ constexpr int reduce_threads() {
   return EXT == 1 ? REDUCE_THREADS : REDUCE2_THREADS;
 }
 
+// Shared slots of the partial in flight in the lane reduction (double
+// buffered over Fq, one over Fq2: lane_reduce_kernel)
+template <int EXT>
+__host__ __device__ constexpr int reduce_slots() {
+  return EXT == 1 ? 2 : 1;
+}
+
 // digits [W][N] int32, X / Y [NW][N] words, state [W][T][B][3*NW] words.
 // Thread (w, t) takes points t, t+T, ... of window w into its row.
 template <int NW>
@@ -314,14 +321,24 @@ __global__ void __launch_bounds__(SWEEP2_THREADS, 1)
 // in a shared slot of the thread's own (par.cuh work_point) and group2.cuh's
 // complete add, whose every Fq2 product goes through shared memory; one warp
 // a block (REDUCE2_THREADS), so that a block's slots stay in static shared
-// memory, and shared memory, not registers, sets the residency.
-template <int NW, int EXT>
+// memory, and shared memory, not registers, sets the residency.  So over
+// Fq2 the partials have ONE slot (SLOTS = 1), the pattern of K1 Fq2 and K7
+// Fq2: the next partial is copied into it as soon as the add that read it
+// has finished, and waited for at the next step, one copy's latency a step
+// against a complete add of 14 Fq2 products while the SM's other warps
+// issue.  That keeps 864 bytes a thread at NW = 12 (the piece, the slot and
+// the add's three scratch elements): 8 one-warp blocks a SM, the register
+// file's limit at <= 255 registers, where two slots (1 152 bytes) left 6,
+// and _reduce_lanes then fills a wave of 33 792 lanes on 132 SMs.
+// SLOTS = 2 over Fq2 is that former form, kept as the baseline chip_smoke.py
+// times against (zp_lane_reduce_two_slots).
+template <int NW, int EXT, int SLOTS = reduce_slots<EXT>()>
 __global__ void __launch_bounds__(reduce_threads<EXT>(), EXT == 1 ? 3 : 1)
     lane_reduce_kernel(const uint32_t* __restrict__ state, uint32_t* __restrict__ out,
                        uint32_t* __restrict__ pieces, int W, int T, int B, int N) {
   constexpr int BW = 3 * EXT * NW, RT = reduce_threads<EXT>();
-  // each thread's two slots, a point each, read in place by the adds
-  __shared__ Pt<NW, EXT> sh[2][RT];
+  // each thread's slots, a point each, read in place by the adds
+  __shared__ Pt<NW, EXT> sh[SLOTS][RT];
   const int tid = threadIdx.x;
   const int g = blockIdx.x * RT + tid;
   if (g >= N) return;  // whole warps: N is a multiple of 32
@@ -354,28 +371,54 @@ __global__ void __launch_bounds__(reduce_threads<EXT>(), EXT == 1 ? 3 : 1)
       const int split = (s / T + 1) * T;  // the first partial of the tail
       const uint32_t* src = addr(s);      // the partial in flight
       fetch(0, src);
-      if (e > s + 1) {
-        src = s + 1 == split ? addr(split) : src + (size_t)B * BW;
-        fetch(1, src);
+      if constexpr (SLOTS == 2) {
+        if (e > s + 1) {
+          src = s + 1 == split ? addr(split) : src + (size_t)B * BW;
+          fetch(1, src);
+        }
       }
       cp_async_commit();
       cp_async_wait_all();
       acc = sh[0][tid];
       // two counters live through the loop: partials left, and steps to the
       // tail's first partial (never 0 when there is no tail in this lane)
-      int left = e - s - 1, to_tail = split - s - 1, buf = 1;
-      for (; left > 0; --left, --to_tail, buf ^= 1) {
-        if (left > 1) {
-          src = to_tail == 1 ? addr(e - left + 1) : src + (size_t)B * BW;
-          fetch(buf ^ 1, src);
+      int left = e - s - 1, to_tail = split - s - 1;
+      if constexpr (SLOTS == 2) {
+        int buf = 1;
+        for (; left > 0; --left, --to_tail, buf ^= 1) {
+          if (left > 1) {
+            src = to_tail == 1 ? addr(e - left + 1) : src + (size_t)B * BW;
+            fetch(buf ^ 1, src);
+          }
+          cp_async_commit();
+          if (to_tail == 0) {  // the tail begins: park the head
+            pt_store_aos<NW>(park(), acc);
+            pt_identity<NW>(acc);
+          }
+          pt_add_acc<NW, true>(acc, sh[buf][tid]);
+          cp_async_wait_all();
         }
-        cp_async_commit();
-        if (to_tail == 0) {  // the tail begins: park the head
-          pt_store_aos<NW>(park(), acc);
-          pt_identity<NW>(acc);
+      } else {
+        // one slot: the partial read by a step is copied in after the step
+        // before has added, and waited for at the step
+        if (e > s + 1) {
+          src = s + 1 == split ? addr(split) : src + (size_t)B * BW;
+          fetch(0, src);
+          cp_async_commit();
         }
-        pt_add_acc<NW, true>(acc, sh[buf][tid]);
-        cp_async_wait_all();
+        for (; left > 0; --left, --to_tail) {
+          cp_async_wait_all();
+          if (to_tail == 0) {  // the tail begins: park the head
+            pt_store_aos<NW>(park(), acc);
+            pt_identity<NW>(acc);
+          }
+          pt_add_acc<NW, true>(acc, sh[0][tid]);
+          if (left > 1) {  // the slot is free again
+            src = to_tail == 1 ? addr(e - left + 1) : src + (size_t)B * BW;
+            fetch(0, src);
+            cp_async_commit();
+          }
+        }
       }
     }
   }
@@ -492,6 +535,17 @@ extern "C" int zp_bucket_sweep_info(int nw, int ext, int* out) {
 // (a multiple of 32, at least W*B); pieces: scratch of 3 EXT NW words twice
 // per warp (the warps' first and last pieces), then once per lane (parked
 // heads).
+template <int NW, int EXT, int SLOTS>
+static void lane_reduce_launch(const uint32_t* state, uint32_t* out, uint32_t* pieces, int W,
+                               int T, int B, int N, cudaStream_t stream) {
+  constexpr int RT = reduce_threads<EXT>();
+  lane_reduce_kernel<NW, EXT, SLOTS><<<(unsigned)((N + RT - 1) / RT), RT, 0, stream>>>(
+      state, out, pieces, W, T, B, N);
+  if (N > 32)
+    lane_combine_kernel<NW, EXT><<<(unsigned)(((long)W * B + RT - 1) / RT), RT, 0, stream>>>(
+        pieces, out, W, T, B, N);
+}
+
 extern "C" int zp_lane_reduce(int nw, int ext, const uint32_t* host_consts,
                               const uint32_t* state, uint32_t* out, uint32_t* pieces, int W,
                               int T, int B, int N, void* stream_ptr) {
@@ -499,27 +553,39 @@ extern "C" int zp_lane_reduce(int nw, int ext, const uint32_t* host_consts,
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   int err = zp_set_consts(nw, host_consts, stream);
   if (err) return err;
-#define CALL(NW_, EXT_)                                                                      \
-  {                                                                                          \
-    constexpr int RT = reduce_threads<EXT_>();                                               \
-    lane_reduce_kernel<NW_, EXT_><<<(unsigned)((N + RT - 1) / RT), RT, 0, stream>>>(        \
-        state, out, pieces, W, T, B, N);                                                     \
-    if (N > 32)                                                                              \
-      lane_combine_kernel<NW_, EXT_><<<(unsigned)(((long)W * B + RT - 1) / RT), RT, 0,     \
-                                       stream>>>(pieces, out, W, T, B, N);                  \
-  }
+#define CALL(NW_, EXT_) \
+  lane_reduce_launch<NW_, EXT_, reduce_slots<EXT_>()>(state, out, pieces, W, T, B, N, stream)
   ZP_DISPATCH_NW_EXT(nw, ext, CALL)
 #undef CALL
   return (int)cudaGetLastError();
 }
 
+// The baseline of the Fq2 lane reduction: zp_lane_reduce at ext = 2 with
+// the partials in two slots (lane_reduce_kernel<NW, 2, 2>, 6 warps a SM).
+extern "C" int zp_lane_reduce_two_slots(int nw, const uint32_t* host_consts,
+                                        const uint32_t* state, uint32_t* out, uint32_t* pieces,
+                                        int W, int T, int B, int N, void* stream_ptr) {
+  if (N % 32 || N < W * B) return -2;
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  int err = zp_set_consts(nw, host_consts, stream);
+  if (err) return err;
+#define CALL(NW_) lane_reduce_launch<NW_, 2, 2>(state, out, pieces, W, T, B, N, stream)
+  ZP_DISPATCH_NW(nw, CALL)
+#undef CALL
+  return (int)cudaGetLastError();
+}
+
 // out[0..4]: registers, local bytes, static shared bytes, resident blocks
-// per SM of lane_reduce_kernel<nw, ext> (which = 0) or lane_combine_kernel
-// (which = 1) (zp_kernel_info).
+// per SM of lane_reduce_kernel<nw, ext> (which = 0), lane_combine_kernel
+// (which = 1) or the two-slot baseline lane_reduce_kernel<nw, ext, 2>
+// (which = 2) (zp_kernel_info).
 extern "C" int zp_lane_reduce_info(int nw, int ext, int which, int* out) {
-#define CALL(NW_, EXT_)                                                                   \
-  return which ? zp_kernel_info(lane_combine_kernel<NW_, EXT_>, reduce_threads<EXT_>(), out) \
-               : zp_kernel_info(lane_reduce_kernel<NW_, EXT_>, reduce_threads<EXT_>(), out)
+#define CALL(NW_, EXT_)                                                                        \
+  if (which == 1)                                                                              \
+    return zp_kernel_info(lane_combine_kernel<NW_, EXT_>, reduce_threads<EXT_>(), out);         \
+  if (which == 2)                                                                              \
+    return zp_kernel_info(lane_reduce_kernel<NW_, EXT_, 2>, reduce_threads<EXT_>(), out);      \
+  return zp_kernel_info(lane_reduce_kernel<NW_, EXT_>, reduce_threads<EXT_>(), out)
   ZP_DISPATCH_NW_EXT(nw, ext, CALL)
 #undef CALL
   return -1;

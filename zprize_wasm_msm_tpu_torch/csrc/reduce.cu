@@ -37,6 +37,7 @@
 #include <cuda_runtime.h>
 
 #include "async.cuh"
+#include "limbs.cuh"
 #include "par.cuh"
 
 #define FOLD_THREADS 32
@@ -92,25 +93,6 @@ __global__ void __launch_bounds__(FOLD_THREADS)
 // registers.
 
 #define COLLAPSE_THREADS 128
-
-// The buckets the collapse reads: the package's int64 16-bit limbs, one
-// [2 NW][n] array a coordinate, read as they are (the wrappers then pack
-// nothing; a word is two limbs).
-struct Limbs {
-  const int64_t* x;
-  const int64_t* y;
-  const int64_t* z;
-};
-
-// Word k (coordinate k / EW) of point i of n, EW = EXT NW words a
-// coordinate; 2 EW n limbs a coordinate fit 32-bit offsets (the host checks
-// it).
-template <int EW>
-__device__ __forceinline__ uint32_t limb_word(const Limbs& s, int k, uint32_t n, uint32_t i) {
-  const int64_t* c = k < EW ? s.x : k < 2 * EW ? s.y : s.z;
-  const uint32_t at = 2 * (k % EW) * n + i;
-  return (uint32_t)c[at] | ((uint32_t)c[at + n] << 16);
-}
 
 // Combine the runs held by the groups of this block over `levels` levels:
 // partners g ^ 1, g ^ 2, ...  The last level's Rs is computed only where
@@ -288,9 +270,7 @@ __global__ void words_to_limbs_kernel(const uint32_t* __restrict__ words,
                                       int64_t* __restrict__ limbs, int rows, int n) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= rows * n) return;
-  const int r = t / n, i = t % n;
-  limbs[(size_t)(2 * r) * n + i] = words[t] & 0xFFFFu;
-  limbs[(size_t)(2 * r + 1) * n + i] = words[t] >> 16;
+  limb_put(limbs, t / n, n, t % n, words[t]);
 }
 
 // x, y, z: [2 EXT NW][W*B] int64 limbs each -> the window sums,

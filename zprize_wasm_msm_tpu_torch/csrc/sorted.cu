@@ -59,10 +59,11 @@
 //
 // Over Fq2 (G2; the TPU kernels take the coordinate field from
 // ops/field/ktower.py kfield, so `_sweep` and `_segscan` run G2 too):
-// sorted_sweep2_kernel and segscan2_kernel, the same schedules on the group
-// ops of group2.cuh.  A point is 72 words at NW = 12, so nothing of a point
-// lives in registers: every Fq2 product reads and writes shared memory (see
-// group2.cuh), the accumulator is the thread's own shared slot, and the
+// sorted_sweep2_kernel, the same schedule on the group ops of group2.cuh,
+// and a segmented scan of log depth (its design above segscan_tile_kernel).
+// A point is 72 words at NW = 12, so nothing of a point lives in registers:
+// every Fq2 product reads and writes shared memory (see group2.cuh), the
+// accumulator is the thread's own shared slot, and the
 // scan's carries travel through shared memory instead of shuffles.  Blocks
 // are one warp (FQ2_BLOCK), so that a block's slots fit static shared
 // memory; shared bytes a thread, not registers, set the residency (a
@@ -86,6 +87,7 @@
 
 #include "async.cuh"
 #include "group2.cuh"
+#include "limbs.cuh"
 
 #define SORTED_THREADS 64  // two warps: two (window, chunk) pairs per block
 #define SUBCHUNKS 32       // S: lanes per chunk, one warp
@@ -359,13 +361,161 @@ __global__ void __launch_bounds__(FQ2_BLOCK, 1)
   }
 }
 
-// segscan_kernel over Fq2: P, out [3][2 NW][W*K] words.  One thread per
-// segment head, the running sum and the next piece in the thread's shared
-// slots, group2.cuh's complete add.
+// The segmented scan over Fq2 (K8 Fq2): a fixed schedule of log depth,
+// whatever the segments' lengths.  One thread a segment head walking its
+// segment (segscan_walk2_kernel below) takes as long as the longest
+// segment's chain of adds while the card idles: 150 adds at path G2-sorted's
+// shape, 1 024 when one bucket spans every chunk (scalars that are all 0 or
+// 1, as a Groth16 witness has).  Here the K entries of a row are cut into
+// tiles of SCAN_TILE = 32 in levels:
+//   * level 0 scans every tile of the entries, a one-warp block a tile
+//     (segscan_tile_kernel): segmented Hillis-Steele over the warp, each
+//     round's values exchanged through the lanes' shared slots (K7 Fq2's
+//     carry scan).  A lane adds in round d only while its segment reaches
+//     back d entries inside the tile, and the warp stops after the round its
+//     deepest lane needs: a tile of singletons costs a copy in and out;
+//   * level L + 1 takes the last entry of every whole tile of level L (its
+//     carry: the tile's part of its last segment) and scans those the same
+//     way, in place, until a level fits one tile.  Level L's elements are
+//     the entries (i + 1) 32^L - 1, and two of them belong together exactly
+//     when their segment ids are equal (ids do not decrease along a row), so
+//     every level is the same segmented scan on another stride;
+//   * from the top level down, every tile whose first segment began in an
+//     earlier tile adds, on each of its entries of that segment, the entry
+//     just before the tile once (segscan_fix_kernel): that entry is final,
+//     being the last of a whole tile one level up.  The last entry of a
+//     whole tile is already final and is left alone.
+// At path G2-sorted's shape (K = 1 536): 48 tiles a row, then 48 carries in
+// two tiles, then one; the dependent adds are at most 5 + 5 + 1 + 1 = 12,
+// against one add a piece of the longest segment before.  No host
+// synchronisation and no launch shape taken from the data: the levels
+// follow from K alone.
+//
+// Every level and fix-up runs the one-lane complete add of group2.cuh
+// (pt_add_acc) in one kernel pair over the level's stride: each lane keeps
+// its running point and its exchange slot in shared memory beside the
+// add's three scratch elements, 864 bytes a thread at NW = 12, 8 one-warp
+// blocks a SM (the register file's limit at <= 255 registers, as K1 Fq2
+// and K7 Fq2).  41 472 entries at that shape are 1 296 blocks at level 0,
+// against 1 056 resident.  Blocks go tile-major (block b takes tile b / W
+// of row b % W): the host numbers a row's flushes from its first entry and
+// leaves the padding ids at its end, so the second wave takes the last
+// tiles of every row, mostly padding, and the long segments of any row
+// start in the first.  The levels above hold at most W K / 32 points on a
+// nearly idle card; a level-parallel add there (par.cuh, 8 lanes a point)
+// was timed against this form (csrc/diag/ab_fq2_reductions.py) and saved
+// too little of the scan to keep a second kernel pair.
+// The scan reads its pieces and writes its sums as the package's 16-bit
+// limbs (limbs.cuh): packing the pieces to words before the launch and
+// unpacking after it were a large part of the wrapper's time.
+// Generic over EXT: only the Fq2 form is instantiated (the Fq form is
+// segscan_kernel).
+#define SCAN_TILE 32  // elements a tile
+
+// A point's words from limbs and back, a word at a time in a loop that is
+// not unrolled (an unrolled copy of a 72-word point is held in registers).
+template <int NW, int EXT>
+__device__ __forceinline__ void pt_get_limbs(Pt<NW, EXT>& a, const Limbs& in, uint32_t n,
+                                             uint32_t i) {
+  uint32_t* d = reinterpret_cast<uint32_t*>(&a);
+#pragma unroll 1
+  for (int k = 0; k < 3 * EXT * NW; ++k) d[k] = limb_word<EXT * NW>(in, k, n, i);
+}
+
+template <int NW, int EXT>
+__device__ __forceinline__ void pt_put_limbs(int64_t* out, uint32_t n, uint32_t i,
+                                             const Pt<NW, EXT>& a) {
+  const uint32_t* d = reinterpret_cast<const uint32_t*>(&a);
+#pragma unroll 1
+  for (int k = 0; k < 3 * EXT * NW; ++k) limb_put(out, k, n, i, d[k]);
+}
+
+// The sums, [3][2 EXT NW][n] limbs, as the scan's next input.
+template <int NW, int EXT>
+__host__ __device__ __forceinline__ Limbs scan_limbs(const int64_t* out, uint32_t n) {
+  constexpr uint32_t CL = 2 * EXT * NW;  // limbs of a coordinate
+  return Limbs{out, out + CL * n, out + 2 * CL * n};
+}
+
+// Level (n, s): n elements a row, element i at entry (i + 1) s - 1 (level
+// 0: n = K, s = 1).  Reads `in` (level 0: the pieces; above: the sums in
+// out, in place) and writes the tile's sums to out.  Grid: W * ceil(n /
+// 32) one-warp blocks.
+template <int NW, int EXT>
+__global__ void __launch_bounds__(FQ2_BLOCK, 1)
+    segscan_tile_kernel(Limbs in, const int32_t* __restrict__ seg, int64_t* out, int W, int K,
+                        int n, int s) {
+  static_assert(FQ2_BLOCK == SCAN_TILE, "a block is the warp of one tile");
+  __shared__ Pt<NW, EXT> sh_acc[SCAN_TILE], sh_ex[SCAN_TILE];
+  const int lane = threadIdx.x;
+  // tile-major: block b takes tile b / W of row b % W
+  const int w = blockIdx.x % W, i = (int)(blockIdx.x / W) * SCAN_TILE + lane;
+  const bool live = i < n;  // the last tile of a row may be ragged
+  const uint32_t nout = (uint32_t)W * K, e = (uint32_t)w * K + (uint32_t)(i + 1) * s - 1;
+  const int id = live ? seg[e] : -1;
+  // reach: how far this lane's segment goes back inside the tile
+  const int before = __shfl_up_sync(0xFFFFFFFFu, id, 1);
+  const unsigned starts = __ballot_sync(0xFFFFFFFFu, lane == 0 || before != id);
+  const int reach = live ? lane - (31 - __clz(starts & (0xFFFFFFFFu >> (31 - lane)))) : 0;
+  const int top = __reduce_max_sync(0xFFFFFFFFu, reach);
+  Pt<NW, EXT>& acc = sh_acc[lane];
+  if (live) pt_get_limbs<NW>(acc, in, nout, e);
+  for (int d = 1; d <= top; d <<= 1) {
+    __syncwarp();
+    sh_ex[lane] = acc;
+    __syncwarp();
+    if (reach >= d) pt_add_acc<NW, true>(acc, sh_ex[lane - d]);
+  }
+  if (live) pt_put_limbs<NW>(out, nout, e, acc);
+}
+
+// The fix-up of level (n, s) once the level above is final: tile t >= 1
+// of a row whose first segment began before it adds its element 32 t - 1
+// (final) to each of its elements of that segment but a whole tile's
+// last.  Grid: W * (ceil(n / 32) - 1) one-warp blocks, n > 32.
+template <int NW, int EXT>
+__global__ void __launch_bounds__(FQ2_BLOCK, 1)
+    segscan_fix_kernel(const int32_t* __restrict__ seg, int64_t* out, int W, int K, int n, int s) {
+  __shared__ Pt<NW, EXT> sh_acc[SCAN_TILE];
+  __shared__ Pt<NW, EXT> sh_in;
+  const int lane = threadIdx.x;
+  const int w = blockIdx.x % W, i0 = (int)(blockIdx.x / W + 1) * SCAN_TILE;  // tile-major
+  const uint32_t nout = (uint32_t)W * K, row = (uint32_t)w * K;
+  auto at = [&](int i) { return row + (uint32_t)(i + 1) * s - 1; };
+  const int id = seg[at(i0 - 1)];
+  if (seg[at(i0)] != id) return;  // the tile's first segment begins in it: the whole block
+  const int i = i0 + lane;
+  const Limbs sums = scan_limbs<NW, EXT>(out, nout);
+  if (lane == 0) pt_get_limbs<NW>(sh_in, sums, nout, at(i0 - 1));
+  __syncwarp();
+  if (lane == SCAN_TILE - 1 || i >= n || seg[at(i)] != id) return;
+  Pt<NW, EXT>& acc = sh_acc[lane];
+  pt_get_limbs<NW>(acc, sums, nout, at(i));
+  pt_add_acc<NW, true>(acc, sh_in);
+  pt_put_limbs<NW>(out, nout, at(i), acc);
+}
+
+// The levels of the scan over K entries: n[l] elements at stride s[l];
+// returns their count (level l + 1 exists while level l spans tiles).
+static int scan_levels(int K, int* n, int* s) {
+  int L = 0;
+  n[0] = K;
+  s[0] = 1;
+  while (n[L] > SCAN_TILE) {
+    n[L + 1] = n[L] / SCAN_TILE;
+    s[L + 1] = s[L] * SCAN_TILE;
+    ++L;
+  }
+  return L + 1;
+}
+
+// The former K8 over Fq2, kept as the baseline that chip_smoke.py times the
+// scan above against in the same run: one thread per segment head walks its
+// segment, the running sum and the next piece in the thread's shared slots.
 template <int NW>
 __global__ void __launch_bounds__(FQ2_BLOCK, 1)
-    segscan2_kernel(const uint32_t* __restrict__ P, const int32_t* __restrict__ seg,
-                    uint32_t* __restrict__ out, int W, int K) {
+    segscan_walk2_kernel(const uint32_t* __restrict__ P, const int32_t* __restrict__ seg,
+                         uint32_t* __restrict__ out, int W, int K) {
   __shared__ Pt<NW, 2> sh[2][FQ2_BLOCK];
   const int tid = threadIdx.x;
   const size_t gid = (size_t)blockIdx.x * FQ2_BLOCK + tid;
@@ -422,27 +572,83 @@ extern "C" int zp_sorted_sweep_info(int nw, int ext, int* out) {
 
 extern "C" int zp_segscan(int nw, int ext, const uint32_t* host_consts, const uint32_t* P,
                           const int32_t* seg, uint32_t* out, int W, int K, void* stream_ptr) {
+  if (ext != 1) return -1;  // over Fq2: zp_segscan_limbs
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   int err = zp_set_consts(nw, host_consts, stream);
   if (err) return err;
-  const size_t threads = (size_t)W * K;
-  const int bt = ext == 1 ? SORTED_THREADS : FQ2_BLOCK;
-  const unsigned blocks = (unsigned)((threads + bt - 1) / bt);
-#define CALL(NW_, EXT_)                                                             \
-  if constexpr (EXT_ == 1)                                                          \
-    segscan_kernel<NW_><<<blocks, bt, 0, stream>>>(P, seg, out, W, K);              \
-  else                                                                              \
-    segscan2_kernel<NW_><<<blocks, bt, 0, stream>>>(P, seg, out, W, K)
-  ZP_DISPATCH_NW_EXT(nw, ext, CALL)
+  const unsigned blocks = (unsigned)(((size_t)W * K + SORTED_THREADS - 1) / SORTED_THREADS);
+#define CALL(NW_) segscan_kernel<NW_><<<blocks, SORTED_THREADS, 0, stream>>>(P, seg, out, W, K)
+  ZP_DISPATCH_NW(nw, CALL)
 #undef CALL
   return (int)cudaGetLastError();
 }
 
-// out[0..4] as zp_sorted_sweep_info, of the segmented scan of (nw, ext).
-extern "C" int zp_segscan_info(int nw, int ext, int* out) {
-#define CALL(NW_, EXT_)                                                              \
+// The scan of log depth (instantiated over Fq2): pieces x, y, z, each
+// [2 EXT NW][W*K] int64 16-bit limbs; out [3][2 EXT NW][W*K] limbs.  A
+// tile kernel a level (none for a level of one element) and a fix-up a
+// level below the top, in that order; *kernels (not NULL) gets the number
+// of kernels launched.
+extern "C" int zp_segscan_limbs(int nw, int ext, const uint32_t* host_consts, const int64_t* x,
+                                const int64_t* y, const int64_t* z, const int32_t* seg,
+                                int64_t* out, int W, int K, int* kernels, void* stream_ptr) {
+  if ((long long)6 * ext * nw * W * K >= (1ll << 32)) return -2;  // limbs.cuh's offsets
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  int err = zp_set_consts(nw, host_consts, stream);
+  if (err) return err;
+  int n[8], s[8], launched = 0;
+  const int levels = scan_levels(K, n, s);
+  auto blocks = [&](int l, int skip) {
+    return (unsigned)((size_t)W * ((n[l] + SCAN_TILE - 1) / SCAN_TILE - skip));
+  };
+  const Limbs P{x, y, z};
+#define CALL(NW_, EXT_)                                                                         \
+  if constexpr (EXT_ == 2) {                                                                    \
+    const Limbs sums = scan_limbs<NW_, EXT_>(out, (uint32_t)W * K);                             \
+    for (int l = 0; l < levels; ++l) {                                                          \
+      if (l > 0 && n[l] == 1) continue;                                                         \
+      segscan_tile_kernel<NW_, EXT_><<<blocks(l, 0), SCAN_TILE, 0, stream>>>(l ? sums : P, seg, \
+                                                                             out, W, K, n[l],   \
+                                                                             s[l]);             \
+      ++launched;                                                                               \
+    }                                                                                           \
+    for (int l = levels - 2; l >= 0; --l) {                                                     \
+      segscan_fix_kernel<NW_, EXT_><<<blocks(l, 1), SCAN_TILE, 0, stream>>>(seg, out, W, K,     \
+                                                                            n[l], s[l]);        \
+      ++launched;                                                                               \
+    }                                                                                           \
+  } else {                                                                                      \
+    return -1;                                                                                  \
+  }
+  ZP_DISPATCH_NW_EXT(nw, ext, CALL)
+#undef CALL
+  if (kernels) *kernels = launched;
+  return (int)cudaGetLastError();
+}
+
+// The baseline of the Fq2 scan (segscan_walk2_kernel), the arguments of
+// zp_segscan at ext = 2.
+extern "C" int zp_segscan_walk(int nw, const uint32_t* host_consts, const uint32_t* P,
+                               const int32_t* seg, uint32_t* out, int W, int K,
+                               void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  int err = zp_set_consts(nw, host_consts, stream);
+  if (err) return err;
+  const unsigned blocks = (unsigned)(((size_t)W * K + FQ2_BLOCK - 1) / FQ2_BLOCK);
+#define CALL(NW_) segscan_walk2_kernel<NW_><<<blocks, FQ2_BLOCK, 0, stream>>>(P, seg, out, W, K)
+  ZP_DISPATCH_NW(nw, CALL)
+#undef CALL
+  return (int)cudaGetLastError();
+}
+
+// out[0..4] as zp_sorted_sweep_info, of the segmented scan of (nw, ext):
+// which = 0 the scan (over Fq2 its tile kernel), 1 its fix-up, 2 the Fq2
+// baseline (segscan_walk2_kernel).
+extern "C" int zp_segscan_info(int nw, int ext, int which, int* out) {
+#define CALL(NW_, EXT_)                                                                     \
   if constexpr (EXT_ == 1) return zp_kernel_info(segscan_kernel<NW_>, SORTED_THREADS, out); \
-  else return zp_kernel_info(segscan2_kernel<NW_>, FQ2_BLOCK, out)
+  else if (which == 0) return zp_kernel_info(segscan_tile_kernel<NW_, EXT_>, SCAN_TILE, out); \
+  else if (which == 1) return zp_kernel_info(segscan_fix_kernel<NW_, EXT_>, SCAN_TILE, out); \
+  else return zp_kernel_info(segscan_walk2_kernel<NW_>, FQ2_BLOCK, out)
   ZP_DISPATCH_NW_EXT(nw, ext, CALL)
 #undef CALL
   return -1;

@@ -27,7 +27,9 @@ constructAdditionChains:651, evaluateAdditionChains:810):
   4. SEGSCAN (kernel)  pieces of a bucket split across chunks (<= T of
                        them, typically 1-3) are merged by an inclusive
                        segmented scan over the K entries.  ``segscan`` /
-                       ``segscan_plain``.
+                       ``segscan_plain``; over Fq2 a schedule of log depth
+                       in tiles of SCAN_TILE entries (``scan_levels``,
+                       ``scan_depth``).
   5. SCATTER (torch)   the last entry of each segment lands in the dense
                        (L, W, B) bucket array that collapse / bucket_reduce
                        consume; empty buckets are the identity (0, 1, 0).
@@ -40,7 +42,8 @@ stage at once.
 
 Over Fq2 (G2) the stages are the same, elements are (2L, ...) flat limbs
 (tower.Fq2), and the sweep and the scan launch their Fq2 kernels
-(csrc/sorted.cu sorted_sweep2_kernel, segscan2_kernel).
+(csrc/sorted.cu sorted_sweep2_kernel; segscan_tile_kernel and
+segscan_fix_kernel, whose levels ``scan_levels`` lists).
 
 Digit semantics match windows.signed_window_digits; results equal the other
 engines as group elements (the addition order differs).  The sort's order
@@ -74,6 +77,9 @@ META_NEG = 4  # negative digit: add (x, -y)
 
 #: times each kernel was launched (read by chip_smoke.py)
 launches = {"sweep": 0, "segscan": 0}
+#: device kernels the Fq2 scan's calls launched, as its entry reports them
+#: (zp_segscan_limbs: a tile kernel a level, a fix-up a level below the top)
+scan_kernels = {"segscan": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -285,6 +291,60 @@ def segscan_plain(curve: CurveSpec, pieces, seg: torch.Tensor, max_len: int):
     return (x, y, z)
 
 
+#: entries a one-warp block of the Fq2 scan takes (csrc/sorted.cu SCAN_TILE)
+SCAN_TILE = 32
+
+
+def scan_levels(K: int):
+    """The levels of the Fq2 scan over K entries a row (csrc/sorted.cu
+    scan_levels): [(n, s), ...], level l's n elements at entries
+    (i + 1) s - 1; level l + 1 takes the last element of every whole tile
+    of level l, until a level fits one tile.  A function of K alone."""
+    levels = [(K, 1)]
+    while levels[-1][0] > SCAN_TILE:
+        n, s = levels[-1]
+        levels.append((n // SCAN_TILE, s * SCAN_TILE))
+    return levels
+
+
+def scan_kernel_count(K: int) -> int:
+    """The device kernels a call of the Fq2 scan launches over K entries a
+    row (csrc/sorted.cu zp_segscan_limbs): a tile kernel a level (none for
+    a level above the first that holds one element) and a fix-up a level
+    below the top."""
+    levels = scan_levels(K)
+    return sum(1 for l, (n, _) in enumerate(levels) if l == 0 or n > 1) + len(levels) - 1
+
+
+def scan_reach(ids: torch.Tensor) -> torch.Tensor:
+    """(..., n) segment ids of one level -> (..., n) how far each element's
+    segment goes back inside its tile of SCAN_TILE (the rounds it adds in:
+    those d = 1, 2, 4, ... up to its reach)."""
+    n = ids.shape[-1]
+    pos = torch.arange(n, device=ids.device)
+    before = torch.cat([ids[..., :1], ids[..., :-1]], dim=-1)
+    start = (pos % SCAN_TILE == 0) | (before != ids)
+    first = torch.where(start, pos, torch.zeros_like(pos)).cummax(dim=-1).values
+    return pos - first
+
+
+def scan_depth(seg: torch.Tensor) -> int:
+    """The dependent adds of the Fq2 scan on seg (W, K): at each level the
+    rounds of its deepest tile, plus one for each level's fix-up where some
+    tile's first segment began in an earlier tile.  Every level and fix-up
+    launches whatever the data; this counts the rounds that add."""
+    W, K = seg.shape
+    levels = scan_levels(K)
+    depth = 0
+    for l, (n, s) in enumerate(levels):
+        ids = seg[:, (torch.arange(n, device=seg.device) + 1) * s - 1]
+        depth += int(scan_reach(ids).max().item()).bit_length()
+        if l + 1 < len(levels):
+            heads = torch.arange(SCAN_TILE, n, SCAN_TILE, device=seg.device)
+            depth += int(bool((ids[:, heads] == ids[:, heads - 1]).any().item()))
+    return depth
+
+
 def segscan(curve: CurveSpec, pieces, seg: torch.Tensor, max_len: int, impl: str = "auto"):
     """Inclusive segmented scan under the complete group add.
 
@@ -294,24 +354,44 @@ def segscan(curve: CurveSpec, pieces, seg: torch.Tensor, max_len: int, impl: str
     Returns (X, Y, Z) each (L, W, K): every entry holds the sum of its
     segment's entries up to and including itself, so the last entry of a
     segment holds the segment's sum — as group elements.
+
+    The kernel over Fq walks each segment from its head (on packed words);
+    over Fq2 it scans in tiles and levels (``scan_levels``), at most
+    5 adds a level and one a fix-up in a row whatever the segments' lengths,
+    and reads and writes the limbs itself.  One call is one count in
+    ``launches``; over Fq2 it launches a kernel a level and a fix-up a
+    level below the top, which its entry counts into ``scan_kernels``.
     """
     if not _launch.use_kernel(impl, pieces[0]):
         return segscan_plain(curve, pieces, seg, max_len)
     W, K = _check_pieces(curve, pieces, seg)
     lib = _build.load("sorted")
-    fn = lib.zp_segscan
+    consts = _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p)
+    seg = seg.contiguous()
+    if curve.ext == 1:
+        fn = lib.zp_segscan
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        P = _launch.pack_point(pieces)
+        out = torch.empty_like(P)
+        err = fn(curve.fq.n_words, 1, consts, _launch.ptr(P), _launch.ptr(seg), _launch.ptr(out), W, K,
+                 _launch.stream_ptr())
+        _build.check_launch(err, "segscan")
+        launches["segscan"] += 1
+        return _launch.unpack_point(out, (W, K))
+    # over Fq2 the kernels read and write the limbs themselves
+    fn = lib.zp_segscan_limbs
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    P = _launch.pack_point(pieces)
-    out = torch.empty_like(P)
-    err = fn(
-        curve.fq.n_words, curve.ext, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p),
-        _launch.ptr(P), _launch.ptr(seg.contiguous()), _launch.ptr(out), W, K,
-        _launch.stream_ptr(),
-    )
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+    P = tuple(a.contiguous() for a in pieces)
+    out = torch.empty((3,) + tuple(P[0].shape), dtype=torch.int64, device=P[0].device)
+    kernels = ctypes.c_int(0)
+    err = fn(curve.fq.n_words, curve.ext, consts, *(_launch.ptr(a) for a in P), _launch.ptr(seg),
+             _launch.ptr(out), W, K, ctypes.byref(kernels), _launch.stream_ptr())
     _build.check_launch(err, "segscan")
     launches["segscan"] += 1
-    return _launch.unpack_point(out, (W, K))
+    scan_kernels["segscan"] += kernels.value
+    return (out[0], out[1], out[2])
 
 
 # ---------------------------------------------------------------------------
