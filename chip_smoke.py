@@ -39,7 +39,8 @@ What it does, in order (any failure exits non-zero and prints no result):
      a multiple of the warp, lane counts that end buckets inside lanes, on
      lane ends and across warps; k2_adversarial: identity buckets, every
      bucket one point, only bucket 0, only the top bucket, P and -P in one
-     window, at B = 1, 2, 64, 512, 4096 and W = 1, 15, 38);
+     window, at B = 1, 2, 64, 512, 4096 and W = 1, 15, 38; and K8 on
+     k8_adversarial's seg layouts, below, on toy and BLS12-381);
      Over Fq2 (G2): the Fq2 device functions (csrc/field2.cuh, the group
      ops of K1 and K4 in csrc/group2.cuh, the level-parallel ops of K2 and
      K3) bit for bit on toy_g2, BN254 G2 and BLS12-381 G2 (components 0, 1,
@@ -52,7 +53,8 @@ What it does, in order (any failure exits non-zero and prints no result):
      segment a singleton, one over all K, segments ending on or starting at
      the last entry of a tile or of a level-1 tile, the host's padding ids,
      K from one tile to three levels); every Fq2 instantiation under the
-     same spill gate (and the out-of-line step loop of group2.cuh), and K4
+     same spill gate (and the out-of-line functions: group2.cuh's step
+     loop, the collapse's links), and K4
      and K8 over Fq2 under their budget of 864 shared bytes a thread and 8
      warps a SM.  BLS12-377 G1: the
      kernels at small shapes and ctx.msm at 2^16 against the oracle, the
@@ -97,21 +99,20 @@ What it does, in order (any failure exits non-zero and prints no result):
      the same latencies) and its time at every run length up to 64 (each
      held against the plain version), at the full path's and path B's
      shapes;
-     the inversion at one element; K8 also on the skewed stream at path
-     B's shape (every scalar 1);
+     the inversion at one element; K8 (the scan in tiles and levels) also on
+     the skewed stream at path B's shape (every scalar 1), with its levels,
+     the kernels a call launched (as its entry counts them, checked against
+     its schedule), its depth (a model figure, pl_sorted.scan_depth) and a
+     depth floor at the measured latency of one one-lane complete add;
   7. the same for the Fq2 forms of K1, K4, K2 and K3 at path G2's shape
      (K1's plain version on two of its 44 windows), with their bounds (an
      Fq2 product counted as three Fq products) and K2's and K3's depth
      floors at the Fq2 links' latency; and for K7 and K8 over Fq2 at path
      G2-sorted's shape (K7's plain version on window 0 of 27), K8 also on
      the skewed stream, with K2 over Fq2 at B = 512 and K3 over Fq2 at
-     W = 27 beside them.  K4 and K8 over Fq2 are timed in turns (old, new,
-     new, old) against their former forms, kept as baselines in the same
-     libraries (csrc/bucket.cu zp_lane_reduce_two_slots, csrc/sorted.cu
-     zp_segscan_walk); their entries carry both times, K4's lanes, K8's
-     levels, the kernels a call of it launched (as its entry counts them,
-     checked against its schedule) and its depth (a model figure,
-     pl_sorted.scan_depth).
+     W = 27 beside them.  K2 over Fq2 also at every run length up to 64 at
+     both shapes, and the Fq2 links at 1, 2 and 4 warps a SM (its depth
+     floor at both).
 
 Output: one JSON object per line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -246,57 +247,9 @@ def _make_bases(ctx, log2n: int, rng, dev):
     return (X.contiguous(), Y.contiguous()), ms[0], ms[1:]
 
 
-def segscan_walk(curve, pieces, seg):
-    """The former K8 over Fq2, one thread a segment head walking its
-    segment (csrc/sorted.cu zp_segscan_walk), on the arguments of
-    pl_sorted.segscan: the baseline the log-depth scan is timed against in
-    the same run.  Not counted in pl_sorted.launches."""
-    import ctypes
-
-    from zprize_wasm_msm_tpu_torch import _build
-    from zprize_wasm_msm_tpu_torch.ops.msm import _launch
-
-    fn = _build.load("sorted").zp_segscan_walk
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    W, K = seg.shape
-    P = _launch.pack_point(pieces)
-    out = torch.empty_like(P)
-    err = fn(curve.fq.n_words, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p), _launch.ptr(P),
-             _launch.ptr(seg.contiguous()), _launch.ptr(out), W, K, _launch.stream_ptr())
-    _build.check_launch(err, "segscan_walk")
-    return _launch.unpack_point(out, (W, K))
-
-
-def lane_reduce_two_slots(curve, state):
-    """The former K4 over Fq2, its partials in two slots (csrc/bucket.cu
-    zp_lane_reduce_two_slots), at the lanes _reduce_lanes gives its own
-    residency, on the sweep's state: the baseline the one-slot form is timed
-    against in the same run.  Returns (buckets, lanes); not counted."""
-    import ctypes
-
-    from zprize_wasm_msm_tpu_torch import _build
-    from zprize_wasm_msm_tpu_torch.ops.msm import _launch, pl_reduce
-
-    fn = _build.load("bucket").zp_lane_reduce_two_slots
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    NW = curve.fq.n_words
-    W, T, B, PW = state.shape
-    sms = torch.cuda.get_device_properties(state.device.index or 0).multi_processor_count
-    blocks = _build.kernel_info("bucket", "zp_lane_reduce_info", NW, 2, 2)["blocks_per_sm"]
-    N = pl_reduce._reduce_lanes(W * B, T, blocks * pl_reduce.REDUCE_THREADS[2] * sms)
-    out = torch.empty((3, PW // 3, W * B), dtype=torch.int32, device=state.device)
-    pieces = torch.empty((2 * (N // 32) + N, PW), dtype=torch.int32, device=state.device)
-    err = fn(NW, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p), _launch.ptr(state),
-             _launch.ptr(out), _launch.ptr(pieces), W, T, B, N, _launch.stream_ptr())
-    _build.check_launch(err, "lane_reduce_two_slots")
-    return _launch.unpack_point(out, (W, B)), N
-
-
 def k8_adversarial(curve, dev, rng):
-    """K8 (the log-depth scan over Fq2, its tiles, levels and fix-ups)
-    against segscan_plain, every entry as an affine point, on seg layouts
+    """K8 (the log-depth scan, its tiles, levels and fix-ups) against
+    segscan_plain, every entry as an affine point, on seg layouts
     aimed at its schedule, one layout a row of one call: every segment a
     singleton; one segment over all K; segments ending on every tile border
     and on every border of a level-1 tile; segments starting on every
@@ -991,10 +944,12 @@ def main() -> None:
                 name = line.split("'")[1]
                 ptxas.append(f"{stem}:{name[:48]}: {used.split(':')[-1].strip()} | {spill.strip()}")
                 ptxas_by_kernel[name] = {"used": used.split(":")[-1].strip(), "spill": spill.strip()}
-        # the out-of-line Fq2 step loop every Fq2 group op calls
-        # (csrc/group2.cuh pt2_run): its own stack and spills
+        # the out-of-line Fq2 functions: the step loop every one-lane Fq2
+        # group op calls (csrc/group2.cuh pt2_run) and the collapse's links
+        # (csrc/reduce.cu pt2_link_add, pt2_link_double): their own stack
+        # and spills
         for i, line in enumerate(lines):
-            if "Function properties for" in line and "pt2_run" in line:
+            if "Function properties for" in line and ("pt2_run" in line or "pt2_link" in line):
                 name = line.split("for ")[-1].strip()
                 spill = lines[i + 1].strip()
                 spills = [int(w) for w in spill.split() if w.isdigit()]
@@ -1030,13 +985,14 @@ def main() -> None:
                     "shared_bytes_per_thread": info["shared_bytes"] / threads} if info else {})}
 
     sweep_res = {
-        (name, nw): kernel_resources(stem, kernel, entry, (nw,), 64, *args)
-        for name, stem, kernel, entry, args in (
-            ("bucket_sweep", "bucket", "bucket_sweep_kernel", "zp_bucket_sweep_info", (1,)),
-            ("sorted_sweep", "sorted", "sorted_sweep_kernel", "zp_sorted_sweep_info", (1,)),
-            ("segscan", "sorted", "segscan_kernel", "zp_segscan_info", (1, 0)),
-        )
+        (name, nw): kernel_resources(stem, kernel, entry, targs, threads, *args)
         for nw in _build.SUPPORTED_WORDS
+        for name, stem, kernel, entry, targs, threads, args in (
+            ("bucket_sweep", "bucket", "bucket_sweep_kernel", "zp_bucket_sweep_info", (nw,), 64, (1,)),
+            ("sorted_sweep", "sorted", "sorted_sweep_kernel", "zp_sorted_sweep_info", (nw,), 64, (1,)),
+            ("segscan", "sorted", "segscan_tile_kernel", "zp_segscan_info", (nw, 1), 32, (1, 0)),
+            ("segscan (fix-up)", "sorted", "segscan_fix_kernel", "zp_segscan_info", (nw, 1), 32, (1, 1)),
+        )
     }
     emit({"sweep_resources": {f"{k[0]} NW={k[1]}": v for k, v in sweep_res.items()}})
     reduce_res = {
@@ -1059,8 +1015,6 @@ def main() -> None:
         for name, stem, kernel, entry, targs, threads, args in (
             ("bucket_sweep", "bucket", "bucket_sweep2_kernel", "zp_bucket_sweep_info", (nw,), 32, (2,)),
             ("lane_reduce", "bucket", "lane_reduce_kernel", "zp_lane_reduce_info", (nw, 2, 1), 32, (2, 0)),
-            ("lane_reduce (two slots)", "bucket", "lane_reduce_kernel", "zp_lane_reduce_info", (nw, 2, 2),
-             32, (2, 2)),
             ("lane_reduce (combine)", "bucket", "lane_combine_kernel", "zp_lane_reduce_info", (nw, 2),
              32, (2, 1)),
             ("collapse", "reduce", "collapse2_kernel", "zp_collapse_info", (nw,), 128, (2, 0)),
@@ -1069,7 +1023,6 @@ def main() -> None:
             ("sorted_sweep", "sorted", "sorted_sweep2_kernel", "zp_sorted_sweep_info", (nw,), 32, (2,)),
             ("segscan", "sorted", "segscan_tile_kernel", "zp_segscan_info", (nw, 2), 32, (2, 0)),
             ("segscan (fix-up)", "sorted", "segscan_fix_kernel", "zp_segscan_info", (nw, 2), 32, (2, 1)),
-            ("segscan (walk)", "sorted", "segscan_walk2_kernel", "zp_segscan_info", (nw,), 32, (2, 2)),
         )
     }
     emit({"fq2_resources": {f"{k[0]} NW={k[1]}": v for k, v in fq2_res.items()}})
@@ -1256,7 +1209,8 @@ def main() -> None:
           "seconds": round(time.perf_counter() - t0, 2)})
 
     # the reductions' schedules on the cases aimed at them: K3's ladder, tree
-    # and fold, K4's even split, warp scan and combine across warps.  Their
+    # and fold, K4's even split, warp scan and combine across warps, K2's
+    # runs and tree, K8's tiles, levels and fix-ups.  Their
     # inputs come from a generator of their own, so the paths below get the
     # same bases and scalars as before these cases existed (K8's time, for
     # one, follows the longest segment that data makes)
@@ -1272,6 +1226,10 @@ def main() -> None:
     for c_curve in (toy, bn254, bls12_381):
         for case, e in k2_adversarial(c_curve, dev, k2_rng).items():
             adversarial[f"K2 {c_curve.name}: {case}"] = e
+    k8_rng = np.random.default_rng(SEED + 9)
+    for c_curve in (toy, bls12_381):
+        for case, e in k8_adversarial(c_curve, dev, k8_rng).items():
+            adversarial[f"K8 {c_curve.name} {case}"] = e
     torch.cuda.synchronize()
     for case, e in adversarial.items():
         check(e == 0, f"{case}: kernel disagrees with its plain version (max |err| {e})")
@@ -1785,30 +1743,32 @@ def main() -> None:
 
     # K2 collapse: the wrapper, its plan (buckets per run, groups, the wave),
     # its depth floor (the longest chain's links at one warp's latency)
-    wave = pl_reduce._collapse_wave_groups(NW, 0)
-
-    def k2_floor(W_, B_):
-        """(buckets a run, links, depth floor ms) of the collapse at (W_, B_)."""
-        m = pl_reduce._collapse_run(W_, B_, wave)
+    def k2_floor(W_, B_, curve_=curve, links=None):
+        """(buckets a run, links, depth floor ms) of the collapse at (W_, B_)
+        (links: the level-parallel ops' latencies, by default the Fq ones)."""
+        links = links or link_us
+        m = pl_reduce._collapse_run(W_, B_, pl_reduce._collapse_wave_groups(curve_.fq.n_words, 0))
         adds, dbls = pl_reduce._collapse_links(B_, m)
-        return m, (adds, dbls), (adds * link_us["add_coop"] + dbls * link_us["double_coop"]) / 1e3
+        return m, (adds, dbls), (adds * links["add_coop"] + dbls * links["double_coop"]) / 1e3
 
-    def k2_entry(bk, W_, B_, ref):
+    def k2_entry(bk, W_, B_, ref, curve_=curve, links=None):
         """K2's plan, depth floor, and its launches at every run length up
         to 64, each held against ``ref`` and timed over 3 calls; and the
         wrapper over 10 calls."""
-        m, (adds, dbls), floor_ms = k2_floor(W_, B_)
+        m, (adds, dbls), floor_ms = k2_floor(W_, B_, curve_, links)
+        nw = curve_.fq.n_words
         ms = {}
         for k in range(min(B_, 64).bit_length()):
-            got = pl_reduce._collapse_launch(curve, bk, 1 << k)
-            e = affine_err(curve, tuple(got), ref)
+            got = pl_reduce._collapse_launch(curve_, bk, 1 << k)
+            e = affine_err(curve_, tuple(got), ref)
             check(e == 0, f"collapse at {1 << k} buckets a run disagrees with plain (max |err| {e})")
             _, ms[f"{1 << k} buckets a run"] = sync_ms(
-                lambda: pl_reduce._collapse_launch(curve, bk, 1 << k), 3)
+                lambda: pl_reduce._collapse_launch(curve_, bk, 1 << k), 3)
         return {
-            "ms_10_calls": sync_ms(lambda: pl_reduce.collapse(curve, bk), 10)[1],
+            "ms_10_calls": sync_ms(lambda: pl_reduce.collapse(curve_, bk), 10)[1],
             "ms_by_run": ms, "buckets_per_run": m, "groups": W_ * B_ // m,
-            "lanes_per_group": pl_reduce._collapse_lanes(NW), "wave_groups": wave,
+            "lanes_per_group": pl_reduce._collapse_lanes(nw),
+            "wave_groups": pl_reduce._collapse_wave_groups(nw, 0),
             "depth_links": {"additions": adds, "doublings": dbls},
             "depth_floor_ms": floor_ms,
         }
@@ -1968,32 +1928,39 @@ def main() -> None:
     })
     del pieces_plain
 
-    # K8 segmented scan on the sweep's own entries
-    pl_sorted.segscan(curve, pieces, seg, TB)
-    k8_out, k8_ms = sync_ms(lambda: pl_sorted.segscan(curve, pieces, seg, TB), 3)
-    k8_ref, k8_plain_ms = staged(lambda: pl_sorted.segscan_plain(curve, pieces, seg, TB))
-    k8_err = affine_err(curve, k8_out, k8_ref)
-    check(k8_err == 0, f"segscan at path B's shape disagrees with plain (max |err| {k8_err})")
-    used = seg < BB
-    heads = used & (seg != torch.cat([torch.full_like(seg[:, :1], -1), seg[:, :-1]], dim=1))
-    k8_adds = int(used.sum().item() - heads.sum().item())  # one per piece beyond a segment's first
-    longest = int(torch.stack([torch.bincount(row[row < BB], minlength=BB).max() for row in seg]).max().item())
-    b_ms, b_by = bound(2 * 3 * NW * 4 * WB * KB + 4 * WB * KB, k8_adds * ADD)
-    kernels.append({
-        "name": "segscan", "route": "cuda",
-        "source": "zprize_wasm_msm_tpu_torch/csrc/sorted.cu",
-        "replaces": "zprize_wasm_msm_tpu/ops/msm/pl_sorted.py:238",
-        "launches": path_b["launches"]["segscan"], "max_abs_err": k8_err, "ms": k8_ms,
-        "plain_ms": k8_plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "adds": k8_adds, "entries_in_use": int(used.sum().item()), "longest_segment": longest,
-        "no_library_because": ops_library,
-        "shape": f"({L},{WB},{KB})x3, seg ({WB},{KB}) -> ({L},{WB},{KB})x3; ms is the wrapper",
-        "compared": "every entry as an affine point against segscan_plain (Hillis-Steele rounds)",
-    })
-    # the same kernel (over Fq, its walk of one thread a segment head) on the
-    # skewed stream at path B's shape: every scalar 1, so after the GLV split
-    # half the points hold digit 1 in window 0 and one bucket spans half the
-    # chunks
+    # K8 segmented scan on the sweep's own entries, then (the same kernels)
+    # on the skewed stream at path B's shape: every scalar 1, so after the
+    # GLV split half the points hold digit 1 in window 0 and one bucket spans
+    # half the chunks
+    def k8_case(curve_, pieces_, seg_, T_, B_, link_us_):
+        """K8 (its wrapper) on one stream: the sums against segscan_plain,
+        the time over 3 calls after a warm-up, the kernels a call launched
+        (as the entry counts them, checked against its schedule), and its
+        depth: the schedule's dependent adds (pl_sorted.scan_depth, a model)
+        at the measured latency of one one-lane complete add (link_us_)."""
+        pl_sorted.segscan(curve_, pieces_, seg_, T_)
+        pl_sorted.scan_kernels["segscan"] = 0
+        out_, ms_ = sync_ms(lambda: pl_sorted.segscan(curve_, pieces_, seg_, T_), 3)
+        K_ = seg_.shape[1]
+        launched, model = pl_sorted.scan_kernels["segscan"], pl_sorted.scan_kernel_count(K_)
+        check(launched == 3 * model,
+              f"the scan launched {launched} kernels in 3 calls; its schedule has {model} a call")
+        ref_, plain_ms_ = staged(lambda: pl_sorted.segscan_plain(curve_, pieces_, seg_, T_))
+        used_ = seg_ < B_
+        heads_ = used_ & (seg_ != torch.cat([torch.full_like(seg_[:, :1], -1), seg_[:, :-1]], dim=1))
+        depth = pl_sorted.scan_depth(seg_)
+        return out_, {
+            "ms": ms_, "plain_ms": plain_ms_, "max_abs_err": affine_err(curve_, out_, ref_),
+            "adds": int(used_.sum().item() - heads_.sum().item()), "entries_in_use": int(used_.sum().item()),
+            "longest_segment": int(torch.stack([torch.bincount(row[row < B_], minlength=B_).max()
+                                                for row in seg_]).max().item()),
+            "levels": pl_sorted.scan_levels(K_), "kernels_per_call": launched // 3,
+            # counted from seg by the schedule's model, not measured
+            "depth_model": depth, "depth_floor_ms": depth * link_us_ / 1e3,
+        }
+
+    k8_out, k8 = k8_case(curve, pieces, seg, TB, BB, link_us["add_lane"])
+    check(k8["max_abs_err"] == 0, f"segscan at path B's shape disagrees with plain (max |err| {k8['max_abs_err']})")
     ones = torch.zeros_like(scalars)
     ones[0] = 1
     (X2s, Y2s), k2s = glv.preprocess_endomorphism(curve, (X, Y), ones)
@@ -2001,22 +1968,25 @@ def main() -> None:
     slot_s, seg_s = pl_sorted.compact_index(skey_s, meta_s, cB, TB)
     pieces_s = pl_sorted.sweep(curve, (X2s, Y2s), perm_s, meta_s, slot_s, KB, TB)
     del X2s, Y2s, k2s, perm_s, skey_s, meta_s, slot_s
-    pl_sorted.segscan(curve, pieces_s, seg_s, TB)
-    k8s_out, k8s_ms = sync_ms(lambda: pl_sorted.segscan(curve, pieces_s, seg_s, TB), 3)
-    k8s_ref, k8s_plain_ms = staged(lambda: pl_sorted.segscan_plain(curve, pieces_s, seg_s, TB))
-    k8s_err = affine_err(curve, k8s_out, k8s_ref)
-    check(k8s_err == 0, f"segscan on the skewed stream at path B's shape disagrees with plain (max |err| {k8s_err})")
-    used_s = seg_s < BB
-    heads_s = used_s & (seg_s != torch.cat([torch.full_like(seg_s[:, :1], -1), seg_s[:, :-1]], dim=1))
-    k8s_adds = int(used_s.sum().item() - heads_s.sum().item())
-    kernels[-1]["skewed_stream"] = {
-        "scalars": "every scalar 1 (GLV half-scalars 1 and 0)", "ms": k8s_ms, "plain_ms": k8s_plain_ms,
-        "max_abs_err": k8s_err, "adds": k8s_adds,
-        "longest_segment": int(torch.stack([torch.bincount(row[row < BB], minlength=BB).max()
-                                            for row in seg_s]).max().item()),
-        **dict(zip(("bound_ms", "bound_by"), bound(2 * 3 * NW * 4 * WB * KB + 4 * WB * KB, k8s_adds * ADD))),
-    }
-    del pieces_s, seg_s, k8s_out, k8s_ref, ones
+    _, k8s = k8_case(curve, pieces_s, seg_s, TB, BB, link_us["add_lane"])
+    check(k8s["max_abs_err"] == 0,
+          f"segscan on the skewed stream at path B's shape disagrees with plain (max |err| {k8s['max_abs_err']})")
+    k8s["scalars"] = "every scalar 1 (GLV half-scalars 1 and 0)"
+    k8s["bound_ms"], k8s["bound_by"] = bound(2 * 3 * NW * 4 * WB * KB + 4 * WB * KB, k8s["adds"] * ADD)
+    del pieces_s, seg_s, ones
+    b_ms, b_by = bound(2 * 3 * NW * 4 * WB * KB + 4 * WB * KB, k8["adds"] * ADD)
+    kernels.append({
+        "name": "segscan", "route": "cuda",
+        "source": "zprize_wasm_msm_tpu_torch/csrc/sorted.cu",
+        "replaces": "zprize_wasm_msm_tpu/ops/msm/pl_sorted.py:238",
+        "launches": path_b["launches"]["segscan"], "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        **k8, "x_bound": k8["ms"] / b_ms, "tile": pl_sorted.SCAN_TILE, "link_us": link_us["add_lane"],
+        "skewed_stream": k8s, "no_library_because": ops_library,
+        **sweep_res[("segscan", NW)], "fix_up_resources": sweep_res[("segscan (fix-up)", NW)],
+        "shape": f"({L},{WB},{KB})x3, seg ({WB},{KB}) -> ({L},{WB},{KB})x3; ms is the wrapper; "
+                 "skewed_stream: path B's bases with every scalar 1",
+        "compared": "every entry as an affine point against segscan_plain (Hillis-Steele rounds)",
+    })
 
     # K2 and K3 at path B's shapes and K1, K4, K3 at path A's: times only
     # (each is held against its plain version above at both small and full shapes)
@@ -2121,20 +2091,14 @@ def main() -> None:
     state_g = k1g_runs[-1][0]
     k1g_runs = [ms for _, ms in k1g_runs]
     k1g_ms = sorted(k1g_runs)[1]  # the median of three
-    # K4 over Fq2 and its former two-slot form in turns (old, new, new, old),
-    # each at the lanes its own residency gives
-    lane_reduce_two_slots(g2, state_g)
-    k4g_runs = {"new": [], "old": []}
-    for form in ("old", "new", "new", "old"):
-        if form == "new":
-            buckets_g, ms = sync_ms(lambda: pl_reduce._lane_reduce_state(g2, state_g))
-        else:
-            (k4g_old, k4g_old_lanes), ms = sync_ms(lambda: lane_reduce_two_slots(g2, state_g))
-        k4g_runs[form].append(ms)
-    k4g_ms, k4g_old_ms = (sum(k4g_runs[f]) / 2 for f in ("new", "old"))
-    k4g_old_err = affine_err(g2, k4g_old, buckets_g)
-    check(k4g_old_err == 0, f"the two-slot lane reduction over Fq2 differs from the one-slot (max |err| {k4g_old_err})")
-    del words_g, k4g_old
+    # K4 over Fq2 on the sweep's state: a warm-up, then two timed launches
+    pl_reduce._lane_reduce_state(g2, state_g)
+    k4g_runs = []
+    for _ in range(2):
+        buckets_g, ms = sync_ms(lambda: pl_reduce._lane_reduce_state(g2, state_g))
+        k4g_runs.append(ms)
+    k4g_ms = sum(k4g_runs) / 2
+    del words_g
     k1g_resident = pl_bucket.resident_threads(g2, dev)
     t0 = time.perf_counter()
     plain_g = pippenger._bucket_sweep_plain(g2, (Xg, Yg), digits_g[:SUB_W].contiguous(), PLAIN_LANES_G2, cg)
@@ -2181,33 +2145,34 @@ def main() -> None:
         "lanes": pl_reduce._reduce_lanes(Wg * Bg, Tg, pl_reduce._reduce_resident_threads(NW, 2, 0)),
         "partials_per_lane": Wg * Bg * Tg / pl_reduce._reduce_lanes(
             Wg * Bg, Tg, pl_reduce._reduce_resident_threads(NW, 2, 0)),
-        "ms_runs": k4g_runs["new"],
-        "old_ms": k4g_old_ms, "old_ms_runs": k4g_runs["old"], "old_lanes": k4g_old_lanes,
-        "old_max_abs_err": k4g_old_err,
-        "old_resources": fq2_res[("lane_reduce (two slots)", NW)],
-        "old_is": "the partials in two slots (lane_reduce_kernel<NW, 2, 2>), timed in turns with the "
-                  "one-slot form in this run: old, new, new, old",
+        "ms_runs": k4g_runs, "ms_is": "the mean of ms_runs, two timed launches after a warm-up",
         **fq2_res[("lane_reduce", NW)], "combine_ptxas": fq2_res[("lane_reduce (combine)", NW)]["ptxas"],
         "shape": f"state ({Wg},{Tg},{Bg},3x{EW}w) -> ({LG},{Wg},{Bg})x3; ms is _lane_reduce_state",
         "compared": "as affine points against the plain lane tree on the same state",
     })
-    # the links of the Fq2 fold's chain: one level-parallel doubling and
-    # addition over Fq2, each a chain of 500 in one warp
+    # the links of the Fq2 reductions' chains, each a chain of 500: one
+    # level-parallel doubling and addition over Fq2 on one warp (the fold's,
+    # the collapse's), and on 2 and 4 warps of one SM side by side (the
+    # collapse runs 4 a SM); one one-lane complete add (K8's)
     pg1 = tuple(x[:, :1, 0].contiguous() for x in buckets_g)
     pg2 = tuple(x[:, 1:2, 0].contiguous() for x in buckets_g)
-    link2_us = {}
-    for op in ("double_coop", "add_coop"):
-        device_check.group_chain(g2, op, pg1, pg2, 10)
-        _, ms = sync_ms(lambda: device_check.group_chain(g2, op, pg1, pg2, 500), 2)
-        link2_us[op] = ms / 500 * 1e3
-    # K2: the wrapper (3 calls), its depth floor at the Fq2 links
+    link2_us, link2_by_warps = {}, {}
+    for op, warps in (("double_coop", 1), ("add_coop", 1), ("add_lane", 1), ("double_coop", 2),
+                      ("add_coop", 2), ("double_coop", 4), ("add_coop", 4)):
+        device_check.group_chain(g2, op, pg1, pg2, 10, warps)
+        _, ms = sync_ms(lambda: device_check.group_chain(g2, op, pg1, pg2, 500, warps), 2)
+        if warps == 1:
+            link2_us[op] = ms / 500 * 1e3
+        if op != "add_lane":
+            link2_by_warps[f"{op}, {warps} warps a SM"] = ms / 500 * 1e3
+    links2_at_4 = {op: link2_by_warps[f"{op}, 4 warps a SM"] for op in ("add_coop", "double_coop")}
+    # K2: the wrapper (3 calls), its plan and times at every run length, its
+    # depth floor at the Fq2 links (of one warp alone, and of 4 warps a SM)
     pl_reduce.collapse(g2, buckets_g)
     sums_g, k2g_ms = sync_ms(lambda: pl_reduce.collapse(g2, buckets_g), 3)
     k2g_ref, k2g_plain_ms = staged(lambda: pl_reduce.collapse_plain(g2, buckets_g))
     k2g_err = affine_err(g2, sums_g, k2g_ref)
     check(k2g_err == 0, f"collapse over Fq2 at path G2's shape disagrees with plain (max |err| {k2g_err})")
-    m_g = pl_reduce._collapse_run(Wg, Bg, pl_reduce._collapse_wave_groups(NW, 0))
-    adds_g, dbls_g = pl_reduce._collapse_links(Bg, m_g)
     b_ms, b_by = bound((Wg * Bg + Wg) * 3 * EW * 4, Wg * 2 * (Bg - 1) * ADD2)
     fq2_entries.append({
         "name": "collapse_fq2", "route": "cuda",
@@ -2215,10 +2180,9 @@ def main() -> None:
         "replaces": "zprize_wasm_msm_tpu/ops/msm/pl_reduce.py:353",
         "launches": path_g2["launches"]["collapse"], "max_abs_err": k2g_err, "ms": k2g_ms,
         "plain_ms": k2g_plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "buckets_per_run": m_g, "groups": Wg * Bg // m_g,
-        "depth_links": {"additions": adds_g, "doublings": dbls_g},
-        "depth_floor_ms": (adds_g * link2_us["add_coop"] + dbls_g * link2_us["double_coop"]) / 1e3,
-        "link_us": link2_us,
+        **k2_entry(buckets_g, Wg, Bg, k2g_ref, g2, link2_us),
+        "depth_floor_ms_at_4_warps": k2_floor(Wg, Bg, g2, links2_at_4)[2],
+        "link_us": link2_us, "link_us_by_warps_a_sm": link2_by_warps,
         "collapse_resources": fq2_res[("collapse", NW)],
         "combine_resources": fq2_res[("collapse (combine)", NW)],
         "shape": f"({LG},{Wg},{Bg})x3 -> ({LG},{Wg})x3; ms is the pl_reduce.collapse wrapper, 3 calls",
@@ -2277,63 +2241,26 @@ def main() -> None:
                     f"0-{SUB_WS - 1} of {Wgs} (plain_ms: those windows)",
     })
     # K8 over Fq2 on the sweep's own entries and on the skewed stream's,
-    # against its plain version and, in turns (old, new, new, old), against
-    # the former walk of one thread a segment head
-    def k8g_case(pieces_, seg_):
-        pl_sorted.segscan(g2, pieces_, seg_, TGs)
-        segscan_walk(g2, pieces_, seg_)
-        runs = {"new": [], "old": []}
-        pl_sorted.scan_kernels["segscan"] = 0
-        for form in ("old", "new", "new", "old"):
-            if form == "new":
-                out_, ms = sync_ms(lambda: pl_sorted.segscan(g2, pieces_, seg_, TGs))
-            else:
-                old_, ms = sync_ms(lambda: segscan_walk(g2, pieces_, seg_))
-            runs[form].append(ms)
-        # the device kernels a call launched, as zp_segscan_limbs counts them
-        kernels, model = pl_sorted.scan_kernels["segscan"], pl_sorted.scan_kernel_count(seg_.shape[1])
-        check(kernels == model * len(runs["new"]),
-              f"the Fq2 scan launched {kernels} kernels in {len(runs['new'])} calls; its schedule has {model} a call")
-        ref_, plain_ms = staged(lambda: pl_sorted.segscan_plain(g2, pieces_, seg_, TGs))
-        err, old_err = affine_err(g2, out_, ref_), affine_err(g2, old_, ref_)
-        used = seg_ < Bgs
-        heads = used & (seg_ != torch.cat([torch.full_like(seg_[:, :1], -1), seg_[:, :-1]], dim=1))
-        longest = int(torch.stack([torch.bincount(row[row < Bgs], minlength=Bgs).max() for row in seg_]).max().item())
-        return out_, {
-            "ms": sum(runs["new"]) / 2, "ms_runs": runs["new"], "plain_ms": plain_ms, "max_abs_err": err,
-            "old_ms": sum(runs["old"]) / 2, "old_ms_runs": runs["old"], "old_max_abs_err": old_err,
-            "adds": int(used.sum().item() - heads.sum().item()), "entries_in_use": int(used.sum().item()),
-            "longest_segment": longest, "kernels_per_call": kernels // len(runs["new"]),
-            # counted from seg by the schedule's model (pl_sorted.scan_depth), not measured
-            "depth_model": pl_sorted.scan_depth(seg_),
-        }
-
-    k8g_out, k8g = k8g_case(pieces_gs, seg_gs)
-    check(k8g["max_abs_err"] == k8g["old_max_abs_err"] == 0,
-          f"segscan over Fq2 at path G2-sorted's shape disagrees with plain (max |err| {k8g['max_abs_err']}, "
-          f"the walk {k8g['old_max_abs_err']})")
-    _, k8g_skew = k8g_case(pieces_sk, seg_sk)
-    check(k8g_skew["max_abs_err"] == k8g_skew["old_max_abs_err"] == 0,
-          f"segscan over Fq2 on the skewed stream disagrees with plain (max |err| {k8g_skew['max_abs_err']}, "
-          f"the walk {k8g_skew['old_max_abs_err']})")
+    # against its plain version (k8_case above)
+    k8g_out, k8g = k8_case(g2, pieces_gs, seg_gs, TGs, Bgs, link2_us["add_lane"])
+    check(k8g["max_abs_err"] == 0,
+          f"segscan over Fq2 at path G2-sorted's shape disagrees with plain (max |err| {k8g['max_abs_err']})")
+    _, k8g_skew = k8_case(g2, pieces_sk, seg_sk, TGs, Bgs, link2_us["add_lane"])
+    check(k8g_skew["max_abs_err"] == 0,
+          f"segscan over Fq2 on the skewed stream disagrees with plain (max |err| {k8g_skew['max_abs_err']})")
     check(k8g_skew["longest_segment"] == TGs, f"the skewed stream's longest segment is {k8g_skew['longest_segment']}")
     k8g_skew["bound_ms"], k8g_skew["bound_by"] = bound(2 * 3 * EW * 4 * Wgs * Kgs + 4 * Wgs * Kgs,
                                                        k8g_skew["adds"] * ADD2)
     del pieces_gs, pieces_sk
-    k8g_ms, k8g_err, k8g_adds = k8g["ms"], k8g["max_abs_err"], k8g["adds"]
-    b_ms, b_by = bound(2 * 3 * EW * 4 * Wgs * Kgs + 4 * Wgs * Kgs, k8g_adds * ADD2)
+    b_ms, b_by = bound(2 * 3 * EW * 4 * Wgs * Kgs + 4 * Wgs * Kgs, k8g["adds"] * ADD2)
     fq2_entries.append({
         "name": "segscan_fq2", "route": "cuda",
         "source": "zprize_wasm_msm_tpu_torch/csrc/sorted.cu",
         "replaces": "zprize_wasm_msm_tpu/ops/msm/pl_sorted.py:238",
         "launches": path_g2s["launches"]["segscan"], "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        **k8g, "x_bound": k8g_ms / b_ms,
-        "levels": pl_sorted.scan_levels(Kgs), "tile": pl_sorted.SCAN_TILE,
+        **k8g, "x_bound": k8g["ms"] / b_ms, "tile": pl_sorted.SCAN_TILE, "link_us": link2_us["add_lane"],
         "skewed_stream": k8g_skew,
-        "old_is": "the walk of one thread a segment head (segscan_walk2_kernel), timed in turns with the "
-                  "scan in this run: old, new, new, old",
         **fq2_res[("segscan", NW)], "fix_up_resources": fq2_res[("segscan (fix-up)", NW)],
-        "old_resources": fq2_res[("segscan (walk)", NW)],
         "shape": f"({LG},{Wgs},{Kgs})x3, seg ({Wgs},{Kgs}) -> ({LG},{Wgs},{Kgs})x3; ms is the wrapper; "
                  "skewed_stream: path G2's bases with every scalar 1",
         "compared": "every entry as an affine point against segscan_plain (Hillis-Steele rounds)",
@@ -2347,8 +2274,6 @@ def main() -> None:
     k2gs_ref, k2gs_plain_ms = staged(lambda: pl_reduce.collapse_plain(g2, dense_gs))
     k2gs_err = affine_err(g2, sums_gs, k2gs_ref)
     check(k2gs_err == 0, f"collapse over Fq2 at B = {Bgs} disagrees with plain (max |err| {k2gs_err})")
-    m_gs = pl_reduce._collapse_run(Wgs, Bgs, pl_reduce._collapse_wave_groups(NW, 0))
-    adds_gs, dbls_gs = pl_reduce._collapse_links(Bgs, m_gs)
     fold_gs = tuple(a[:, :, None].contiguous() for a in sums_gs)
     pl_reduce.finish(g2, fold_gs, cgs)
     k3gs_out, k3gs_ms = sync_ms(lambda: pl_reduce.finish(g2, fold_gs, cgs), 3)
@@ -2361,8 +2286,8 @@ def main() -> None:
             "shape": f"({LG},{Wgs},{Bgs})x3", "ms": k2gs_ms, "plain_ms": k2gs_plain_ms, "max_abs_err": k2gs_err,
             **dict(zip(("bound_ms", "bound_by"), bound((Wgs * Bgs + Wgs) * 3 * EW * 4,
                                                        Wgs * 2 * (Bgs - 1) * ADD2))),
-            "buckets_per_run": m_gs, "groups": Wgs * Bgs // m_gs,
-            "depth_floor_ms": (adds_gs * link2_us["add_coop"] + dbls_gs * link2_us["double_coop"]) / 1e3}},
+            **k2_entry(dense_gs, Wgs, Bgs, k2gs_ref, g2, link2_us),
+            "depth_floor_ms_at_4_warps": k2_floor(Wgs, Bgs, g2, links2_at_4)[2]}},
         "finish_fq2": {"path_G2_sorted": {
             "shape": f"({LG},{Wgs},1)x3, c={cgs}", "ms": k3gs_ms, "plain_ms": k3gs_plain_ms, "max_abs_err": k3gs_err,
             **dict(zip(("bound_ms", "bound_by"), bound((Wgs + 1) * 3 * EW * 4,

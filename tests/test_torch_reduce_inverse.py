@@ -1,7 +1,8 @@
 """PyTorch port, the collapse (K2) and the field inversion modelled on the
 CPU as csrc/reduce.cu and csrc/field_kernels.cu run them.
 
-K2 (collapse_kernel + combine_kernel): group G of lanes takes the run of m
+K2 (collapse_kernel + combine_kernel, over Fq2 collapse2_kernel +
+combine2_kernel): group G of lanes takes the run of m
 buckets G m .. G m + m - 1 (m from pl_reduce._collapse_run), walks it from
 the top bucket down (R += S_b, A += R), sets Rs = m R, and the groups of a
 block of 128 lanes combine their runs in a tree, partners G ^ 1, G ^ 2, ...:
@@ -10,7 +11,7 @@ Where a window's runs span several blocks, each block's first group leaves
 its pair and combine_kernel runs the same tree over the pairs, until one is
 left per window.  collapse_schedule below runs that schedule group for
 group on the port's plain group ops and is held, as affine points, against
-the JAX package's pippenger.bucket_reduce.
+the JAX package's pippenger.bucket_reduce, on toy and on toy_g2.
 
 The inversion (field_inverse_kernel): a binary extended GCD of fixed
 length (Pornin, IACR ePrint 2020/972): ceil((2 bits(q) - 1) / 31) outer
@@ -32,6 +33,7 @@ from hypothesis import strategies as st
 
 from zprize_wasm_msm_tpu.ops.field import mont as ref_mont
 from zprize_wasm_msm_tpu.ops.msm import pippenger as ref_pippenger
+import zprize_wasm_msm_tpu_torch as ZT
 from zprize_wasm_msm_tpu_torch.models import curves as port_curves
 from zprize_wasm_msm_tpu_torch.ops.curve import group
 from zprize_wasm_msm_tpu_torch.ops.field import kernels
@@ -41,6 +43,8 @@ from zprize_wasm_msm_tpu_torch.utils.limbs import ints_to_limbs, limbs_to_ints
 from tests._torch_helpers import (
     CURVE_PAIRS, affine_np, host_points, oracle_of, random_points, to_jax, to_torch, torch_np,
 )
+from tests.test_torch_g2_sorted import G2, REF as REF_G2, _points as g2_points, oracle_of as g2_oracle_of
+from tests.test_torch_g2_sorted import port_affine, ref_affine
 
 NAMES = ["toy", "bn254", "bls12_381"]
 M32 = (1 << 32) - 1
@@ -331,6 +335,39 @@ def test_collapse_schedule_matches_reference(B):
         part = tuple(a[:, w0 : w0 + W] for a in bk)
         for wave, lanes in ((528, 32), (2112, 8), (6336, 8), (3, 8), (5, 16)):
             got = _affine(TOY, collapse_schedule(TOY, part, wave, lanes))
+            assert got == want[w0 : w0 + W], (W, wave, lanes)
+        w0 += W
+
+
+def _buckets_g2(B, seed):
+    """Windows of W = 1, 15 and 38 side by side on toy_g2, (2L, 54, B): as
+    _buckets, over Fq2."""
+    nwin = sum(WINDOWS)
+    pts, _ = g2_points(nwin * B, seed=seed)
+    for i in range(0, len(pts), 5):
+        pts[i] = None
+    if B >= 2:
+        oc = g2_oracle_of(G2)
+        pts[1 * B + 1] = oc.neg(pts[1 * B]) if pts[1 * B] else pts[1 * B + 1]
+        pts[3 * B] = oc.neg(pts[3 * B + 1]) if pts[3 * B + 1] else pts[3 * B]
+    for b in range(B):
+        pts[4 * B + b] = pts[7]  # every bucket the same point
+    P = group.from_affine(G2, ZT.build_curve(G2, device="cpu").points_to_device(pts))
+    return tuple(a.reshape(a.shape[0], nwin, B) for a in P)
+
+
+@pytest.mark.parametrize("B", [2, 64])
+def test_collapse_schedule_matches_reference_fq2(B):
+    """The schedule over Fq2 (toy_g2; csrc/reduce.cu collapse2_kernel +
+    combine2_kernel), W in (1, 15, 38), against the JAX package's
+    bucket_reduce, with the same plans of groups as over Fq."""
+    bk = _buckets_g2(B, seed=180 + B)
+    want = ref_affine(ref_pippenger.bucket_reduce(REF_G2, tuple(to_jax(torch_np(a)) for a in bk)))
+    w0 = 0
+    for W in WINDOWS:
+        part = tuple(a[:, w0 : w0 + W] for a in bk)
+        for wave, lanes in ((528, 32), (2112, 8), (6336, 8), (3, 8), (5, 16)):
+            got = port_affine(collapse_schedule(G2, part, wave, lanes))
             assert got == want[w0 : w0 + W], (W, wave, lanes)
         w0 += W
 

@@ -1,11 +1,13 @@
-"""PyTorch port, the redesigned Fq2 reductions of the sorted and bucket
-engines on toy_g2, against the JAX package.
+"""PyTorch port, the redesigned reductions of the sorted and bucket
+engines on toy_g2 (and the scan on toy), against the JAX package.
 
-K8 over Fq2 (csrc/sorted.cu segscan_tile_kernel, segscan_fix_kernel) is a
-segmented scan of log depth in tiles of 32 entries and levels;
+K8 (csrc/sorted.cu segscan_tile_kernel, segscan_fix_kernel, over Fq and
+Fq2) is a segmented scan of log depth in tiles of 32 entries and levels;
 ``segscan_tiles`` below is its schedule slot for slot on the port's plain
 group ops, held against ``pl_sorted.segscan_plain`` and the JAX package's
-``_segscan_xla`` on seg layouts aimed at the tiles and levels.  K4 over Fq2
+``_segscan_xla`` on seg layouts aimed at the tiles and levels, on toy_g2
+and on the Fq curve toy (over Fq the kernel passes a round's values by
+shuffles instead of shared slots: the same values).  K4 over Fq2
 (csrc/bucket.cu lane_reduce_kernel<NW, 2>) runs one partial slot at 8 warps
 a SM: its lanes at path G2's shape, and its even split at 32 partials a
 lane (tests/test_torch_msm.py ``lane_reduce_schedule``) against the JAX
@@ -29,7 +31,9 @@ from zprize_wasm_msm_tpu_torch.ops.msm import pippenger, pl_reduce, pl_sorted, w
 
 from zprize_wasm_msm_tpu_torch.utils.limbs import ints_to_limbs
 
-from tests._torch_helpers import to_jax, to_torch, torch_np
+from zprize_wasm_msm_tpu.ops.curve import group as ref_group
+
+from tests._torch_helpers import CURVE_PAIRS, affine_np, host_points, random_points, to_jax, to_torch, torch_np
 from tests.test_torch_g2_sorted import G2, REF, _points, port_affine, ref_affine
 from tests.test_torch_msm import lane_reduce_schedule
 
@@ -108,12 +112,21 @@ def seg_layouts(K, seed):
     return torch.as_tensor(np.stack(rows).astype(np.int32))
 
 
-def scan_pieces(W, K, seed):
-    """(L, W, K) x3 projective pieces on toy_g2: multiples of the generator,
-    identities among them, on representatives with Z != 1."""
-    _, (X, Y) = _points(W * K, seed=seed)
-    P = group.from_affine(G2, (X, Y))
-    P = group.double(G2, P)  # Z != 1; the identity stays the identity
+REF_FQ, FQ = CURVE_PAIRS["toy"]
+
+
+def scan_pieces(W, K, seed, curve=G2):
+    """(L, W, K) x3 projective pieces on toy_g2 (or the Fq curve toy):
+    multiples of the generator, identities among them, on representatives
+    with Z != 1."""
+    if curve.ext == 2:
+        _, (X, Y) = _points(W * K, seed=seed)
+    else:
+        base = random_points(curve, 96, seed, bound=curve.r)
+        base[7] = None
+        X, Y = to_torch(affine_np(curve, [base[i % 96] for i in range(W * K)]))
+    P = group.from_affine(curve, (X, Y))
+    P = group.double(curve, P)  # Z != 1; the identity stays the identity
     perm = torch.as_tensor(np.random.default_rng(seed + 1).permutation(W * K))
     return tuple(a[:, perm].reshape(a.shape[0], W, K).contiguous() for a in P)
 
@@ -149,6 +162,38 @@ def test_tile_schedule_matches_plain_at_level_edges(K):
     got = segscan_tiles(G2, pieces, seg)
     want = pl_sorted.segscan_plain(G2, pieces, seg, K)
     assert port_affine(got) == port_affine(want)
+
+
+def fq_affine(res):
+    """Port (L, ...) x3 points on toy -> python affine points."""
+    x, y = group.to_affine(FQ, tuple(c.reshape(c.shape[0], -1) for c in res))
+    return host_points(FQ, torch_np(x), torch_np(y))
+
+
+def test_fq_tile_schedule_matches_reference_xla_and_plain():
+    """Over Fq (toy): every entry of every layout at K_JAX (three levels),
+    W = 8 rows in one call, against the JAX package's plain scan and
+    segscan_plain."""
+    seg = seg_layouts(K_JAX, seed=97)
+    pieces = scan_pieces(seg.shape[0], K_JAX, seed=98, curve=FQ)
+    ref = ref_pl_sorted._segscan_xla(REF_FQ, *to_jax(torch_np(pieces)), to_jax(seg.numpy()),
+                                     math.ceil(math.log2(K_JAX)))
+    x, y = ref_group.to_affine(REF_FQ, tuple(ref))
+    got = segscan_tiles(FQ, pieces, seg)
+    want = pl_sorted.segscan_plain(FQ, pieces, seg, K_JAX)
+    assert fq_affine(got) == fq_affine(want) == host_points(FQ, np.asarray(x), np.asarray(y))
+    assert any(p is not None for p in fq_affine(tuple(a[:, 1, -1:] for a in got)))
+
+
+@pytest.mark.parametrize("K", [5, 33, 1056, 1536])
+def test_fq_tile_schedule_matches_plain_at_level_edges(K):
+    """Over Fq (toy): one tile, a level of one element, a second level of 33
+    (its ragged tile fixed up), and path B's K; every layout."""
+    seg = seg_layouts(K, seed=99 + K)
+    pieces = scan_pieces(seg.shape[0], K, seed=100, curve=FQ)
+    got = segscan_tiles(FQ, pieces, seg)
+    want = pl_sorted.segscan_plain(FQ, pieces, seg, K)
+    assert fq_affine(got) == fq_affine(want)
 
 
 def test_scan_levels_and_depth():

@@ -330,8 +330,6 @@ __global__ void __launch_bounds__(SWEEP2_THREADS, 1)
 // the add's three scratch elements): 8 one-warp blocks a SM, the register
 // file's limit at <= 255 registers, where two slots (1 152 bytes) left 6,
 // and _reduce_lanes then fills a wave of 33 792 lanes on 132 SMs.
-// SLOTS = 2 over Fq2 is that former form, kept as the baseline chip_smoke.py
-// times against (zp_lane_reduce_two_slots).
 template <int NW, int EXT, int SLOTS = reduce_slots<EXT>()>
 __global__ void __launch_bounds__(reduce_threads<EXT>(), EXT == 1 ? 3 : 1)
     lane_reduce_kernel(const uint32_t* __restrict__ state, uint32_t* __restrict__ out,
@@ -535,11 +533,11 @@ extern "C" int zp_bucket_sweep_info(int nw, int ext, int* out) {
 // (a multiple of 32, at least W*B); pieces: scratch of 3 EXT NW words twice
 // per warp (the warps' first and last pieces), then once per lane (parked
 // heads).
-template <int NW, int EXT, int SLOTS>
+template <int NW, int EXT>
 static void lane_reduce_launch(const uint32_t* state, uint32_t* out, uint32_t* pieces, int W,
                                int T, int B, int N, cudaStream_t stream) {
   constexpr int RT = reduce_threads<EXT>();
-  lane_reduce_kernel<NW, EXT, SLOTS><<<(unsigned)((N + RT - 1) / RT), RT, 0, stream>>>(
+  lane_reduce_kernel<NW, EXT><<<(unsigned)((N + RT - 1) / RT), RT, 0, stream>>>(
       state, out, pieces, W, T, B, N);
   if (N > 32)
     lane_combine_kernel<NW, EXT><<<(unsigned)(((long)W * B + RT - 1) / RT), RT, 0, stream>>>(
@@ -553,38 +551,19 @@ extern "C" int zp_lane_reduce(int nw, int ext, const uint32_t* host_consts,
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   int err = zp_set_consts(nw, host_consts, stream);
   if (err) return err;
-#define CALL(NW_, EXT_) \
-  lane_reduce_launch<NW_, EXT_, reduce_slots<EXT_>()>(state, out, pieces, W, T, B, N, stream)
+#define CALL(NW_, EXT_) lane_reduce_launch<NW_, EXT_>(state, out, pieces, W, T, B, N, stream)
   ZP_DISPATCH_NW_EXT(nw, ext, CALL)
 #undef CALL
   return (int)cudaGetLastError();
 }
 
-// The baseline of the Fq2 lane reduction: zp_lane_reduce at ext = 2 with
-// the partials in two slots (lane_reduce_kernel<NW, 2, 2>, 6 warps a SM).
-extern "C" int zp_lane_reduce_two_slots(int nw, const uint32_t* host_consts,
-                                        const uint32_t* state, uint32_t* out, uint32_t* pieces,
-                                        int W, int T, int B, int N, void* stream_ptr) {
-  if (N % 32 || N < W * B) return -2;
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  int err = zp_set_consts(nw, host_consts, stream);
-  if (err) return err;
-#define CALL(NW_) lane_reduce_launch<NW_, 2, 2>(state, out, pieces, W, T, B, N, stream)
-  ZP_DISPATCH_NW(nw, CALL)
-#undef CALL
-  return (int)cudaGetLastError();
-}
-
 // out[0..4]: registers, local bytes, static shared bytes, resident blocks
-// per SM of lane_reduce_kernel<nw, ext> (which = 0), lane_combine_kernel
-// (which = 1) or the two-slot baseline lane_reduce_kernel<nw, ext, 2>
-// (which = 2) (zp_kernel_info).
+// per SM of lane_reduce_kernel<nw, ext> (which = 0) or lane_combine_kernel
+// (which = 1) (zp_kernel_info).
 extern "C" int zp_lane_reduce_info(int nw, int ext, int which, int* out) {
 #define CALL(NW_, EXT_)                                                                        \
   if (which == 1)                                                                              \
     return zp_kernel_info(lane_combine_kernel<NW_, EXT_>, reduce_threads<EXT_>(), out);         \
-  if (which == 2)                                                                              \
-    return zp_kernel_info(lane_reduce_kernel<NW_, EXT_, 2>, reduce_threads<EXT_>(), out);      \
   return zp_kernel_info(lane_reduce_kernel<NW_, EXT_>, reduce_threads<EXT_>(), out)
   ZP_DISPATCH_NW_EXT(nw, ext, CALL)
 #undef CALL

@@ -118,15 +118,16 @@ __global__ void __launch_bounds__(64)
   if (sub == 0 && t / GL < n) pt_store_soa<NW>(r, (size_t)n, (size_t)i, a);
 }
 
-// One warp runs `reps` dependent level-parallel ops on one point: op 0
-// doublings of p, op 1 additions of q into p (the links of the window
-// fold's chain, timed by chip_smoke.py for K3's depth floor).  p, q, r:
-// [3][EXT NW][1] words.
+// Each warp of one block (one SM) runs `reps` dependent level-parallel ops
+// on one point: op 0 doublings of p, op 1 additions of q into p (the links
+// of the window fold's chain and of the collapse's, timed by chip_smoke.py
+// for their depth floors, alone and beside other warps on the SM).  p, q,
+// r: [3][EXT NW][1] words.
 template <int NW, int PL, int EXT>
-__global__ void __launch_bounds__(32)
+__global__ void __launch_bounds__(128)
     group_chain_kernel(int op, const uint32_t* p, const uint32_t* q, uint32_t* r, int reps,
                        uint32_t b3k) {
-  constexpr int GL = 8 * PL, GS = 32 / GL;
+  constexpr int GL = 8 * PL, GS = 128 / GL;
   const int sub = threadIdx.x % GL, g = threadIdx.x / GL;
   Pt<NW, EXT> a_own, b_own;
   Pt<NW, EXT>& a = work_point<NW, EXT, 2 * GS>(a_own, g);
@@ -138,6 +139,29 @@ __global__ void __launch_bounds__(32)
     else pt_add_par<NW, PL>(a, a, b, sub, b3k);
   }
   if (threadIdx.x == 0) pt_store_soa<NW>(r, 1, 0, a);
+}
+
+// One warp, each lane running `reps` dependent one-lane complete adds of q
+// into p (pt_add_acc as the segmented scan runs it: over Fq in registers on
+// the 64-bit-row product, over Fq2 on points in shared memory).
+template <int NW, int EXT>
+__global__ void __launch_bounds__(FQ2_BLOCK, 1)
+    lane_chain_kernel(const uint32_t* p, const uint32_t* q, uint32_t* r, int reps) {
+  if constexpr (EXT == 1) {
+    Pt<NW> a, b;
+    pt_load_soa<NW>(a, p, 1, 0);
+    pt_load_soa<NW>(b, q, 1, 0);
+    for (int i = 0; i < reps; ++i) pt_add_acc<NW, false>(a, b);
+    if (threadIdx.x == 0) pt_store_soa<NW>(r, 1, 0, a);
+  } else {
+    __shared__ Pt<NW, EXT> sh[2][FQ2_BLOCK];
+    Pt<NW, EXT>& a = sh[0][threadIdx.x];
+    Pt<NW, EXT>& b = sh[1][threadIdx.x];
+    pt_load_soa<NW>(a, p, 1, 0);
+    pt_load_soa<NW>(b, q, 1, 0);
+    for (int i = 0; i < reps; ++i) pt_add_acc<NW, true>(a, b);
+    if (threadIdx.x == 0) pt_store_soa<NW>(r, 1, 0, a);
+  }
 }
 
 // op 0-5, 7: field_op_kernel, one thread per element; 6: fe_mul_coop.
@@ -198,23 +222,29 @@ extern "C" int zp_group_op(int nw, int ext, const uint32_t* host_consts, uint32_
 }
 
 // op 0 / 1: doublings / additions with a product to a lane (Fq only); 2 /
-// 3: with cooperative products.
+// 3: with cooperative products, on `warps` warps of one block (1, 2 or 4);
+// 4: one-lane complete additions (one warp).
 extern "C" int zp_group_chain(int nw, int ext, const uint32_t* host_consts, uint32_t b3k,
                               int op, const uint32_t* p, const uint32_t* q, uint32_t* r,
-                              int reps, void* stream_ptr) {
+                              int reps, int warps, void* stream_ptr) {
   if (ext == 1 && b3k == 0) return -5;
-  if (ext != 1 && op < 2) return -1;
+  if ((ext != 1 && op < 2) || op > 4 || warps < 1 || warps > 4 || (op == 4 && warps != 1)) return -1;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   int err = zp_set_consts(nw, host_consts, stream);
   if (err) return err;
   if (op < 2) {
-#define CALL(NW_) group_chain_kernel<NW_, 1, 1><<<1, 32, 0, stream>>>(op, p, q, r, reps, b3k)
+#define CALL(NW_) \
+  group_chain_kernel<NW_, 1, 1><<<1, 32 * warps, 0, stream>>>(op, p, q, r, reps, b3k)
     ZP_DISPATCH_NW(nw, CALL)
 #undef CALL
-  } else {
+  } else if (op < 4) {
 #define CALL(NW_, EXT_)                                    \
   group_chain_kernel<NW_, coop_lanes<NW_>(), EXT_>         \
-      <<<1, 32, 0, stream>>>(op - 2, p, q, r, reps, b3k)
+      <<<1, 32 * warps, 0, stream>>>(op - 2, p, q, r, reps, b3k)
+    ZP_DISPATCH_NW_EXT(nw, ext, CALL)
+#undef CALL
+  } else {
+#define CALL(NW_, EXT_) lane_chain_kernel<NW_, EXT_><<<1, FQ2_BLOCK, 0, stream>>>(p, q, r, reps)
     ZP_DISPATCH_NW_EXT(nw, ext, CALL)
 #undef CALL
   }

@@ -1,35 +1,51 @@
-"""A/B of whole builds of the lane reduction (K4) and the segmented scan (K8)
-on one card: K4 over Fq2 and over Fq, K8 over Fq2.
+"""A/B of whole builds of the MSM's reductions on one card: the lane
+reduction (K4), the segmented scan (K8) and the collapse (K2), each over Fq2
+and over Fq.
 
     python3 zprize_wasm_msm_tpu_torch/csrc/diag/ab_fq2_reductions.py \\
         --form old=OLD_CHECKOUT/zprize_wasm_msm_tpu_torch/csrc \\
-        --form new=zprize_wasm_msm_tpu_torch/csrc [--reps 4]
+        --form new=zprize_wasm_msm_tpu_torch/csrc \\
+        [--form NAME=CSRC:EDIT[,EDIT...]] [--reps 4]
 
-Each ``--form NAME=CSRC`` names a directory of kernel sources (for instance
-``csrc/`` of an unpacked ``git archive`` of another commit); its
-``bucket.cu`` and ``sorted.cu`` are built with the package's nvcc flags (all
-forms at once, ab_fq2_sweeps.build_forms) into ``build/ab/NAME/``.  The
-inputs are made once by the current package: path G2's data (BLS12-381 G2,
-2^20 bases and scalars from chip_smoke.py's seed) gives K1's state at c = 6
-for K4 over Fq2 and, through the sorted engine's stages at c = 10, K8's
-pieces; the same bases with every scalar 1 give the skewed stream's pieces
-(one segment of 1 024); BLS12-381 G1 at 2^20 with full scalars gives the
-full path's K1 state (c = 7) for K4 over Fq.  Each form launches K4 at the
-lanes pl_reduce._reduce_lanes gives its own residency (zp_lane_reduce_info),
-and K8 as its wrapper does: a form without ``zp_segscan_limbs`` packs the
-pieces to words, launches zp_segscan and unpacks (a form whose
-``zp_segscan_limbs`` reports its kernel count is given NULL for it).  The launches are timed
-with CUDA events in turns (forms in order on even rounds, reversed on odd
-ones); every form's result must equal the first form's as affine points.
-Prints one JSON line per form (residencies, lanes, times) and the card's
-name and power limit.  Needs a CUDA card and nvcc (CUDA_HOME, default
-/usr/local/cuda).
+Each ``--form NAME=CSRC[:EDITS]`` names a directory of kernel sources (for
+instance ``csrc/`` of an unpacked ``git archive`` of another commit) and,
+after a colon, edits from ``EDITS`` below: each turns one per-field design
+choice of these sources off, so that a form measures what the choice is
+worth; an edited form is a copy of CSRC under ``build/ab/NAME/csrc``.  Its
+``bucket.cu``, ``sorted.cu`` and ``reduce.cu`` are built with the package's
+nvcc flags (all forms at once, ab_fq2_sweeps.build_forms) into
+``build/ab/NAME/``.  The inputs are made once by the current package from
+chip_smoke.py's seeds:
+  * BLS12-381 G2, 2^20 bases and full scalars: K1's state at c = 6 (K4 over
+    Fq2) and its bucket sums (K2 over Fq2 at path G2's W = 44, B = 32); the
+    sorted engine's pieces at c = 10 (K8 over Fq2) and their dense buckets
+    (K2 over Fq2 at path G2-sorted's W = 27, B = 512); the same bases with
+    every scalar 1: the skewed stream's pieces (one segment of 1 024);
+  * BLS12-381 G1, 2^20 bases and full scalars: the full path's K1 state at
+    c = 7 (K4 over Fq) and its bucket sums (K2 over Fq, W = 38, B = 64);
+    after the GLV split, the sorted engine's pieces at c = 10 (K8 over Fq at
+    path B's shape) and their dense buckets (K2 over Fq at path B's W = 15,
+    B = 512); every scalar 1: path B's skewed stream.
+Each form launches K4 at the lanes pl_reduce._reduce_lanes gives its own
+residency (zp_lane_reduce_info); K8 as its wrapper does, on the limbs
+through ``zp_segscan_limbs`` (given NULL for the kernel count where its
+entry takes one), or, where that entry refuses the field, on words through
+``zp_segscan`` (the pieces packed before, the sums unpacked after); K2
+through ``zp_collapse`` at the run length pl_reduce._collapse_run picks on
+this card and, over Fq2, at every run length from 4 to 64 that fits B
+(``by_run``).
+The launches are timed with CUDA events in turns (forms in order on even
+rounds, reversed on odd ones); every form's result must equal the first
+form's as affine points.  Prints one JSON line per form (residencies,
+lanes, times) and the card's name and power limit.  Needs a CUDA card and
+nvcc (CUDA_HOME, default /usr/local/cuda).
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import shutil
 import subprocess
 import sys
 import time
@@ -46,6 +62,35 @@ import chip_smoke  # noqa: E402
 from ab_fq2_sweeps import build_forms, event_ms  # noqa: E402
 from zprize_wasm_msm_tpu_torch import _build  # noqa: E402
 
+STEMS = ("bucket", "sorted", "reduce")
+#: edits of a form's sources, each (file, text, replacement): a per-field
+#: choice turned off
+EDITS = {
+    # the Fq2 collapse's links inlined at every call site (reduce.cu)
+    "inline_links": ("reduce.cu", "links_out_of_line() {\n  return EXT == 2;",
+                     "links_out_of_line() {\n  return false;"),
+    # the Fq2 collapse's walk reading each bucket when it reaches it
+    "no_prefetch": ("reduce.cu", "walk_prefetch() {\n  return EXT == 2;", "walk_prefetch() {\n  return false;"),
+    # the Fq scan's adds on the carry-chain product instead of the 64-bit rows (sorted.cu)
+    "scan_fq_carry_chains": ("sorted.cu", "scan_carry_chains() {\n  return EXT == 2;",
+                             "scan_carry_chains() {\n  return true;"),
+}
+
+
+def edited(name: str, csrc: str, edits: str) -> str:
+    """A copy of csrc with the named edits applied (csrc itself if none)."""
+    if not edits:
+        return csrc
+    out = ROOT / "build" / "ab" / name / "csrc"
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(csrc, out)
+    for edit in edits.split(","):
+        fname, text, repl = EDITS[edit]
+        src = (out / fname).read_text()
+        chip_smoke.check(src.count(text) == 1, f"edit {edit}: its text is not once in {fname}")
+        (out / fname).write_text(src.replace(text, repl))
+    return str(out)
+
 
 def lane_info(lib, ext):
     fn = lib.zp_lane_reduce_info
@@ -58,26 +103,37 @@ def lane_info(lib, ext):
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--form", action="append", required=True, metavar="NAME=CSRC")
+    parser.add_argument("--form", action="append", required=True, metavar="NAME=CSRC[:EDITS]")
     parser.add_argument("--reps", type=int, default=4, help="rounds of turns (each form once a round)")
     args = parser.parse_args()
     chip_smoke.check(torch.cuda.is_available(), "no CUDA device")
     forms = []
     for spec in args.form:
-        name, csrc = spec.split("=", 1)
-        forms.append((name, str(Path(csrc).resolve()), ""))
+        name, rest = spec.split("=", 1)
+        csrc, _, edits = rest.partition(":")
+        forms.append((name, edited(name, str(Path(csrc).resolve()), edits), edits))
 
     from zprize_wasm_msm_tpu_torch import build_bls12381, build_curve
     from zprize_wasm_msm_tpu_torch.models.curves import bls12_381, bls12_381_g2 as g2
-    from zprize_wasm_msm_tpu_torch.ops.msm import _launch, pippenger, pl_bucket, pl_reduce, pl_sorted, windows
+    from zprize_wasm_msm_tpu_torch.ops.msm import _launch, glv, pippenger, pl_bucket, pl_reduce, pl_sorted, windows
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    libs, _ = build_forms(forms)
-    chip_smoke.emit({"built": {n: c for n, c, _ in forms}, "build_s": time.perf_counter() - t0})
+    libs, _ = build_forms(forms, STEMS)
+    chip_smoke.emit({"built": {n: [c, e] for n, c, e in forms}, "build_s": time.perf_counter() - t0})
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def sorted_stages(curve, pts, sc, bits):
+        d = windows.signed_window_digits(sc, 10, bits)
+        perm, skey, meta = pl_sorted.sort_runs(d, 10, pl_sorted.GRID)
+        slot, seg = pl_sorted.compact_index(skey, meta, 10, pl_sorted.GRID)
+        pieces = pl_sorted.sweep(curve, pts, perm, meta, slot, seg.shape[1], pl_sorted.GRID)
+        return pieces, seg
+
+    def dense(curve, pieces, seg):
+        return pl_sorted.scatter_dense(curve, pl_sorted.segscan(curve, pieces, seg, pl_sorted.GRID), seg, 10)
 
     # the inputs, made once by the current package
     ctx = build_curve(g2)
@@ -88,17 +144,12 @@ def main() -> None:
     T = pippenger._kernel_lanes(g2, digits.shape[0], n, None, dev)
     words = _launch.pack_point((X, Y))
     state_g2 = pl_bucket._sweep(g2, words[0], words[1], digits, T, 32)
+    buckets_g2 = pl_reduce._lane_reduce_state(g2, state_g2)
     del words, digits
-
-    def pieces_of(sc):
-        d = windows.signed_window_digits(sc, 10, 256)
-        perm, skey, meta = pl_sorted.sort_runs(d, 10, pl_sorted.GRID)
-        slot, seg = pl_sorted.compact_index(skey, meta, 10, pl_sorted.GRID)
-        return pl_sorted.sweep(g2, (X, Y), perm, meta, slot, seg.shape[1], pl_sorted.GRID), seg
-
     ones = torch.zeros_like(scalars)
     ones[0] = 1
-    scan_cases = {"G2-sorted": pieces_of(scalars), "skewed": pieces_of(ones)}
+    scan_g2 = {"G2-sorted": sorted_stages(g2, (X, Y), scalars, 256), "skewed": sorted_stages(g2, (X, Y), ones, 256)}
+    dense_g2s = dense(g2, *scan_g2["G2-sorted"])
     ctx1 = build_bls12381()
     (X1, Y1), scalars1, _ = chip_smoke.bases_and_scalars(ctx1, chip_smoke.LOG2N,
                                                          np.random.default_rng(chip_smoke.SEED), dev)
@@ -106,7 +157,16 @@ def main() -> None:
     T1 = pippenger._kernel_lanes(bls12_381, digits1.shape[0], n, None, dev)
     words1 = _launch.pack_point((X1, Y1))
     state_g1 = pl_bucket._sweep(bls12_381, words1[0], words1[1], digits1, T1, 64)
-    del words1, digits1, X1, Y1, scalars1
+    buckets_full = pl_reduce._lane_reduce_state(bls12_381, state_g1)
+    del words1, digits1
+    P2, k2 = glv.preprocess_endomorphism(bls12_381, (X1, Y1), scalars1)
+    ones1 = torch.zeros_like(scalars1)
+    ones1[0] = 1
+    P2s, k2s = glv.preprocess_endomorphism(bls12_381, (X1, Y1), ones1)
+    scan_g1 = {"B": sorted_stages(bls12_381, P2, k2, glv.MAX_BITS),
+               "skewed": sorted_stages(bls12_381, P2s, k2s, glv.MAX_BITS)}
+    dense_b = dense(bls12_381, *scan_g1["B"])
+    del X1, Y1, scalars1, P2, k2, P2s, k2s
     chip_smoke.emit({"inputs_s": time.perf_counter() - t0})
 
     def k4(lib, curve, state):
@@ -130,54 +190,93 @@ def main() -> None:
 
         return run, lanes
 
-    def k8(lib, csrc, pieces, seg):
+    def k8(lib, csrc, curve, pieces, seg):
         W, K = seg.shape
-        consts = _build.curve_consts(g2).ctypes.data_as(ctypes.c_void_p)
+        pieces = tuple(a.contiguous() for a in pieces)
+        NW, ext = curve.fq.n_words, curve.ext
+        consts = _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p)
         segc = seg.contiguous()
-        if hasattr(lib, "zp_segscan_limbs"):
-            fn = lib.zp_segscan_limbs
-            # a form whose entry reports its kernel count takes one pointer more
-            count = [None] if "int* kernels" in (Path(csrc) / "sorted.cu").read_text() else []
-            fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 \
-                + [ctypes.c_void_p] * (1 + len(count))
-
-            def run():
-                out = torch.empty((3,) + tuple(pieces[0].shape), dtype=torch.int64, device=dev)
-                err = fn(12, 2, consts, *(_launch.ptr(a) for a in pieces), _launch.ptr(segc), _launch.ptr(out),
-                         W, K, *count, _launch.stream_ptr())
-                _build.check_launch(err, "segscan_limbs")
-                return tuple(out)
-        else:
-            fn = lib.zp_segscan
-            fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-
-            def run():
-                P = _launch.pack_point(pieces)
-                out = torch.empty_like(P)
-                err = fn(12, 2, consts, _launch.ptr(P), _launch.ptr(segc), _launch.ptr(out), W, K,
-                         _launch.stream_ptr())
-                _build.check_launch(err, "segscan")
-                return _launch.unpack_point(out, (W, K))
+        fn = lib.zp_segscan_limbs
         fn.restype = ctypes.c_int
+        # an entry that reports its kernel count takes one pointer more
+        count = [None] if "int* kernels" in (Path(csrc) / "sorted.cu").read_text() else []
+        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 \
+            + [ctypes.c_void_p] * (1 + len(count))
+        out = torch.empty((3,) + tuple(pieces[0].shape), dtype=torch.int64, device=dev)
+
+        def limbs():
+            return fn(NW, ext, consts, *(_launch.ptr(a) for a in pieces), _launch.ptr(segc), _launch.ptr(out),
+                      W, K, *count, _launch.stream_ptr())
+
+        err = limbs()
+        if err == 0:
+            def run():
+                _build.check_launch(limbs(), "segscan_limbs")
+                return tuple(out)
+            return run
+        chip_smoke.check(err == -1 and ext == 1, f"zp_segscan_limbs refused the scan over ext {ext} ({err})")
+        wfn = lib.zp_segscan  # the word entry of a form whose limb entry is Fq2 only
+        wfn.restype = ctypes.c_int
+        wfn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+
+        def run():
+            P = _launch.pack_point(pieces)
+            wout = torch.empty_like(P)
+            err = wfn(NW, ext, consts, _launch.ptr(P), _launch.ptr(segc), _launch.ptr(wout), W, K,
+                      _launch.stream_ptr())
+            _build.check_launch(err, "segscan")
+            return _launch.unpack_point(wout, (W, K))
+
+        return run
+
+    def k2(lib, curve, buckets, m=0):
+        NW = curve.fq.n_words
+        L, W, B = buckets[0].shape
+        EW = L // 2
+        m = m or pl_reduce._collapse_run(W, B, pl_reduce._collapse_wave_groups(NW, 0))
+        bx, by, bz = (t.contiguous() for t in buckets)
+        cap = max(1, W * B // m // (pl_reduce.COLLAPSE_THREADS // pl_reduce._collapse_lanes(NW)))
+        scratch = torch.empty((3 * EW * W + 2 * 2 * 3 * EW * cap,), dtype=torch.int32, device=dev)
+        out = torch.empty((3, L, W), dtype=torch.int64, device=dev)
+        fn = lib.zp_collapse
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32] + [ctypes.c_void_p] * 5
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        consts = _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p)
+
+        def run():
+            err = fn(NW, curve.ext, consts, _build.fold_b3k(curve), _launch.ptr(bx), _launch.ptr(by),
+                     _launch.ptr(bz), _launch.ptr(out), _launch.ptr(scratch), W, B, m, _launch.stream_ptr())
+            _build.check_launch(err, "collapse")
+            return tuple(out)
+
         return run
 
     runs, lanes = {}, {}
     for name, csrc, _ in forms:
-        lib_b, lib_s = libs[csrc]["bucket"], libs[csrc]["sorted"]
+        lib_b, lib_s, lib_r = (libs[csrc][stem] for stem in STEMS)
         r4g2, lanes[(name, "k4_fq2")] = k4(lib_b, g2, state_g2)
         r4g1, lanes[(name, "k4_fq")] = k4(lib_b, bls12_381, state_g1)
-        runs[name] = {"k4_fq2_ms": r4g2, "k4_fq_ms": r4g1,
-                      **{f"k8_fq2_{case}_ms": k8(lib_s, csrc, *pieces_seg) for case, pieces_seg in scan_cases.items()}}
-    curve_of = {"k4_fq2_ms": g2, "k4_fq_ms": bls12_381}
+        runs[name] = {
+            "k4_fq2_ms": r4g2, "k4_fq_ms": r4g1,
+            **{f"k8_fq2_{case}_ms": k8(lib_s, csrc, g2, *ps) for case, ps in scan_g2.items()},
+            **{f"k8_fq_{case}_ms": k8(lib_s, csrc, bls12_381, *ps) for case, ps in scan_g1.items()},
+            "k2_fq2_G2_ms": k2(lib_r, g2, buckets_g2), "k2_fq2_G2-sorted_ms": k2(lib_r, g2, dense_g2s),
+            "k2_fq_full_ms": k2(lib_r, bls12_381, buckets_full), "k2_fq_B_ms": k2(lib_r, bls12_381, dense_b),
+            **{f"k2_fq2_{case}_by_run_{m}_ms": k2(lib_r, g2, bk, m)
+               for case, bk in (("G2", buckets_g2), ("G2-sorted", dense_g2s)) for m in (4, 8, 16, 32, 64)
+               if m <= bk[0].shape[2]},
+        }
     ref = {}
     for name, _, _ in forms:  # warm-up and the cross-form check
         for key, run in runs[name].items():
-            got = run()
+            got = tuple(a.clone() for a in run())
             torch.cuda.synchronize()
+            curve = g2 if "fq2" in key else bls12_381
             if key not in ref:
                 ref[key] = got
             else:
-                e = chip_smoke.affine_err(curve_of.get(key, g2), got, ref[key])
+                e = chip_smoke.affine_err(curve, got, ref[key])
                 chip_smoke.check(e == 0, f"{name}: {key[:-3]} differs from {forms[0][0]}'s (max |err| {e})")
     del ref
     times = {name: {key: [] for key in runs[name]} for name, _, _ in forms}
@@ -185,13 +284,14 @@ def main() -> None:
         for name, _, _ in (forms if r % 2 == 0 else forms[::-1]):
             for key, run in runs[name].items():
                 times[name][key].append(event_ms(run)[1])
-    for name, csrc, _ in forms:
+    for name, csrc, edits in forms:
         lib_b = libs[csrc]["bucket"]
         chip_smoke.emit({
-            "form": name, "csrc": csrc,
+            "form": name, "csrc": csrc, "edits": edits,
             "k4_fq2": {**lane_info(lib_b, 2), "lanes": lanes[(name, "k4_fq2")]},
             "k4_fq": {**lane_info(lib_b, 1), "lanes": lanes[(name, "k4_fq")]},
-            **times[name], **{k.replace("_ms", "_mean_ms"): sum(v) / len(v) for k, v in times[name].items()},
+            **{k.replace("_ms", "_mean_ms"): sum(v) / len(v) for k, v in times[name].items()},
+            "runs_ms": times[name],
         })
     print(smi, flush=True)
     chip_smoke.emit({"ok": True, "device": torch.cuda.get_device_name(0), "equal_to": forms[0][0]})

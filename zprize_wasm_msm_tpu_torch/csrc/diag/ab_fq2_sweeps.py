@@ -48,8 +48,9 @@ from zprize_wasm_msm_tpu_torch import _build  # noqa: E402
 STEMS = ("bucket", "sorted")
 
 
-def build_forms(forms):
-    """nvcc every (form, stem) at once; returns {csrc: {stem: loaded lib}}."""
+def build_forms(forms, stems=STEMS):
+    """nvcc every (form, stem) at once, with the package's flags for the
+    stem; returns {csrc: {stem: loaded lib}}."""
     cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     procs, libs = {}, {}
     for name, csrc, _ in forms:
@@ -58,10 +59,11 @@ def build_forms(forms):
         libs[csrc] = {}
         out = ROOT / "build" / "ab" / name
         out.mkdir(parents=True, exist_ok=True)
-        for stem in STEMS:
+        for stem in stems:
             so = out / f"libzp_{stem}.so"
             log = open(out / f"nvcc_{stem}.log", "w")
-            cmd = [f"{cuda}/bin/nvcc", *_build.NVCC_FLAGS, "-o", str(so), str(Path(csrc) / f"{stem}.cu")]
+            cmd = [f"{cuda}/bin/nvcc", *_build.NVCC_FLAGS, *_build.STEM_FLAGS.get(stem, ()), "-o", str(so),
+                   str(Path(csrc) / f"{stem}.cu")]
             procs[(csrc, stem)] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), so, out)
     for (csrc, stem), (proc, so, out) in procs.items():
         chip_smoke.check(proc.wait() == 0, f"nvcc failed on {csrc}/{stem}.cu: see {out}/nvcc_{stem}.log")

@@ -11,12 +11,13 @@
 //
 // pt_add_mixed, the per-step operation of both sweeps (bucket.cu K1,
 // sorted.cu K7), and pt_add_acc, the per-step operation of the lane
-// reduction (bucket.cu K4, and its combine), are inlined and take their operands by
+// reduction (bucket.cu K4, and its combine) and of the segmented scan
+// (sorted.cu K8), are inlined and take their operands by
 // reference: the point, the accumulator and every temporary stay in
 // registers, and nvcc schedules their products (fe_mul_cc, the carry-chain
 // form that leaves the most resident warps) into the kernel's loop.
-// pt_add and pt_double run a few thousand times per MSM (K8, the combine
-// of K7's sub-chunks) and stay __noinline__: one body each per field width
+// pt_add and pt_double run a few thousand times per MSM (the combine of
+// K7's sub-chunks) and stay __noinline__: one body each per field width
 // and library keeps nvcc's time in check (twelve fully unrolled products
 // per body); their operands cross the call through the thread's stack.
 // The collapse and the window fold (reduce.cu K2, K3) run their chains on

@@ -24,6 +24,14 @@ __device__ __forceinline__ uint32_t limb_word(const Limbs& s, int k, uint32_t n,
   return (uint32_t)c[at] | ((uint32_t)c[at + n] << 16);
 }
 
+// The low limb of word k of point i of n (its high limb lies n further on),
+// for copies that keep the limbs (cp.async of their low 32 bits).
+template <int EW>
+__device__ __forceinline__ const int64_t* limb_at(const Limbs& s, int k, uint32_t n, uint32_t i) {
+  const int64_t* c = k < EW ? s.x : k < 2 * EW ? s.y : s.z;
+  return c + (2 * (k % EW) * n + i);
+}
+
 // Word k of point i of n to limbs [2 rows][n] (rows words a point, the
 // coordinates one after another): limb 2k its low half, 2k + 1 its high.
 // 2 rows n limbs fit 32-bit offsets (the host checks it).

@@ -94,6 +94,43 @@ __global__ void __launch_bounds__(FOLD_THREADS)
 
 #define COLLAPSE_THREADS 128
 
+// The collapse's links.  Over Fq2 they are out of line, one body of each
+// op for every call site: inlined at its seven (the walk's two additions,
+// the tree's three, two doublings), the collapse took 1.6 times as long at
+// path G2-sorted's shape (csrc/diag/ab_fq2_reductions.py, edit
+// inline_links), while one link alone takes the same time at 1, 2 and 4
+// warps a SM (chip_smoke.py, link_us_by_warps_a_sm): the kernel's code, not
+// the SM's shared pipes, made the difference.  Over Fq they stay inlined,
+// the points in registers.
+template <int EXT>
+__device__ __forceinline__ constexpr bool links_out_of_line() {
+  return EXT == 2;
+}
+
+template <int NW, int PL>
+__device__ __noinline__ void pt2_link_add(Pt<NW, 2>* r, const Pt<NW, 2>* p, const Pt<NW, 2>* q,
+                                          int sub) {
+  pt_add_par<NW, PL>(*r, *p, *q, sub, 0u);
+}
+
+template <int NW, int PL>
+__device__ __noinline__ void pt2_link_double(Pt<NW, 2>* p, int sub) {
+  pt_double_par<NW, PL>(*p, sub, 0u);
+}
+
+template <int NW, int PL, int EXT>
+__device__ __forceinline__ void link_add(Pt<NW, EXT>& r, const Pt<NW, EXT>& p,
+                                         const Pt<NW, EXT>& q, int sub, uint32_t b3k) {
+  if constexpr (links_out_of_line<EXT>()) pt2_link_add<NW, PL>(&r, &p, &q, sub);
+  else pt_add_par<NW, PL>(r, p, q, sub, b3k);
+}
+
+template <int NW, int PL, int EXT>
+__device__ __forceinline__ void link_double(Pt<NW, EXT>& p, int sub, uint32_t b3k) {
+  if constexpr (links_out_of_line<EXT>()) pt2_link_double<NW, PL>(&p, sub);
+  else pt_double_par<NW, PL>(p, sub, b3k);
+}
+
 // Combine the runs held by the groups of this block over `levels` levels:
 // partners g ^ 1, g ^ 2, ...  The last level's Rs is computed only where
 // keep_rs (a later launch combines the block's pair).
@@ -109,11 +146,11 @@ __device__ __forceinline__ void run_tree(Pt<NW, EXT>& A, Pt<NW, EXT>& Rs, Pt<NW,
     }
     __syncthreads();
     const int p = g ^ (1 << l), hi = g | (1 << l);  // partner, upper run
-    pt_add_par<NW, PL>(A, A, shA[p], sub, b3k);
-    pt_add_par<NW, PL>(A, A, shR[hi], sub, b3k);
+    link_add<NW, PL, EXT>(A, A, shA[p], sub, b3k);
+    link_add<NW, PL, EXT>(A, A, shR[hi], sub, b3k);
     if (l + 1 < levels || keep_rs) {
-      pt_add_par<NW, PL>(Rs, Rs, shR[p], sub, b3k);
-      pt_double_par<NW, PL>(Rs, sub, b3k);
+      link_add<NW, PL, EXT>(Rs, Rs, shR[p], sub, b3k);
+      link_double<NW, PL, EXT>(Rs, sub, b3k);
     }
   }
 }
@@ -134,6 +171,25 @@ __device__ __forceinline__ void run_store(const Pt<NW, EXT>& A, const Pt<NW, EXT
   }
 }
 
+// Over Fq2 the walk's bucket loads are off its chain: bucket i - 1's limbs
+// are copied (cp.async, the low 32 bits of each) into the group's second
+// buffer while bucket i's two additions run, and only turned into words
+// when the walk reaches them (2-5 % of the collapse at path G2-sorted's
+// shape, runs of 32 buckets; within 3 % either way at path G2's, runs of 4:
+// ab_fq2_reductions.py, edit no_prefetch).  Over Fq each bucket is read
+// when it is needed.
+template <int EXT>
+__device__ __forceinline__ constexpr bool walk_prefetch() {
+  return EXT == 2;
+}
+
+// The two limb buffers of group g: 2 x 2 (3 EW) words.
+template <int EW, int GB>
+__device__ __forceinline__ uint32_t* walk_buffers(int g) {
+  __shared__ uint32_t buf[GB][2][2 * 3 * EW];
+  return buf[g][0];
+}
+
 // S (W*B points, limbs) -> out [3][EXT NW][W] (B / m <= GB), else pieces:
 // the blocks' pairs, A at [3][EXT NW][cap], Rs after it.  One group per run
 // of m buckets; over Fq2 the walk's two points are the group's shared slots
@@ -144,6 +200,7 @@ __device__ __forceinline__ void collapse_body(const Limbs& S, uint32_t* __restri
                                               uint32_t* __restrict__ pieces, int cap, int W,
                                               int B, int m, uint32_t b3k) {
   constexpr int PL = coop_lanes<NW>(), GL = 8 * PL, GB = COLLAPSE_THREADS / GL, EW = EXT * NW;
+  constexpr int BW = 2 * 3 * EW;  // words of a limb buffer
   __shared__ Pt<NW, EXT> shA[GB], shR[GB], shS[GB];
   const int sub = threadIdx.x % GL, g = threadIdx.x / GL;
   const int runs = B / m;  // per window
@@ -153,23 +210,44 @@ __device__ __forceinline__ void collapse_body(const Limbs& S, uint32_t* __restri
   Pt<NW, EXT> A_own, R_own;
   Pt<NW, EXT>& A = work_point<NW, EXT, 2 * GB>(A_own, g);
   Pt<NW, EXT>& R = work_point<NW, EXT, 2 * GB>(R_own, GB + g);
+  uint32_t* st = reinterpret_cast<uint32_t*>(&shS[g]);
+  auto one = [&](int k) { return k / EW == 1 && k % EW < NW ? c_fc.one[k % EW] : 0u; };
+  uint32_t* buf = nullptr;
+  auto fetch = [&](int i) {  // bucket i's limbs into buffer i & 1
+    uint32_t* b = buf + (i & 1) * BW;
+    for (int k = sub; k < 3 * EW; k += GL) {
+      const int64_t* c = limb_at<EW>(S, k, n, lo + i);
+      cp_async4(b + 2 * k, c);
+      cp_async4(b + 2 * k + 1, c + n);
+    }
+    cp_async_commit();
+  };
+  if constexpr (walk_prefetch<EXT>()) {
+    buf = walk_buffers<EW, GB>(g);
+    if (live) fetch(m - 1);
+  }
   for (int i = m - 1; i >= 0; --i) {  // the same trip count for every group
     __syncwarp();                      // the last bucket's readers are done
-    uint32_t* st = reinterpret_cast<uint32_t*>(&shS[g]);
-    for (int k = sub; k < 3 * EW; k += GL) {  // word k: coordinate k / EW
-      const uint32_t one = k / EW == 1 && k % EW < NW ? c_fc.one[k % EW] : 0u;
-      st[k] = live ? limb_word<EW>(S, k, n, lo + i) : one;
+    if constexpr (walk_prefetch<EXT>()) {
+      cp_async_wait_all();
+      const uint32_t* b = buf + (i & 1) * BW;
+      for (int k = sub; k < 3 * EW; k += GL) st[k] = live ? b[2 * k] | (b[2 * k + 1] << 16) : one(k);
+      __syncwarp();
+      if (live && i > 0) fetch(i - 1);
+    } else {
+      for (int k = sub; k < 3 * EW; k += GL)  // word k: coordinate k / EW
+        st[k] = live ? limb_word<EW>(S, k, n, lo + i) : one(k);
+      __syncwarp();
     }
-    __syncwarp();
     if (i == m - 1) {
       R = shS[g];
       A = R;
     } else {
-      pt_add_par<NW, PL>(R, R, shS[g], sub, b3k);
-      pt_add_par<NW, PL>(A, A, R, sub, b3k);
+      link_add<NW, PL, EXT>(R, R, shS[g], sub, b3k);
+      link_add<NW, PL, EXT>(A, A, R, sub, b3k);
     }
   }
-  for (int k = m; k > 1; k >>= 1) pt_double_par<NW, PL>(R, sub, b3k);  // Rs = m R
+  for (int k = m; k > 1; k >>= 1) link_double<NW, PL, EXT>(R, sub, b3k);  // Rs = m R
   const int levels = 31 - __clz(min(GB, runs));
   run_tree<NW, PL, EXT>(A, R, shA, shR, g, levels, runs > GB, sub, b3k);
   run_store<NW, GB, EXT>(A, R, out, pieces, cap, G, total, runs, W, g, sub);

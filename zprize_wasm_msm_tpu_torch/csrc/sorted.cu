@@ -2,7 +2,8 @@
 //
 // sorted_sweep_kernel replaces the TPU kernel
 // zprize_wasm_msm_tpu/ops/msm/pl_sorted.py `_sweep` (body `_sweep_kernel`),
-// and segscan_kernel replaces `_segscan` (body `_segscan_kernel`).
+// and segscan_tile_kernel + segscan_fix_kernel replace `_segscan` (body
+// `_segscan_kernel`).
 //
 // The engine sorts every window's points by bucket, so equal buckets form
 // contiguous runs, cuts the sorted stream of a window into T chunks, and
@@ -22,10 +23,10 @@
 //   * segscan: ceil(log2 T) Hillis-Steele rounds of a masked complete add
 //     over ALL K entries, a grid step per round, lanes shifted with rolls,
 //     the whole array resident on chip (hence a size cap and a fallback
-//     above it)  ->  one thread per segment head walks the segment's pieces
-//     (<= T, typically 1-3) and stores the running sum: exactly one add
-//     per piece beyond the first, no rounds, any K.  The host gives every
-//     unused entry a segment id of its own, so padding costs a copy.
+//     above it)  ->  tiles of 32 entries a one-warp block and levels of
+//     tiles on growing strides, each lane adding only while its segment
+//     reaches back (its design above segscan_tile_kernel): the dependent
+//     adds follow from K, not from the segments' lengths, and any K fits.
 //
 // What bounds the sweep on the H100, and what the design does about it.
 // The work is one mixed add (11 Montgomery products) per nonzero digit:
@@ -59,8 +60,8 @@
 //
 // Over Fq2 (G2; the TPU kernels take the coordinate field from
 // ops/field/ktower.py kfield, so `_sweep` and `_segscan` run G2 too):
-// sorted_sweep2_kernel, the same schedule on the group ops of group2.cuh,
-// and a segmented scan of log depth (its design above segscan_tile_kernel).
+// sorted_sweep2_kernel, the same schedule on the group ops of group2.cuh;
+// the scan is one pair of kernels for both fields.
 // A point is 72 words at NW = 12, so nothing of a point lives in registers:
 // every Fq2 product reads and writes shared memory (see group2.cuh), the
 // accumulator is the thread's own shared slot, and the
@@ -210,29 +211,6 @@ __global__ void __launch_bounds__(SORTED_THREADS)
   }
 }
 
-// P, out [3][NW][W*K] words; seg [W][K], non-decreasing within a row.
-// out = the inclusive segmented scan of P under the group add: the last
-// entry of every segment holds the segment's sum.
-template <int NW>
-__global__ void __launch_bounds__(SORTED_THREADS)
-    segscan_kernel(const uint32_t* __restrict__ P, const int32_t* __restrict__ seg,
-                   uint32_t* __restrict__ out, int W, int K) {
-  const size_t gid = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t n = (size_t)W * K;
-  if (gid >= n) return;
-  const int k = (int)(gid % K);
-  const int s = seg[gid];
-  if (k > 0 && seg[gid - 1] == s) return;  // not the head of its segment
-  Pt<NW> acc, p;
-  pt_load_soa<NW>(acc, P, n, gid);
-  pt_store_soa<NW>(out, n, gid, acc);
-  for (int j = 1; k + j < K && seg[gid + j] == s; ++j) {
-    pt_load_soa<NW>(p, P, n, gid + j);
-    pt_add<NW>(&acc, &acc, &p);
-    pt_store_soa<NW>(out, n, gid + j, acc);
-  }
-}
-
 // The thread's shared slot of the Fq2 sweep: the walk's point, the scan's
 // exchange slot after it.
 template <int NW>
@@ -361,16 +339,15 @@ __global__ void __launch_bounds__(FQ2_BLOCK, 1)
   }
 }
 
-// The segmented scan over Fq2 (K8 Fq2): a fixed schedule of log depth,
-// whatever the segments' lengths.  One thread a segment head walking its
-// segment (segscan_walk2_kernel below) takes as long as the longest
-// segment's chain of adds while the card idles: 150 adds at path G2-sorted's
-// shape, 1 024 when one bucket spans every chunk (scalars that are all 0 or
-// 1, as a Groth16 witness has).  Here the K entries of a row are cut into
-// tiles of SCAN_TILE = 32 in levels:
+// The segmented scan (K8): a fixed schedule of log depth, whatever the
+// segments' lengths.  One thread a segment head walking its segment takes as
+// long as the longest segment's chain of adds while the card idles: 11 adds
+// at path B's shape and 150 over Fq2 at path G2-sorted's, but 512 over Fq
+// and 1 024 over Fq2 when one bucket spans every chunk (scalars that are all
+// 0 or 1, as a Groth16 witness has).  Here the K entries of a row are cut
+// into tiles of SCAN_TILE = 32 in levels:
 //   * level 0 scans every tile of the entries, a one-warp block a tile
-//     (segscan_tile_kernel): segmented Hillis-Steele over the warp, each
-//     round's values exchanged through the lanes' shared slots (K7 Fq2's
+//     (segscan_tile_kernel): segmented Hillis-Steele over the warp (K7's
 //     carry scan).  A lane adds in round d only while its segment reaches
 //     back d entries inside the tile, and the warp stops after the round its
 //     deepest lane needs: a tile of singletons costs a copy in and out;
@@ -385,49 +362,72 @@ __global__ void __launch_bounds__(FQ2_BLOCK, 1)
 //     just before the tile once (segscan_fix_kernel): that entry is final,
 //     being the last of a whole tile one level up.  The last entry of a
 //     whole tile is already final and is left alone.
-// At path G2-sorted's shape (K = 1 536): 48 tiles a row, then 48 carries in
+// At K = 1 536 (paths B and G2-sorted): 48 tiles a row, then 48 carries in
 // two tiles, then one; the dependent adds are at most 5 + 5 + 1 + 1 = 12,
 // against one add a piece of the longest segment before.  No host
 // synchronisation and no launch shape taken from the data: the levels
 // follow from K alone.
 //
-// Every level and fix-up runs the one-lane complete add of group2.cuh
-// (pt_add_acc) in one kernel pair over the level's stride: each lane keeps
-// its running point and its exchange slot in shared memory beside the
-// add's three scratch elements, 864 bytes a thread at NW = 12, 8 one-warp
-// blocks a SM (the register file's limit at <= 255 registers, as K1 Fq2
-// and K7 Fq2).  41 472 entries at that shape are 1 296 blocks at level 0,
+// One kernel pair runs every level and fix-up of both fields, over the
+// level's stride: each lane keeps its running point and its exchange slot in
+// shared memory, and a round's values pass through the slots.  Over Fq2 (72
+// words a point at NW = 12) beside group2.cuh's one-lane complete add and
+// its three scratch elements: 864 bytes a thread, 8 one-warp blocks a SM
+// (the register file's limit at <= 255 registers, as K1 Fq2 and K7 Fq2).
+// Over Fq the add is group.cuh's inlined one (pt_add_acc) on the 64-bit-row
+// product: its shorter dependent path took 13 % off the scan against the
+// carry chains (csrc/diag/ab_fq2_reductions.py, edit scan_fq_carry_chains).
+// Points kept in registers and passed by shuffles (K7's carry scan) were no
+// faster over Fq, and spilled with that product at NW = 12.
+// 41 472 Fq2 entries at path G2-sorted's shape are 1 296 blocks at level 0,
 // against 1 056 resident.  Blocks go tile-major (block b takes tile b / W
 // of row b % W): the host numbers a row's flushes from its first entry and
-// leaves the padding ids at its end, so the second wave takes the last
-// tiles of every row, mostly padding, and the long segments of any row
-// start in the first.  The levels above hold at most W K / 32 points on a
-// nearly idle card; a level-parallel add there (par.cuh, 8 lanes a point)
-// was timed against this form (csrc/diag/ab_fq2_reductions.py) and saved
-// too little of the scan to keep a second kernel pair.
+// leaves the padding ids at its end, so a second wave takes the last tiles
+// of every row, mostly padding, and the long segments of any row start in
+// the first.  The levels above hold at most W K / 32 points on a nearly
+// idle card; a level-parallel add there (par.cuh, 8 lanes a point) was timed
+// against the one-lane form over Fq2 (csrc/diag/ab_fq2_reductions.py) and
+// saved too little of the scan to keep a second kernel pair.
 // The scan reads its pieces and writes its sums as the package's 16-bit
 // limbs (limbs.cuh): packing the pieces to words before the launch and
 // unpacking after it were a large part of the wrapper's time.
-// Generic over EXT: only the Fq2 form is instantiated (the Fq form is
-// segscan_kernel).
 #define SCAN_TILE 32  // elements a tile
 
-// A point's words from limbs and back, a word at a time in a loop that is
-// not unrolled (an unrolled copy of a 72-word point is held in registers).
+// The product of the scan's complete add: over Fq the 64-bit rows
+// (field.cuh fe_mul, the shorter dependent path: a round waits on its
+// adds), not the carry chains of the sweeps; over Fq2 the add has one.
+template <int EXT>
+__device__ __forceinline__ constexpr bool scan_carry_chains() {
+  return EXT == 2;
+}
+
+// A point's words from limbs and back: unrolled over Fq (every load in
+// flight at once), a word at a time in a loop that is not unrolled over Fq2
+// (an unrolled copy of a 72-word point is held in registers).
 template <int NW, int EXT>
 __device__ __forceinline__ void pt_get_limbs(Pt<NW, EXT>& a, const Limbs& in, uint32_t n,
                                              uint32_t i) {
   uint32_t* d = reinterpret_cast<uint32_t*>(&a);
+  if constexpr (EXT == 1) {
+#pragma unroll
+    for (int k = 0; k < 3 * NW; ++k) d[k] = limb_word<NW>(in, k, n, i);
+  } else {
 #pragma unroll 1
-  for (int k = 0; k < 3 * EXT * NW; ++k) d[k] = limb_word<EXT * NW>(in, k, n, i);
+    for (int k = 0; k < 3 * EXT * NW; ++k) d[k] = limb_word<EXT * NW>(in, k, n, i);
+  }
 }
 
 template <int NW, int EXT>
 __device__ __forceinline__ void pt_put_limbs(int64_t* out, uint32_t n, uint32_t i,
                                              const Pt<NW, EXT>& a) {
   const uint32_t* d = reinterpret_cast<const uint32_t*>(&a);
+  if constexpr (EXT == 1) {
+#pragma unroll
+    for (int k = 0; k < 3 * NW; ++k) limb_put(out, k, n, i, d[k]);
+  } else {
 #pragma unroll 1
-  for (int k = 0; k < 3 * EXT * NW; ++k) limb_put(out, k, n, i, d[k]);
+    for (int k = 0; k < 3 * EXT * NW; ++k) limb_put(out, k, n, i, d[k]);
+  }
 }
 
 // The sums, [3][2 EXT NW][n] limbs, as the scan's next input.
@@ -442,7 +442,7 @@ __host__ __device__ __forceinline__ Limbs scan_limbs(const int64_t* out, uint32_
 // out, in place) and writes the tile's sums to out.  Grid: W * ceil(n /
 // 32) one-warp blocks.
 template <int NW, int EXT>
-__global__ void __launch_bounds__(FQ2_BLOCK, 1)
+__global__ void __launch_bounds__(SCAN_TILE, 1)
     segscan_tile_kernel(Limbs in, const int32_t* __restrict__ seg, int64_t* out, int W, int K,
                         int n, int s) {
   static_assert(FQ2_BLOCK == SCAN_TILE, "a block is the warp of one tile");
@@ -464,7 +464,7 @@ __global__ void __launch_bounds__(FQ2_BLOCK, 1)
     __syncwarp();
     sh_ex[lane] = acc;
     __syncwarp();
-    if (reach >= d) pt_add_acc<NW, true>(acc, sh_ex[lane - d]);
+    if (reach >= d) pt_add_acc<NW, scan_carry_chains<EXT>()>(acc, sh_ex[lane - d]);
   }
   if (live) pt_put_limbs<NW>(out, nout, e, acc);
 }
@@ -474,7 +474,7 @@ __global__ void __launch_bounds__(FQ2_BLOCK, 1)
 // (final) to each of its elements of that segment but a whole tile's
 // last.  Grid: W * (ceil(n / 32) - 1) one-warp blocks, n > 32.
 template <int NW, int EXT>
-__global__ void __launch_bounds__(FQ2_BLOCK, 1)
+__global__ void __launch_bounds__(SCAN_TILE, 1)
     segscan_fix_kernel(const int32_t* __restrict__ seg, int64_t* out, int W, int K, int n, int s) {
   __shared__ Pt<NW, EXT> sh_acc[SCAN_TILE];
   __shared__ Pt<NW, EXT> sh_in;
@@ -491,7 +491,7 @@ __global__ void __launch_bounds__(FQ2_BLOCK, 1)
   if (lane == SCAN_TILE - 1 || i >= n || seg[at(i)] != id) return;
   Pt<NW, EXT>& acc = sh_acc[lane];
   pt_get_limbs<NW>(acc, sums, nout, at(i));
-  pt_add_acc<NW, true>(acc, sh_in);
+  pt_add_acc<NW, scan_carry_chains<EXT>()>(acc, sh_in);
   pt_put_limbs<NW>(out, nout, at(i), acc);
 }
 
@@ -507,32 +507,6 @@ static int scan_levels(int K, int* n, int* s) {
     ++L;
   }
   return L + 1;
-}
-
-// The former K8 over Fq2, kept as the baseline that chip_smoke.py times the
-// scan above against in the same run: one thread per segment head walks its
-// segment, the running sum and the next piece in the thread's shared slots.
-template <int NW>
-__global__ void __launch_bounds__(FQ2_BLOCK, 1)
-    segscan_walk2_kernel(const uint32_t* __restrict__ P, const int32_t* __restrict__ seg,
-                         uint32_t* __restrict__ out, int W, int K) {
-  __shared__ Pt<NW, 2> sh[2][FQ2_BLOCK];
-  const int tid = threadIdx.x;
-  const size_t gid = (size_t)blockIdx.x * FQ2_BLOCK + tid;
-  const size_t n = (size_t)W * K;
-  if (gid >= n) return;
-  const int k = (int)(gid % K);
-  const int s = seg[gid];
-  if (k > 0 && seg[gid - 1] == s) return;  // not the head of its segment
-  Pt<NW, 2>& acc = sh[0][tid];
-  Pt<NW, 2>& p = sh[1][tid];
-  pt_load_soa<NW>(acc, P, n, gid);
-  pt_store_soa<NW>(out, n, gid, acc);
-  for (int j = 1; k + j < K && seg[gid + j] == s; ++j) {
-    pt_load_soa<NW>(p, P, n, gid + j);
-    pt2_add_sh<NW>(acc, p, stage_elems<NW>());
-    pt_store_soa<NW>(out, n, gid + j, acc);
-  }
 }
 
 // Entry points take the field's word count and extension degree (1: Fq,
@@ -570,24 +544,10 @@ extern "C" int zp_sorted_sweep_info(int nw, int ext, int* out) {
   return -1;
 }
 
-extern "C" int zp_segscan(int nw, int ext, const uint32_t* host_consts, const uint32_t* P,
-                          const int32_t* seg, uint32_t* out, int W, int K, void* stream_ptr) {
-  if (ext != 1) return -1;  // over Fq2: zp_segscan_limbs
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  int err = zp_set_consts(nw, host_consts, stream);
-  if (err) return err;
-  const unsigned blocks = (unsigned)(((size_t)W * K + SORTED_THREADS - 1) / SORTED_THREADS);
-#define CALL(NW_) segscan_kernel<NW_><<<blocks, SORTED_THREADS, 0, stream>>>(P, seg, out, W, K)
-  ZP_DISPATCH_NW(nw, CALL)
-#undef CALL
-  return (int)cudaGetLastError();
-}
-
-// The scan of log depth (instantiated over Fq2): pieces x, y, z, each
-// [2 EXT NW][W*K] int64 16-bit limbs; out [3][2 EXT NW][W*K] limbs.  A
-// tile kernel a level (none for a level of one element) and a fix-up a
-// level below the top, in that order; *kernels (not NULL) gets the number
-// of kernels launched.
+// The segmented scan: pieces x, y, z, each [2 EXT NW][W*K] int64 16-bit
+// limbs; out [3][2 EXT NW][W*K] limbs.  A tile kernel a level (none for a
+// level of one element) and a fix-up a level below the top, in that order;
+// *kernels (not NULL) gets the number of kernels launched.
 extern "C" int zp_segscan_limbs(int nw, int ext, const uint32_t* host_consts, const int64_t* x,
                                 const int64_t* y, const int64_t* z, const int32_t* seg,
                                 int64_t* out, int W, int K, int* kernels, void* stream_ptr) {
@@ -601,23 +561,19 @@ extern "C" int zp_segscan_limbs(int nw, int ext, const uint32_t* host_consts, co
     return (unsigned)((size_t)W * ((n[l] + SCAN_TILE - 1) / SCAN_TILE - skip));
   };
   const Limbs P{x, y, z};
-#define CALL(NW_, EXT_)                                                                         \
-  if constexpr (EXT_ == 2) {                                                                    \
-    const Limbs sums = scan_limbs<NW_, EXT_>(out, (uint32_t)W * K);                             \
-    for (int l = 0; l < levels; ++l) {                                                          \
-      if (l > 0 && n[l] == 1) continue;                                                         \
-      segscan_tile_kernel<NW_, EXT_><<<blocks(l, 0), SCAN_TILE, 0, stream>>>(l ? sums : P, seg, \
-                                                                             out, W, K, n[l],   \
-                                                                             s[l]);             \
-      ++launched;                                                                               \
-    }                                                                                           \
-    for (int l = levels - 2; l >= 0; --l) {                                                     \
-      segscan_fix_kernel<NW_, EXT_><<<blocks(l, 1), SCAN_TILE, 0, stream>>>(seg, out, W, K,     \
-                                                                            n[l], s[l]);        \
-      ++launched;                                                                               \
-    }                                                                                           \
-  } else {                                                                                      \
-    return -1;                                                                                  \
+#define CALL(NW_, EXT_)                                                                       \
+  const Limbs sums = scan_limbs<NW_, EXT_>(out, (uint32_t)W * K);                             \
+  for (int l = 0; l < levels; ++l) {                                                          \
+    if (l > 0 && n[l] == 1) continue;                                                         \
+    segscan_tile_kernel<NW_, EXT_><<<blocks(l, 0), SCAN_TILE, 0, stream>>>(l ? sums : P, seg, \
+                                                                           out, W, K, n[l],   \
+                                                                           s[l]);             \
+    ++launched;                                                                               \
+  }                                                                                           \
+  for (int l = levels - 2; l >= 0; --l) {                                                     \
+    segscan_fix_kernel<NW_, EXT_><<<blocks(l, 1), SCAN_TILE, 0, stream>>>(seg, out, W, K,     \
+                                                                          n[l], s[l]);        \
+    ++launched;                                                                               \
   }
   ZP_DISPATCH_NW_EXT(nw, ext, CALL)
 #undef CALL
@@ -625,30 +581,12 @@ extern "C" int zp_segscan_limbs(int nw, int ext, const uint32_t* host_consts, co
   return (int)cudaGetLastError();
 }
 
-// The baseline of the Fq2 scan (segscan_walk2_kernel), the arguments of
-// zp_segscan at ext = 2.
-extern "C" int zp_segscan_walk(int nw, const uint32_t* host_consts, const uint32_t* P,
-                               const int32_t* seg, uint32_t* out, int W, int K,
-                               void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  int err = zp_set_consts(nw, host_consts, stream);
-  if (err) return err;
-  const unsigned blocks = (unsigned)(((size_t)W * K + FQ2_BLOCK - 1) / FQ2_BLOCK);
-#define CALL(NW_) segscan_walk2_kernel<NW_><<<blocks, FQ2_BLOCK, 0, stream>>>(P, seg, out, W, K)
-  ZP_DISPATCH_NW(nw, CALL)
-#undef CALL
-  return (int)cudaGetLastError();
-}
-
 // out[0..4] as zp_sorted_sweep_info, of the segmented scan of (nw, ext):
-// which = 0 the scan (over Fq2 its tile kernel), 1 its fix-up, 2 the Fq2
-// baseline (segscan_walk2_kernel).
+// which = 0 its tile kernel, 1 its fix-up.
 extern "C" int zp_segscan_info(int nw, int ext, int which, int* out) {
 #define CALL(NW_, EXT_)                                                                     \
-  if constexpr (EXT_ == 1) return zp_kernel_info(segscan_kernel<NW_>, SORTED_THREADS, out); \
-  else if (which == 0) return zp_kernel_info(segscan_tile_kernel<NW_, EXT_>, SCAN_TILE, out); \
-  else if (which == 1) return zp_kernel_info(segscan_fix_kernel<NW_, EXT_>, SCAN_TILE, out); \
-  else return zp_kernel_info(segscan_walk2_kernel<NW_>, FQ2_BLOCK, out)
+  if (which == 0) return zp_kernel_info(segscan_tile_kernel<NW_, EXT_>, SCAN_TILE, out);    \
+  else return zp_kernel_info(segscan_fix_kernel<NW_, EXT_>, SCAN_TILE, out)
   ZP_DISPATCH_NW_EXT(nw, ext, CALL)
 #undef CALL
   return -1;

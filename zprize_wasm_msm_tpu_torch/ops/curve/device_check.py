@@ -36,8 +36,10 @@ GROUP_OPS = {
     "add_mixed": 0, "add": 1, "double": 2, "add_cc": 3,
     "double_par": 4, "add_par": 5, "double_coop": 6, "add_coop": 7,
 }
-#: the dependent chains zp_group_chain times
-CHAIN_OPS = {"double_par": 0, "add_par": 1, "double_coop": 2, "add_coop": 3}
+#: the dependent chains zp_group_chain times: the level-parallel ops above,
+#: and one-lane complete additions (group.cuh / group2.cuh pt_add_acc, as
+#: the segmented scan runs it)
+CHAIN_OPS = {"double_par": 0, "add_par": 1, "double_coop": 2, "add_coop": 3, "add_lane": 4}
 
 _ARGTYPES = (
     [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int]
@@ -94,19 +96,23 @@ def group_op(curve: CurveSpec, op: str, p, q):
     return _launch.unpack_point(out, (n,))
 
 
-def group_chain(curve: CurveSpec, op: str, p, q, reps: int):
+def group_chain(curve: CurveSpec, op: str, p, q, reps: int, warps: int = 1):
     """``reps`` dependent pt_double_par (of p) or pt_add_par (q into p) on
-    one point, one warp, a product to a lane or cooperative products: the
-    links of the window fold's chain, for timing.
+    one point a warp, a product to a lane or cooperative products, on
+    ``warps`` warps of one block (one SM: 1, 2 or 4); or ("add_lane") one-lane
+    complete adds of q into p on one warp: the links of the reductions'
+    chains, for timing.
     p, q: projective points, each coordinate (L, 1) int64."""
     _launch.use_kernel("kernel", p[0])
-    fn = _entry("zp_group_chain")
+    fn = getattr(_build.load("check"), "zp_group_chain")
+    fn.restype = ctypes.c_int
+    fn.argtypes = _ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p]
     pw, qw = _launch.pack_point(p), _launch.pack_point(q)
     out = torch.empty_like(pw)
     err = fn(
         curve.fq.n_words, curve.ext, _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p),
         _build.fold_b3k(curve), CHAIN_OPS[op], _launch.ptr(pw), _launch.ptr(qw),
-        _launch.ptr(out), reps, _launch.stream_ptr(),
+        _launch.ptr(out), reps, warps, _launch.stream_ptr(),
     )
     _build.check_launch(err, f"group_chain {op}")
     return _launch.unpack_point(out, (1,))

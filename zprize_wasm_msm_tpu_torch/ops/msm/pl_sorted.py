@@ -27,8 +27,8 @@ constructAdditionChains:651, evaluateAdditionChains:810):
   4. SEGSCAN (kernel)  pieces of a bucket split across chunks (<= T of
                        them, typically 1-3) are merged by an inclusive
                        segmented scan over the K entries.  ``segscan`` /
-                       ``segscan_plain``; over Fq2 a schedule of log depth
-                       in tiles of SCAN_TILE entries (``scan_levels``,
+                       ``segscan_plain``; a schedule of log depth in
+                       tiles of SCAN_TILE entries (``scan_levels``,
                        ``scan_depth``).
   5. SCATTER (torch)   the last entry of each segment lands in the dense
                        (L, W, B) bucket array that collapse / bucket_reduce
@@ -41,9 +41,9 @@ first and the sweep writes only the K entries.  All windows go through each
 stage at once.
 
 Over Fq2 (G2) the stages are the same, elements are (2L, ...) flat limbs
-(tower.Fq2), and the sweep and the scan launch their Fq2 kernels
-(csrc/sorted.cu sorted_sweep2_kernel; segscan_tile_kernel and
-segscan_fix_kernel, whose levels ``scan_levels`` lists).
+(tower.Fq2), and the sweep launches its Fq2 kernel (csrc/sorted.cu
+sorted_sweep2_kernel); the scan's kernels (segscan_tile_kernel and
+segscan_fix_kernel, whose levels ``scan_levels`` lists) serve both fields.
 
 Digit semantics match windows.signed_window_digits; results equal the other
 engines as group elements (the addition order differs).  The sort's order
@@ -77,7 +77,7 @@ META_NEG = 4  # negative digit: add (x, -y)
 
 #: times each kernel was launched (read by chip_smoke.py)
 launches = {"sweep": 0, "segscan": 0}
-#: device kernels the Fq2 scan's calls launched, as its entry reports them
+#: device kernels the scan's calls launched, as its entry reports them
 #: (zp_segscan_limbs: a tile kernel a level, a fix-up a level below the top)
 scan_kernels = {"segscan": 0}
 
@@ -291,12 +291,12 @@ def segscan_plain(curve: CurveSpec, pieces, seg: torch.Tensor, max_len: int):
     return (x, y, z)
 
 
-#: entries a one-warp block of the Fq2 scan takes (csrc/sorted.cu SCAN_TILE)
+#: entries a one-warp block of the scan takes (csrc/sorted.cu SCAN_TILE)
 SCAN_TILE = 32
 
 
 def scan_levels(K: int):
-    """The levels of the Fq2 scan over K entries a row (csrc/sorted.cu
+    """The levels of the scan over K entries a row (csrc/sorted.cu
     scan_levels): [(n, s), ...], level l's n elements at entries
     (i + 1) s - 1; level l + 1 takes the last element of every whole tile
     of level l, until a level fits one tile.  A function of K alone."""
@@ -308,7 +308,7 @@ def scan_levels(K: int):
 
 
 def scan_kernel_count(K: int) -> int:
-    """The device kernels a call of the Fq2 scan launches over K entries a
+    """The device kernels a call of the scan launches over K entries a
     row (csrc/sorted.cu zp_segscan_limbs): a tile kernel a level (none for
     a level above the first that holds one element) and a fix-up a level
     below the top."""
@@ -329,7 +329,7 @@ def scan_reach(ids: torch.Tensor) -> torch.Tensor:
 
 
 def scan_depth(seg: torch.Tensor) -> int:
-    """The dependent adds of the Fq2 scan on seg (W, K): at each level the
+    """The dependent adds of the scan on seg (W, K): at each level the
     rounds of its deepest tile, plus one for each level's fix-up where some
     tile's first segment began in an earlier tile.  Every level and fix-up
     launches whatever the data; this counts the rounds that add."""
@@ -355,12 +355,11 @@ def segscan(curve: CurveSpec, pieces, seg: torch.Tensor, max_len: int, impl: str
     segment's entries up to and including itself, so the last entry of a
     segment holds the segment's sum — as group elements.
 
-    The kernel over Fq walks each segment from its head (on packed words);
-    over Fq2 it scans in tiles and levels (``scan_levels``), at most
-    5 adds a level and one a fix-up in a row whatever the segments' lengths,
-    and reads and writes the limbs itself.  One call is one count in
-    ``launches``; over Fq2 it launches a kernel a level and a fix-up a
-    level below the top, which its entry counts into ``scan_kernels``.
+    The kernels scan in tiles and levels (``scan_levels``), at most 5 adds a
+    level and one a fix-up in a row whatever the segments' lengths, and
+    read and write the limbs themselves.  One call is one count in
+    ``launches``; it launches a kernel a level and a fix-up a level below
+    the top, which its entry counts into ``scan_kernels``.
     """
     if not _launch.use_kernel(impl, pieces[0]):
         return segscan_plain(curve, pieces, seg, max_len)
@@ -368,18 +367,6 @@ def segscan(curve: CurveSpec, pieces, seg: torch.Tensor, max_len: int, impl: str
     lib = _build.load("sorted")
     consts = _build.curve_consts(curve).ctypes.data_as(ctypes.c_void_p)
     seg = seg.contiguous()
-    if curve.ext == 1:
-        fn = lib.zp_segscan
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-        P = _launch.pack_point(pieces)
-        out = torch.empty_like(P)
-        err = fn(curve.fq.n_words, 1, consts, _launch.ptr(P), _launch.ptr(seg), _launch.ptr(out), W, K,
-                 _launch.stream_ptr())
-        _build.check_launch(err, "segscan")
-        launches["segscan"] += 1
-        return _launch.unpack_point(out, (W, K))
-    # over Fq2 the kernels read and write the limbs themselves
     fn = lib.zp_segscan_limbs
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
