@@ -42,9 +42,11 @@ What it does, in order (any failure exits non-zero and prints no result):
      window, at B = 1, 2, 64, 512, 4096 and W = 1, 15, 38; and K8 on
      k8_adversarial's seg layouts, below, on toy and BLS12-381);
      Over Fq2 (G2): the Fq2 device functions (csrc/field2.cuh, the group
-     ops of K1 and K4 in csrc/group2.cuh, the level-parallel ops of K2 and
-     K3) bit for bit on toy_g2, BN254 G2 and BLS12-381 G2 (components 0, 1,
-     q-1, (q+-1)/2, all-ones words); K1, K4, K2 and K3 over Fq2 at small
+     ops of K1 and K4 in csrc/group2.cuh, the level-parallel ops of K2, the
+     fold links of K3 in both forms (csrc/fold2.cuh), where 3b = k (1 + u)
+     with 3b t by additions and by its level of products) bit for bit on
+     toy_g2, BN254 G2 and BLS12-381 G2 (components 0, 1, q-1, (q+-1)/2,
+     all-ones words); K1, K4, K2 and K3 over Fq2 at small
      shapes on toy_g2, toy_bn_g2, bn254_g2 and bls12_381_g2, and on the
      adversarial cases above (K1, K4, K3, K2 on toy_g2; K1, K4 on
      bls12_381_g2); K7 and K8 over Fq2 (the sorted engine on G2) at small
@@ -54,7 +56,7 @@ What it does, in order (any failure exits non-zero and prints no result):
      the last entry of a tile or of a level-1 tile, the host's padding ids,
      K from one tile to three levels); every Fq2 instantiation under the
      same spill gate (and the out-of-line functions: group2.cuh's step
-     loop, the collapse's links), and K4
+     loop, the collapse's links, the fold's links), and K4
      and K8 over Fq2 under their budget of 864 shared bytes a thread and 8
      warps a SM.  BLS12-377 G1: the
      kernels at small shapes and ctx.msm at 2^16 against the oracle, the
@@ -99,7 +101,9 @@ What it does, in order (any failure exits non-zero and prints no result):
      the same latencies) and its time at every run length up to 64 (each
      held against the plain version), at the full path's and path B's
      shapes;
-     the inversion at one element; K8 (the scan in tiles and levels) also on
+     the inversion at one element; K6 (the square) as its public call, one
+     launch on the limbs, with its bound on the limb bytes and the bound of
+     a launch on packed words beside it; K8 (the scan in tiles and levels) also on
      the skewed stream at path B's shape (every scalar 1), with its levels,
      the kernels a call launched (as its entry counts them, checked against
      its schedule), its depth (a model figure, pl_sorted.scan_depth) and a
@@ -107,7 +111,10 @@ What it does, in order (any failure exits non-zero and prints no result):
   7. the same for the Fq2 forms of K1, K4, K2 and K3 at path G2's shape
      (K1's plain version on two of its 44 windows), with their bounds (an
      Fq2 product counted as three Fq products) and K2's and K3's depth
-     floors at the Fq2 links' latency; and for K7 and K8 over Fq2 at path
+     floors at the Fq2 links' latency (K3's at its fold link, at the other
+     form's and at par.cuh's link with its level of products by 3b, the
+     fold's link before; the links timed on BLS12-381 G2 and BN254 G2); and
+     for K7 and K8 over Fq2 at path
      G2-sorted's shape (K7's plain version on window 0 of 27), K8 also on
      the skewed stream, with K2 over Fq2 at B = 512 and K3 over Fq2 at
      W = 27 beside them.  K2 over Fq2 also at every run length up to 64 at
@@ -635,17 +642,27 @@ def sorted_checks(curve, dev, rng, log2n, c, chunks, tag):
     return errs
 
 
+def fold2_ops(add_ref, dbl_ref, q):
+    """The window fold's Fq2 links (csrc/fold2.cuh) in both forms, as
+    (group_op name, reference, q operand)."""
+    return tuple((f"{op}_fold2_{form}", ref, q) for form in ("warps", "lane")
+                 for op, ref in (("add", add_ref), ("double", dbl_ref)))
+
+
 def fq2_device_check(curve, dev, rng, n_random=500):
     """The Fq2 device functions (csrc/field2.cuh; the group ops of K1 and K4
-    in csrc/group2.cuh, and the level-parallel doubling and addition of
-    csrc/par.cuh over Fq2 that K2 and K3 run) bit for bit against the plain
-    tower.Fq2 and group ops.  Components take the
+    in csrc/group2.cuh, the level-parallel doubling and addition of
+    csrc/par.cuh over Fq2 that K2 runs and the fold's links of csrc/fold2.cuh
+    that K3 runs, in both forms; where 3b = k (1 + u) with 3b t by additions
+    and with its level of products) bit for bit against the plain tower.Fq2
+    and group ops.  Components take the
     values 0, 1, q-1, (q-1)/2, (q+1)/2 and stored words of all ones below
     the top word, in every pair, beside random elements; points are generic,
     P = Q, P = -Q, the affine and the projective identity, on projective
     representatives scaled by a random Fq2 element.  Returns the number of
     field elements held."""
     import zprize_wasm_msm_tpu_torch as Z
+    from zprize_wasm_msm_tpu_torch import _build
     from zprize_wasm_msm_tpu_torch.ops.curve import device_check, group
 
     F, fq = curve.field, curve.fq
@@ -659,10 +676,13 @@ def fq2_device_check(curve, dev, rng, n_random=500):
     a, b = ctx._coords(A), ctx._coords(Bv)
     b3 = F.const(curve.b3, (1,), dev).expand_as(a)
     mul_ref = F.mul(a, b)
+    # where 3b = k (1 + u) the level-parallel ops take 3b t as additions; they
+    # are also held with b3k = 0, their level of products by 3b
+    small_b3 = bool(_build.fold_b3k(curve))
     for op, ref in (
         ("mul", mul_ref), ("mul_cc", mul_ref), ("mul_coop", mul_ref), ("add", F.add(a, b)),
         ("sub", F.sub(a, b)), ("neg", F.neg(a)), ("mul_b3", F.mul(b3, a)), ("square", F.square(a)),
-    ):
+    ) + ((("mul_b3k", F.mul(b3, a)),) if small_b3 else ()):
         got = device_check.field_op(curve, op, a, b)
         torch.cuda.synchronize()
         check(bool((got == ref).all()), f"{curve.name}: device Fq2 fe_{op} != tower.Fq2")
@@ -679,25 +699,30 @@ def fq2_device_check(curve, dev, rng, n_random=500):
         P[i][:, 12:16] = coord  # projective identity
     Q = group.from_affine(curve, (QX, QY))
     add_ref, dbl_ref = group.add(curve, P, Q), group.double(curve, P)
+    b3ks = (None, 0) if small_b3 else (None,)
     for op, ref, qin in (
         ("add_cc", add_ref, Q), ("add_coop", add_ref, Q),
         ("add_mixed", group.add_mixed(curve, P, (QX, QY)), (QX, QY, Q[2])),
-        ("double_coop", dbl_ref, Q),
+        ("double_coop", dbl_ref, Q), *fold2_ops(add_ref, dbl_ref, Q),
     ):
-        got = device_check.group_op(curve, op, P, qin)
-        torch.cuda.synchronize()
-        for g, r in zip(got, ref):
-            check(bool((g == r).all()), f"{curve.name}: device Fq2 pt_{op} != group")
+        for b3k in b3ks if op.endswith(("_coop", "_warps", "_lane")) else (None,):
+            got = device_check.group_op(curve, op, P, qin, b3k)
+            torch.cuda.synchronize()
+            for g, r in zip(got, ref):
+                check(bool((g == r).all()), f"{curve.name}: device Fq2 pt_{op} (b3k {b3k}) != group")
     # and on coordinates that are any field values, three to a point
     m = a.shape[1] // 3
     Pr = tuple(a[:, i * m : (i + 1) * m].contiguous() for i in range(3))
     Qr = tuple(b[:, i * m : (i + 1) * m].contiguous() for i in range(3))
     add_r, dbl_r = group.add(curve, Pr, Qr), group.double(curve, Pr)
-    for op, ref in (("add_cc", add_r), ("add_coop", add_r), ("double_coop", dbl_r)):
-        got = device_check.group_op(curve, op, Pr, Qr)
-        torch.cuda.synchronize()
-        for g, r in zip(got, ref):
-            check(bool((g == r).all()), f"{curve.name}: device Fq2 pt_{op} != group on edge coordinates")
+    for op, ref, _ in (("add_cc", add_r, Qr), ("add_coop", add_r, Qr), ("double_coop", dbl_r, Qr),
+                       *fold2_ops(add_r, dbl_r, Qr)):
+        for b3k in b3ks if op != "add_cc" else (None,):
+            got = device_check.group_op(curve, op, Pr, Qr, b3k)
+            torch.cuda.synchronize()
+            for g, r in zip(got, ref):
+                check(bool((g == r).all()),
+                      f"{curve.name}: device Fq2 pt_{op} (b3k {b3k}) != group on edge coordinates")
     return a.shape[1]
 
 
@@ -945,11 +970,12 @@ def main() -> None:
                 ptxas.append(f"{stem}:{name[:48]}: {used.split(':')[-1].strip()} | {spill.strip()}")
                 ptxas_by_kernel[name] = {"used": used.split(":")[-1].strip(), "spill": spill.strip()}
         # the out-of-line Fq2 functions: the step loop every one-lane Fq2
-        # group op calls (csrc/group2.cuh pt2_run) and the collapse's links
-        # (csrc/reduce.cu pt2_link_add, pt2_link_double): their own stack
+        # group op calls (csrc/group2.cuh pt2_run), the collapse's links
+        # (csrc/reduce.cu pt2_link_add, pt2_link_double) and the fold's
+        # (csrc/fold2.cuh fold2_link_double, fold2_link_add): their own stack
         # and spills
         for i, line in enumerate(lines):
-            if "Function properties for" in line and ("pt2_run" in line or "pt2_link" in line):
+            if "Function properties for" in line and any(f in line for f in ("pt2_run", "pt2_link", "fold2_")):
                 name = line.split("for ")[-1].strip()
                 spill = lines[i + 1].strip()
                 spills = [int(w) for w in spill.split() if w.isdigit()]
@@ -999,7 +1025,7 @@ def main() -> None:
         (name, nw): kernel_resources(stem, kernel, entry, targs, threads, *args)
         for nw in _build.SUPPORTED_WORDS
         for name, stem, kernel, entry, targs, threads, args in (
-            ("finish (fold)", "reduce", "finish_kernel", "zp_finish_info", (nw, 1), 32, (1,)),
+            ("finish (fold)", "reduce", "finish_kernel", "zp_finish_info", (nw,), 32, (1,)),
             ("collapse", "reduce", "collapse_kernel", "zp_collapse_info", (nw,), 128, (1, 0)),
             ("collapse (combine)", "reduce", "combine_kernel", "zp_collapse_info", (nw,), 128, (1, 1)),
             ("lane_reduce", "bucket", "lane_reduce_kernel", "zp_lane_reduce_info", (nw, 1, 2), 128, (1, 0)),
@@ -1019,13 +1045,20 @@ def main() -> None:
              32, (2, 1)),
             ("collapse", "reduce", "collapse2_kernel", "zp_collapse_info", (nw,), 128, (2, 0)),
             ("collapse (combine)", "reduce", "combine2_kernel", "zp_collapse_info", (nw,), 128, (2, 1)),
-            ("finish (fold)", "reduce", "finish_kernel", "zp_finish_info", (nw, 2), 32, (2,)),
+            ("finish (fold)", "reduce", "finish2_kernel", "zp_finish_info", (nw,),
+             pl_reduce.FOLD2_THREADS, (2,)),
             ("sorted_sweep", "sorted", "sorted_sweep2_kernel", "zp_sorted_sweep_info", (nw,), 32, (2,)),
             ("segscan", "sorted", "segscan_tile_kernel", "zp_segscan_info", (nw, 2), 32, (2, 0)),
             ("segscan (fix-up)", "sorted", "segscan_fix_kernel", "zp_segscan_info", (nw, 2), 32, (2, 1)),
         )
     }
     emit({"fq2_resources": {f"{k[0]} NW={k[1]}": v for k, v in fq2_res.items()}})
+    # the Fq2 fold keeps its two points and its exchange in shared memory and
+    # its state in registers: no stack either
+    for nw in _build.SUPPORTED_WORDS:
+        r = fq2_res[("finish (fold)", nw)]
+        check(r["stack_frame_bytes"] == 0 and r["local_bytes"] == 0,
+              f"finish2_kernel NW={nw} keeps {r['stack_frame_bytes']} stack bytes")
     # the budgets of the Fq2 reductions redesigned for 8 warps a SM: 864
     # shared bytes a thread at NW = 12 (a point, one more slot, the add's
     # three scratch elements) and 8 one-warp blocks resident
@@ -1079,6 +1112,7 @@ def main() -> None:
             ("mul", mul_ref), ("mul_cc", mul_ref), ("add", mont.add(fq, a, b)),
             ("sub", mont.sub(fq, a, b)), ("neg", mont.neg(fq, a)),
             ("mul_b3", mont.mont_mul(fq, b3, a)), ("mul_coop", mul_ref),
+            ("square", mont.mont_square(fq, a)),
         ):
             got = device_check.field_op(curve, op, a, b)
             torch.cuda.synchronize()
@@ -1132,7 +1166,7 @@ def main() -> None:
             for g, r in zip(got, ref):
                 check(bool((g == r).all()), f"{curve.name}: device pt_{op} != group on edge coordinates")
         dev_fn_report[curve.name] = (
-            "mul/mul_cc/mul_b3/mul_coop/add/sub/neg + mont_mul/mont_square kernels"
+            "mul/mul_cc/mul_b3/mul_coop/add/sub/neg/square (fe_sqr) + mont_mul/mont_square kernels"
             " + add_mixed/add/add_cc/double/add_par/double_par/add_coop/double_coop bit-equal"
         )
     emit({"device_functions": dev_fn_report, "seconds": round(time.perf_counter() - t0, 2)})
@@ -1153,8 +1187,10 @@ def main() -> None:
     fq2_report = {c.name: fq2_device_check(c, dev, g2_rng) for c in (toy_g2, bn254_g2, bls12_381_g2)}
     emit({"device_functions_fq2": {
         "elements_bit_equal": fq2_report, "tolerance": 0,
-        "ops": "mul/mul_cc/mul_coop/add/sub/neg/mul_b3/square + add_mixed, add_cc (K1's and K4's "
-               "group ops), add_coop/double_coop (K2's and K3's)",
+        "ops": "mul/mul_cc/mul_coop/add/sub/neg/mul_b3/square (mul_b3k where 3b = k (1 + u)) + "
+               "add_mixed, add_cc (K1's and K4's group ops), add_coop/double_coop (K2's), "
+               "add/double_fold2_warps and _lane (K3's fold links, both forms); the level-parallel "
+               "ops also with b3k = 0 where 3b = k (1 + u)",
         "seconds": round(time.perf_counter() - t0, 2)}})
 
     # ---- 4. kernels against their plain versions, small shapes ---------------
@@ -1736,7 +1772,7 @@ def main() -> None:
     pt1 = tuple(x[:, :1, 0].contiguous() for x in kernel_buckets)
     pt2 = tuple(x[:, 1:2, 0].contiguous() for x in kernel_buckets)
     link_us = {}
-    for op in device_check.CHAIN_OPS:
+    for op in ("double_par", "add_par", "double_coop", "add_coop", "add_lane"):  # the Fq chains
         device_check.group_chain(curve, op, pt1, pt2, 10)
         _, ms = sync_ms(lambda: device_check.group_chain(curve, op, pt1, pt2, 2000), 2)
         link_us[op] = ms / 2000 * 1e3
@@ -1859,36 +1895,51 @@ def main() -> None:
         "compared": "limbs bit for bit against mont.inverse (a^(q-2) by mont_mul)",
     })
 
-    # K5 / K6 at the paths' shape (N = 2^20 elements of Fq): the launch on
-    # packed words is timed (as K1's is), the public wrapper beside it; the
-    # comparison is on two full (L, N) operands, limbs bit for bit
+    # K5 / K6 at the paths' shape (N = 2^20 elements of Fq), compared on full
+    # (L, N) operands, limbs bit for bit.  K5: the launch on packed words is
+    # timed (as K1's is), the public wrapper beside it.  K6: the public call
+    # is its one launch on the limbs, and its bound counts the limb bytes
+    # that call moves; the bound of a launch on packed words beside it
     ops_library = "no PyTorch call multiplies multi-word integers modulo q"
+    sqr_ops = 2 * (NW * (NW - 1) // 2 + NW + NW * NW + NW)  # field.cuh fe_sqr's multiply-adds
     for kname, replaces, launch, wrapper, plain, n_in, path_count in (
         ("mont_mul", "zprize_wasm_msm_tpu/ops/field/kernels.py:138",
          lambda: field_kernels._mul_words(fq, words[0], words[1]),
          lambda: field_kernels.mont_mul(fq, X, Y), lambda: field_kernels.mont_mul_plain(fq, X, Y),
          2, path_a["launches"]["mont_mul"]),
-        ("mont_square", "zprize_wasm_msm_tpu/ops/field/kernels.py:160",
-         lambda: field_kernels._square_words(fq, words[0]),
+        ("mont_square", "zprize_wasm_msm_tpu/ops/field/kernels.py:160", None,
          lambda: field_kernels.mont_square(fq, X), lambda: field_kernels.mont_square_plain(fq, X),
          1, batch_launches["mont_square"]),
     ):
-        launch()
-        _, k_ms = sync_ms(launch, 10)
-        got, wrapper_ms = sync_ms(wrapper, 3)
+        sync_ms(wrapper, 2)  # the allocator's blocks for two results in turn
+        got, wrapper_ms = sync_ms(wrapper, 3 if launch else 10)
         ref, plain_ms = staged(plain)
         err = int((got - ref).abs().max().item())
         check(err == 0, f"{kname} at N = 2^{LOG2N} disagrees with its plain version (max |err| {err})")
         del got, ref
-        b_ms, b_by = bound((n_in + 1) * 4 * NW * n, n * mul_ops)
+        if launch:
+            launch()
+            _, k_ms = sync_ms(launch, 10)
+            b_ms, b_by = bound((n_in + 1) * 4 * NW * n, n * mul_ops)
+            extra = {"wrapper_ms": wrapper_ms,
+                     "shape": f"({L},{n}) x{n_in} -> ({L},{n}); ms is the launch on ({NW},{n}) packed "
+                              "words, wrapper_ms includes packing limbs to words and back"}
+        else:
+            k_ms = wrapper_ms
+            b_ms, b_by = bound(2 * L * 8 * n, n * sqr_ops)
+            words_b_ms, words_b_by = bound(2 * 4 * NW * n, n * sqr_ops)
+            extra = {"wrapper_ms": wrapper_ms, "multiply_adds_per_element": sqr_ops // 2,
+                     "words_form_bound_ms": words_b_ms, "words_form_bound_by": words_b_by,
+                     "shape": f"({L},{n}) int64 limbs -> ({L},{n}); ms is the public call "
+                              "(field_kernels.mont_square = ctx.batch_square), one launch on the limbs, "
+                              "10 calls; bound_ms on the limb bytes it moves, words_form_bound_ms on "
+                              f"({NW},{n}) packed words in and out"}
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "zprize_wasm_msm_tpu_torch/csrc/field_kernels.cu", "replaces": replaces,
             "launches": path_count, "max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "wrapper_ms": wrapper_ms, "no_library_because": ops_library,
-            "shape": f"({L},{n}) x{n_in} -> ({L},{n}); ms is the launch on ({NW},{n}) packed words, "
-                     "wrapper_ms includes packing limbs to words and back",
+            "no_library_because": ops_library, **extra,
             "compared": "limbs bit for bit against mont." + kname,
         })
     # the one-constant form path A and B use for beta * x
@@ -2166,6 +2217,39 @@ def main() -> None:
         if op != "add_lane":
             link2_by_warps[f"{op}, {warps} warps a SM"] = ms / 500 * 1e3
     links2_at_4 = {op: link2_by_warps[f"{op}, 4 warps a SM"] for op in ("add_coop", "double_coop")}
+    # the fold's links (csrc/fold2.cuh), chains of 500 on one block, in both
+    # forms, on BLS12-381 G2 (3b = 12 (1 + u): 3b t by additions, and with
+    # b3k = 0 by its level of products) and BN254 G2 (3b a full element); and
+    # par.cuh's Fq2 link as the fold ran it before (double_coop / add_coop
+    # with b3k = 0: three levels, each Fq2 product's Fq products in turn)
+    pbn = group.from_affine(bn254_g2, (Xb[:, :2].contiguous(), Yb[:, :2].contiguous()))
+    pb1, pb2 = (tuple(x[:, i : i + 1].contiguous() for x in pbn) for i in (0, 1))
+    fold_us = {}
+    for curve_, p1, p2 in ((g2, pg1, pg2), (bn254_g2, pb1, pb2)):
+        for op in ("double_fold2_warps", "add_fold2_warps", "double_fold2_lane", "add_fold2_lane",
+                   "double_coop", "add_coop"):
+            for b3k in (None, 0) if _build.fold_b3k(curve_) else (None,):
+                device_check.group_chain(curve_, op, p1, p2, 10, 1, b3k)
+                _, ms = sync_ms(lambda: device_check.group_chain(curve_, op, p1, p2, 500, 1, b3k), 2)
+                fold_us[f"{curve_.name} {op}" + (" b3k=0" if b3k == 0 else "")] = ms / 500 * 1e3
+    fold_form = "warps" if pl_reduce.FOLD2_THREADS == 96 else "lane"
+    other_form = {"warps": "lane", "lane": "warps"}[fold_form]
+
+    def fold_links(form=fold_form, curve_=g2, suffix=""):
+        return {op: fold_us[f"{curve_.name} {op}_fold2_{form}{suffix}"] for op in ("double", "add")}
+
+    old_links = {op: fold_us[f"{g2.name} {op}_coop b3k=0"] for op in ("double", "add")}
+
+    def k3g_floor(W_, c_, links):
+        """c (W-1) doublings and W-1 additions at the given links' latency."""
+        return (c_ * (W_ - 1) * links["double"] + (W_ - 1) * links["add"]) / 1e3
+
+    def k3g_floors(W_, c_):
+        return {
+            "depth_floor_ms": k3g_floor(W_, c_, fold_links()),
+            "depth_floor_ms_at_old_link": k3g_floor(W_, c_, old_links),
+            "depth_floor_ms_at_other_form": k3g_floor(W_, c_, fold_links(other_form)),
+        }
     # K2: the wrapper (3 calls), its plan and times at every run length, its
     # depth floor at the Fq2 links (of one warp alone, and of 4 warps a SM)
     pl_reduce.collapse(g2, buckets_g)
@@ -2203,9 +2287,14 @@ def main() -> None:
         "replaces": "zprize_wasm_msm_tpu/ops/msm/pl_reduce.py:246",
         "launches": path_g2["launches"]["finish"], "max_abs_err": k3g_err, "ms": k3g_ms,
         "plain_ms": k3g_plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "depth_floor_ms": (cg * (Wg - 1) * link2_us["double_coop"] + (Wg - 1) * link2_us["add_coop"]) / 1e3,
+        **k3g_floors(Wg, cg), "fold_form": f"{fold_form}: {pl_reduce.FOLD2_THREADS} threads",
+        "link_us": fold_links(), "link_us_other_form": fold_links(other_form),
+        "link_us_old": old_links, "link_us_bn254_g2": fold_links(curve_=bn254_g2),
+        "link_us_b3_product_level": fold_links(suffix=" b3k=0"), "fold_links_us": fold_us,
         "fold_resources": fq2_res[("finish (fold)", NW)],
-        "shape": f"({LG},{Wg},1)x3, c={cg} -> ({LG},)x3; ms is the pl_reduce.finish wrapper",
+        "shape": f"({LG},{Wg},1)x3, c={cg} -> ({LG},)x3; ms is the pl_reduce.finish wrapper; "
+                 "depth floors at this form's link, at par.cuh's Fq2 link with its level of "
+                 "products by 3b (the fold's link before) and at the other form's",
         "compared": "as affine points against bucket_reduce + window_fold, and against the oracle",
     })
     # K7 over Fq2 at path G2-sorted's shape, all 27 windows, on the stream
@@ -2292,7 +2381,7 @@ def main() -> None:
             "shape": f"({LG},{Wgs},1)x3, c={cgs}", "ms": k3gs_ms, "plain_ms": k3gs_plain_ms, "max_abs_err": k3gs_err,
             **dict(zip(("bound_ms", "bound_by"), bound((Wgs + 1) * 3 * EW * 4,
                                                        cgs * (Wgs - 1) * DOUBLE2 + (Wgs - 1) * ADD2))),
-            "depth_floor_ms": (cgs * (Wgs - 1) * link2_us["double_coop"] + (Wgs - 1) * link2_us["add_coop"]) / 1e3}},
+            **k3g_floors(Wgs, cgs)}},
     }
     del dense_gs, sums_gs, fold_gs
     for entry in fq2_entries:

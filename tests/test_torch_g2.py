@@ -427,7 +427,8 @@ def test_g2_points_cross_from_reference_and_pack_to_words():
 
 def test_g2_kernel_constant_block():
     """3b over Fq2: component 0 in the Fq slot, component 1 in the last;
-    BN254 G2's 3b is a full Fq2 element, BLS12-381 G2's 12 + 12u."""
+    BN254 G2's 3b is a full Fq2 element, BLS12-381 G2's 12 + 12u, which the
+    level-parallel Fq2 ops take as additions (fold_b3k 12; 0 elsewhere)."""
     for name in ("bls12_381_g2", "bn254_g2", "toy_g2"):
         port = getattr(port_curves, name)
         fq, nw = port.fq, port.fq.n_words
@@ -441,7 +442,7 @@ def test_g2_kernel_constant_block():
         assert slot(24) == fq.to_mont_int(b3[0]) and slot(37) == fq.to_mont_int(b3[1])
         assert (block[:24] == _build.field_consts(fq)[:24]).all() and block[36] == fq.np32
         assert not block[24 + nw : 36].any() and not block[37 + nw :].any()
-        assert _build.fold_b3k(port) == 0
+        assert _build.fold_b3k(port) == (12 if name == "bls12_381_g2" else 0)
     assert port_curves.bn254_g2.b3[1] != 0 and port_curves.bls12_381_g2.b3 == (12, 12)
     with pytest.raises(NotImplementedError, match="u\\^2 = -1"):
         _build.curve_consts(dataclasses.replace(port_curves.bls12_381_g2, name="nr2", nr=2))

@@ -206,12 +206,11 @@ def b3_small(curve) -> int:
     over Fq (csrc/par.cuh multiplies by it with additions): 12 on
     BLS12-381, 9 on BN254.  Raises for a curve whose 3b does not fit one
     32-bit word, and over Fq2, where those ops multiply by the 3b of the
-    constant block (fold_b3k)."""
+    constant block or, where 3b = k (1 + u), by additions (b3_small_fq2)."""
     curve_consts(curve)  # the same coverage as every kernel
     if curve.ext != 1:
         raise NotImplementedError(
-            f"{curve.name}: 3b is an Fq2 element; the Fq2 group ops take it from the "
-            "constant block"
+            f"{curve.name}: 3b is an Fq2 element; see b3_small_fq2"
         )
     k = 3 * curve.b
     if not 0 < k < 1 << 32:
@@ -221,12 +220,37 @@ def b3_small(curve) -> int:
     return k
 
 
+@functools.lru_cache(maxsize=None)
+def b3_small_fq2(curve) -> int:
+    """The Fq2 counterpart of b3_small: k where 3b = k (1 + u), a small
+    integer (12 on BLS12-381 G2, b = 4 (1 + u)), so that the level-parallel
+    Fq2 group ops (csrc/par.cuh, csrc/fold2.cuh) take 3b t = k (t0 - t1) +
+    k (t0 + t1) u by additions.  Raises for any other 3b (BN254 G2, whose
+    3b is a full Fq2 element, and toy_g2) and over Fq."""
+    curve_consts(curve)
+    if curve.ext != 2:
+        raise NotImplementedError(f"{curve.name}: not an Fq2 curve; see b3_small")
+    k, c1 = curve.b3
+    if k != c1 or not 0 < k < 1 << 32:
+        raise NotImplementedError(
+            f"{curve.name}: 3b = {curve.b3} is not k (1 + u) for a k below 2^32; its "
+            "products by 3b keep their level of products"
+        )
+    return k
+
+
 def fold_b3k(curve) -> int:
     """The b3k argument of the entry points that run the level-parallel
-    group ops: b3_small over Fq; over Fq2 they read 3b from the constant
-    block, and take 0."""
-    curve_consts(curve)
-    return b3_small(curve) if curve.ext == 1 else 0
+    group ops: b3_small over Fq; over Fq2 b3_small_fq2 where 3b = k (1 + u)
+    (3b by additions), else 0 (a level of products by the constant block's
+    3b)."""
+    curve_consts(curve)  # a curve no kernel covers raises here, not below
+    if curve.ext == 1:
+        return b3_small(curve)
+    try:
+        return b3_small_fq2(curve)
+    except NotImplementedError:
+        return 0
 
 
 def kernel_info(stem: str, entry: str, nw: int, *args: int) -> Dict[str, int]:

@@ -6,14 +6,15 @@
 
 #include <cuda_runtime.h>
 
-#include "par.cuh"
+#include "fold2.cuh"
 
 // a, b, r: [EXT NW][n] words.  op: 0 mul, 1 add, 2 sub, 3 neg (of a), 4
 // mul_cc (over Fq the carry-chain product of the Fq sweeps; over Fq2 the
 // one Fq2 product, as op 0), 5 the product by 3b (over Fq k * a by
 // additions, fe_mul_small, k = b3k: the fold's group ops take it so; over
-// Fq2 a product by the constant 3b), 7 square (over Fq2 the complex
-// squaring of field2.cuh; over Fq fe_mul(a, a)).
+// Fq2 a product by the constant 3b), 7 square (over Fq field.cuh fe_sqr,
+// over Fq2 the complex squaring of field2.cuh), 8 (Fq2 only) 3b a as
+// additions, par.cuh fe_mul_b3k with k = b3k.
 template <int NW, int EXT>
 __global__ void field_op_kernel(int op, const uint32_t* a, const uint32_t* b, uint32_t* r,
                                 int n, uint32_t b3k) {
@@ -37,9 +38,11 @@ __global__ void field_op_kernel(int op, const uint32_t* a, const uint32_t* b, ui
       fe_b3<NW>(y);
       fe_mul<NW>(z, y, x);
     }
+  } else if (op == 7) {
+    fe_sqr<NW>(z, x);
   } else {
-    if constexpr (EXT == 1) fe_mul<NW>(z, x, x);
-    else fe_sqr<NW>(z, x);
+    if constexpr (EXT == 2) fe_mul_b3k<NW>(z, x, b3k);
+    else z = x;  // refused by the entry point
   }
   fe_store_soa<NW>(r, (size_t)n, (size_t)i, z);
 }
@@ -141,6 +144,37 @@ __global__ void __launch_bounds__(128)
   if (threadIdx.x == 0) pt_store_soa<NW>(r, 1, 0, a);
 }
 
+// The window fold's Fq2 links (fold2.cuh) in the form <PL, NT>: one block
+// of NT threads a point.  group: op 0 double (of p), 1 add (q into p), one
+// op on point blockIdx.x of n; chain: `reps` dependent ops on one point (the
+// fold's link, timed by chip_smoke.py).  p, q, r: [3][2 NW][n] words.
+template <int NW, int PL, int NT>
+__global__ void __launch_bounds__(NT, 1)
+    fold2_op_kernel(int op, const uint32_t* p, const uint32_t* q, uint32_t* r, int n, int reps,
+                    uint32_t b3k) {
+  __shared__ PtK<NW> a, b;
+  __shared__ Fold2Sh<NW> sh;
+  const int i = blockIdx.x;
+  fold2_load<NW>(a, p, (size_t)n, (size_t)i);
+  fold2_load<NW>(b, q, (size_t)n, (size_t)i);
+  for (int k = 0; k < reps; ++k) {
+    if (op == 0) fold2_link_double<NW, PL, NT>(&a, &sh, b3k);
+    else fold2_link_add<NW, PL, NT>(&a, &a, &b, &sh, b3k);
+  }
+  if (threadIdx.x == 0) fold2_store<NW>(r, (size_t)n, (size_t)i, a);
+}
+
+// fold2_op_kernel's two forms: form 0 a block of three warps, a unit of
+// coop_lanes lanes an Fq product; form 1 one warp, a lane a product.
+template <int NW>
+static void fold2_launch(int form, int op, const uint32_t* p, const uint32_t* q, uint32_t* r,
+                         int n, int reps, uint32_t b3k, cudaStream_t stream) {
+  if (form == 0)
+    fold2_op_kernel<NW, coop_lanes<NW>(), 96><<<n, 96, 0, stream>>>(op, p, q, r, n, reps, b3k);
+  else
+    fold2_op_kernel<NW, 1, 32><<<n, 32, 0, stream>>>(op, p, q, r, n, reps, b3k);
+}
+
 // One warp, each lane running `reps` dependent one-lane complete adds of q
 // into p (pt_add_acc as the segmented scan runs it: over Fq in registers on
 // the 64-bit-row product, over Fq2 on points in shared memory).
@@ -168,7 +202,8 @@ __global__ void __launch_bounds__(FQ2_BLOCK, 1)
 extern "C" int zp_field_op(int nw, int ext, const uint32_t* host_consts, uint32_t b3k, int op,
                            const uint32_t* a, const uint32_t* b, uint32_t* r, int n,
                            void* stream_ptr) {
-  if (ext == 1 && op == 5 && b3k == 0) return -5;
+  if ((ext == 1 && op == 5 && b3k == 0) || (op == 8 && b3k == 0)) return -5;
+  if (op == 8 && ext != 2) return -1;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   int err = zp_set_consts(nw, host_consts, stream);
   if (err) return err;
@@ -188,16 +223,23 @@ extern "C" int zp_field_op(int nw, int ext, const uint32_t* host_consts, uint32_
 
 // op 0-3: group_op_kernel, one thread per point (over Fq2 ops 0 and 3:
 // group2_op_kernel); 4, 5: group_par_kernel double / add with a product to a
-// lane (Fq only); 6, 7: the same with cooperative products.
+// lane (Fq only); 6, 7: the same with cooperative products; 8-11 (Fq2
+// only): the fold's links, double / add of form 0 (8, 9) and of form 1
+// (10, 11), a block a point.
 extern "C" int zp_group_op(int nw, int ext, const uint32_t* host_consts, uint32_t b3k, int op,
                            const uint32_t* p, const uint32_t* q, uint32_t* r, int n,
                            void* stream_ptr) {
   if (ext == 1 && op >= 4 && b3k == 0) return -5;
   if (ext != 1 && (op == 1 || op == 2 || op == 4 || op == 5)) return -1;
+  if (op > 11 || (ext == 1 && op >= 8)) return -1;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   int err = zp_set_consts(nw, host_consts, stream);
   if (err) return err;
-  if (op < 4 && ext == 1) {
+  if (op >= 8) {
+#define CALL(NW_) fold2_launch<NW_>((op - 8) / 2, op % 2, p, q, r, n, 1, b3k, stream)
+    ZP_DISPATCH_NW(nw, CALL)
+#undef CALL
+  } else if (op < 4 && ext == 1) {
 #define CALL(NW_) group_op_kernel<NW_><<<(n + 63) / 64, 64, 0, stream>>>(op, p, q, r, n)
     ZP_DISPATCH_NW(nw, CALL)
 #undef CALL
@@ -223,16 +265,23 @@ extern "C" int zp_group_op(int nw, int ext, const uint32_t* host_consts, uint32_
 
 // op 0 / 1: doublings / additions with a product to a lane (Fq only); 2 /
 // 3: with cooperative products, on `warps` warps of one block (1, 2 or 4);
-// 4: one-lane complete additions (one warp).
+// 4: one-lane complete additions (one warp); 5 / 6 and 7 / 8 (Fq2 only):
+// the fold's doublings / additions in form 0 and form 1 (fold2_launch),
+// one block.
 extern "C" int zp_group_chain(int nw, int ext, const uint32_t* host_consts, uint32_t b3k,
                               int op, const uint32_t* p, const uint32_t* q, uint32_t* r,
                               int reps, int warps, void* stream_ptr) {
   if (ext == 1 && b3k == 0) return -5;
-  if ((ext != 1 && op < 2) || op > 4 || warps < 1 || warps > 4 || (op == 4 && warps != 1)) return -1;
+  if ((ext != 1 && op < 2) || op > 8 || warps < 1 || warps > 4 || (op >= 4 && warps != 1)) return -1;
+  if (ext == 1 && op >= 5) return -1;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   int err = zp_set_consts(nw, host_consts, stream);
   if (err) return err;
-  if (op < 2) {
+  if (op >= 5) {
+#define CALL(NW_) fold2_launch<NW_>((op - 5) / 2, (op - 5) % 2, p, q, r, 1, reps, b3k, stream)
+    ZP_DISPATCH_NW(nw, CALL)
+#undef CALL
+  } else if (op < 2) {
 #define CALL(NW_) \
   group_chain_kernel<NW_, 1, 1><<<1, 32 * warps, 0, stream>>>(op, p, q, r, reps, b3k)
     ZP_DISPATCH_NW(nw, CALL)

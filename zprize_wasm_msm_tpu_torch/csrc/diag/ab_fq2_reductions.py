@@ -1,6 +1,7 @@
 """A/B of whole builds of the MSM's reductions on one card: the lane
 reduction (K4), the segmented scan (K8) and the collapse (K2), each over Fq2
-and over Fq.
+and over Fq, the window fold over Fq2 (K3) and the batched Montgomery
+square (K6).
 
     python3 zprize_wasm_msm_tpu_torch/csrc/diag/ab_fq2_reductions.py \\
         --form old=OLD_CHECKOUT/zprize_wasm_msm_tpu_torch/csrc \\
@@ -12,10 +13,12 @@ instance ``csrc/`` of an unpacked ``git archive`` of another commit) and,
 after a colon, edits from ``EDITS`` below: each turns one per-field design
 choice of these sources off, so that a form measures what the choice is
 worth; an edited form is a copy of CSRC under ``build/ab/NAME/csrc``.  Its
-``bucket.cu``, ``sorted.cu`` and ``reduce.cu`` are built with the package's
-nvcc flags (all forms at once, ab_fq2_sweeps.build_forms) into
-``build/ab/NAME/``.  The inputs are made once by the current package from
-chip_smoke.py's seeds:
+``bucket.cu``, ``sorted.cu``, ``reduce.cu`` and ``field_kernels.cu`` are
+built with the package's nvcc flags (all forms at once,
+ab_fq2_sweeps.build_forms) into ``build/ab/NAME/``; an edited form whose
+CSRC is another form's builds only the sources its edits reach and takes
+the others from that form.  The inputs are made once by the current package
+from chip_smoke.py's seeds:
   * BLS12-381 G2, 2^20 bases and full scalars: K1's state at c = 6 (K4 over
     Fq2) and its bucket sums (K2 over Fq2 at path G2's W = 44, B = 32); the
     sorted engine's pieces at c = 10 (K8 over Fq2) and their dense buckets
@@ -25,7 +28,10 @@ chip_smoke.py's seeds:
     c = 7 (K4 over Fq) and its bucket sums (K2 over Fq, W = 38, B = 64);
     after the GLV split, the sorted engine's pieces at c = 10 (K8 over Fq at
     path B's shape) and their dense buckets (K2 over Fq at path B's W = 15,
-    B = 512); every scalar 1: path B's skewed stream.
+    B = 512); every scalar 1: path B's skewed stream; the bases' X (K6 on
+    2^20 elements of Fq);
+  * the window sums of both G2 shapes (K3 over Fq2: W = 44, c = 6 and
+    W = 27, c = 10), as packed words, the fold's input.
 Each form launches K4 at the lanes pl_reduce._reduce_lanes gives its own
 residency (zp_lane_reduce_info); K8 as its wrapper does, on the limbs
 through ``zp_segscan_limbs`` (given NULL for the kernel count where its
@@ -33,7 +39,12 @@ entry takes one), or, where that entry refuses the field, on words through
 ``zp_segscan`` (the pieces packed before, the sums unpacked after); K2
 through ``zp_collapse`` at the run length pl_reduce._collapse_run picks on
 this card and, over Fq2, at every run length from 4 to 64 that fits B
-(``by_run``).
+(``by_run``); K3 over Fq2 through ``zp_finish``; K6 as each build's public
+call made it: on the limbs through ``zp_mont_square`` where that entry
+takes limbs, else the packing of the limbs to words, the launch on words
+and the unpacking (the parent's ``kernels.mont_square``).  The instructions
+of ``mont_square_kernel`` and ``mont_mul_kernel`` at NW = 12 in each
+build's SASS (cuobjdump) are counted.
 The launches are timed with CUDA events in turns (forms in order on even
 rounds, reversed on odd ones); every form's result must equal the first
 form's as affine points.  Prints one JSON line per form (residencies,
@@ -45,6 +56,8 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import os
+import re
 import shutil
 import subprocess
 import sys
@@ -62,18 +75,32 @@ import chip_smoke  # noqa: E402
 from ab_fq2_sweeps import build_forms, event_ms  # noqa: E402
 from zprize_wasm_msm_tpu_torch import _build  # noqa: E402
 
-STEMS = ("bucket", "sorted", "reduce")
-#: edits of a form's sources, each (file, text, replacement): a per-field
-#: choice turned off
+STEMS = ("bucket", "sorted", "reduce", "field_kernels")
+#: edits of a form's sources, each (file, text, replacement, the sources
+#: whose code it changes), text and replacement a string or a tuple of them
+#: in turn: a design choice turned off
 EDITS = {
     # the Fq2 collapse's links inlined at every call site (reduce.cu)
     "inline_links": ("reduce.cu", "links_out_of_line() {\n  return EXT == 2;",
-                     "links_out_of_line() {\n  return false;"),
+                     "links_out_of_line() {\n  return false;", ("reduce",)),
     # the Fq2 collapse's walk reading each bucket when it reaches it
-    "no_prefetch": ("reduce.cu", "walk_prefetch() {\n  return EXT == 2;", "walk_prefetch() {\n  return false;"),
+    "no_prefetch": ("reduce.cu", "walk_prefetch() {\n  return EXT == 2;", "walk_prefetch() {\n  return false;",
+                    ("reduce",)),
     # the Fq scan's adds on the carry-chain product instead of the 64-bit rows (sorted.cu)
     "scan_fq_carry_chains": ("sorted.cu", "scan_carry_chains() {\n  return EXT == 2;",
-                             "scan_carry_chains() {\n  return true;"),
+                             "scan_carry_chains() {\n  return true;", ("sorted",)),
+    # the Fq2 level-parallel links' 3b t as a level of products where 3b =
+    # k (1 + u) (K2's and K3's links over Fq2; par.cuh)
+    "b3_product_level": ("par.cuh", "b3_as_additions() {\n  return true;",
+                         "b3_as_additions() {\n  return false;", ("reduce",)),
+    # the Fq2 fold's links inlined at its call sites (fold2.cuh)
+    "fold_inline_links": ("fold2.cuh", ("__noinline__ void fold2_link_double", "__noinline__ void fold2_link_add"),
+                          ("__forceinline__ void fold2_link_double", "__forceinline__ void fold2_link_add"),
+                          ("reduce",)),
+    # the Fq2 fold on one warp, a lane an Fq product (reduce.cu)
+    "fold_lane_form": ("reduce.cu", "#define FOLD2_THREADS 96", "#define FOLD2_THREADS 32", ("reduce",)),
+    # K6 as fe_mul(x, x) instead of fe_sqr (field_kernels.cu)
+    "square_as_product": ("field_kernels.cu", "fe_sqr<NW>(x, x);", "fe_mul<NW>(x, x, x);", ("field_kernels",)),
 }
 
 
@@ -85,11 +112,34 @@ def edited(name: str, csrc: str, edits: str) -> str:
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(csrc, out)
     for edit in edits.split(","):
-        fname, text, repl = EDITS[edit]
+        fname, texts, repls, _ = EDITS[edit]
         src = (out / fname).read_text()
-        chip_smoke.check(src.count(text) == 1, f"edit {edit}: its text is not once in {fname}")
-        (out / fname).write_text(src.replace(text, repl))
+        for text, repl in zip(*((x,) if isinstance(x, str) else x for x in (texts, repls))):
+            chip_smoke.check(src.count(text) == 1, f"edit {edit}: its text is not once in {fname}")
+            src = src.replace(text, repl)
+        (out / fname).write_text(src)
     return str(out)
+
+
+def sass_instructions(so: Path, names=("mont_square_kernel", "mont_mul_kernel")):
+    """Instructions (and IMADs of every form) of each named kernel at
+    NW = 12 in cuobjdump's SASS of one library."""
+    cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    text = subprocess.run([f"{cuda}/bin/cuobjdump", "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = next((n for n in names if n in m.group(1) and "Li12E" in m.group(1)), None)
+            if fn:
+                counts[fn] = {"instructions": 0, "IMAD": 0}
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]+\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)", line)
+        if m and fn:
+            counts[fn]["instructions"] += 1
+            counts[fn]["IMAD"] += m.group(2).startswith("IMAD")
+    return counts
 
 
 def lane_info(lib, ext):
@@ -107,11 +157,14 @@ def main() -> None:
     parser.add_argument("--reps", type=int, default=4, help="rounds of turns (each form once a round)")
     args = parser.parse_args()
     chip_smoke.check(torch.cuda.is_available(), "no CUDA device")
-    forms = []
+    forms, base_of = [], {}
     for spec in args.form:
         name, rest = spec.split("=", 1)
         csrc, _, edits = rest.partition(":")
-        forms.append((name, edited(name, str(Path(csrc).resolve()), edits), edits))
+        base = str(Path(csrc).resolve())
+        forms.append((name, edited(name, base, edits), edits))
+        if edits:
+            base_of[forms[-1][1]] = base
 
     from zprize_wasm_msm_tpu_torch import build_bls12381, build_curve
     from zprize_wasm_msm_tpu_torch.models.curves import bls12_381, bls12_381_g2 as g2
@@ -120,7 +173,13 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    libs, _ = build_forms(forms, STEMS)
+    plain = {c for _, c, e in forms if not e}
+    only = {c: tuple({st for e in edits.split(",") for st in EDITS[e][3]})
+            for _, c, edits in forms if edits and base_of[c] in plain}
+    libs, _ = build_forms(forms, STEMS, only)
+    for c, base in base_of.items():
+        for stem in STEMS:
+            libs[c].setdefault(stem, libs[base][stem])
     chip_smoke.emit({"built": {n: [c, e] for n, c, e in forms}, "build_s": time.perf_counter() - t0})
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -166,7 +225,11 @@ def main() -> None:
     scan_g1 = {"B": sorted_stages(bls12_381, P2, k2, glv.MAX_BITS),
                "skewed": sorted_stages(bls12_381, P2s, k2s, glv.MAX_BITS)}
     dense_b = dense(bls12_381, *scan_g1["B"])
-    del X1, Y1, scalars1, P2, k2, P2s, k2s
+    sq_in = X1  # K6's operand: 2^20 elements of Fq
+    del Y1, scalars1, P2, k2, P2s, k2s
+    # K3 over Fq2's input: the window sums of both G2 shapes, as words
+    sums_words = {case: _launch.pack_point(tuple(x[:, :, None].contiguous() for x in pl_reduce.collapse(g2, bk)))
+                  for case, bk in (("G2", buckets_g2), ("G2-sorted", dense_g2s))}
     chip_smoke.emit({"inputs_s": time.perf_counter() - t0})
 
     def k4(lib, curve, state):
@@ -252,9 +315,51 @@ def main() -> None:
 
         return run
 
+    def k3(lib, S, c):
+        NW = g2.fq.n_words
+        W = S.shape[2]
+        out = torch.empty((3, 2 * NW, 1), dtype=torch.int32, device=dev)
+        fn = lib.zp_finish
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32] + [ctypes.c_void_p] * 2
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        consts = _build.curve_consts(g2).ctypes.data_as(ctypes.c_void_p)
+
+        def run():
+            err = fn(NW, 2, consts, _build.fold_b3k(g2), _launch.ptr(S), _launch.ptr(out), W, c,
+                     _launch.stream_ptr())
+            _build.check_launch(err, "finish")
+            return _launch.unpack_point(out, ())
+
+        return run
+
+    def k6(lib, csrc):
+        fq = bls12_381.fq
+        n1 = sq_in.shape[1]
+        fn = lib.zp_mont_square
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
+        consts = _build.field_consts(fq).ctypes.data_as(ctypes.c_void_p)
+        if "zp_mont_square(int nw, const uint32_t* host_consts, const int64_t* a" in \
+                (Path(csrc) / "field_kernels.cu").read_text():
+            out = torch.empty_like(sq_in)
+
+            def run():
+                _build.check_launch(fn(fq.n_words, consts, _launch.ptr(sq_in), _launch.ptr(out), n1,
+                                       _launch.stream_ptr()), "mont_square")
+                return (out,)
+        else:
+            def run():  # the words entry inside its wrapper: pack, launch, unpack
+                aw = _launch.pack_point((sq_in,))[0]
+                ow = torch.empty_like(aw)
+                _build.check_launch(fn(fq.n_words, consts, _launch.ptr(aw), _launch.ptr(ow), n1,
+                                       _launch.stream_ptr()), "mont_square")
+                return (_launch.unpack_point(ow[None], (n1,))[0],)
+        return run
+
     runs, lanes = {}, {}
     for name, csrc, _ in forms:
-        lib_b, lib_s, lib_r = (libs[csrc][stem] for stem in STEMS)
+        lib_b, lib_s, lib_r, lib_f = (libs[csrc][stem] for stem in STEMS)
         r4g2, lanes[(name, "k4_fq2")] = k4(lib_b, g2, state_g2)
         r4g1, lanes[(name, "k4_fq")] = k4(lib_b, bls12_381, state_g1)
         runs[name] = {
@@ -266,6 +371,8 @@ def main() -> None:
             **{f"k2_fq2_{case}_by_run_{m}_ms": k2(lib_r, g2, bk, m)
                for case, bk in (("G2", buckets_g2), ("G2-sorted", dense_g2s)) for m in (4, 8, 16, 32, 64)
                if m <= bk[0].shape[2]},
+            "k3_fq2_G2_ms": k3(lib_r, sums_words["G2"], 6), "k3_fq2_G2-sorted_ms": k3(lib_r, sums_words["G2-sorted"], 10),
+            "k6_ms": k6(lib_f, csrc),
         }
     ref = {}
     for name, _, _ in forms:  # warm-up and the cross-form check
@@ -275,6 +382,9 @@ def main() -> None:
             curve = g2 if "fq2" in key else bls12_381
             if key not in ref:
                 ref[key] = got
+            elif key == "k6_ms":  # limbs
+                e = int((got[0] - ref[key][0]).abs().max().item())
+                chip_smoke.check(e == 0, f"{name}: k6 differs from {forms[0][0]}'s (max |err| {e})")
             else:
                 e = chip_smoke.affine_err(curve, got, ref[key])
                 chip_smoke.check(e == 0, f"{name}: {key[:-3]} differs from {forms[0][0]}'s (max |err| {e})")
@@ -290,6 +400,7 @@ def main() -> None:
             "form": name, "csrc": csrc, "edits": edits,
             "k4_fq2": {**lane_info(lib_b, 2), "lanes": lanes[(name, "k4_fq2")]},
             "k4_fq": {**lane_info(lib_b, 1), "lanes": lanes[(name, "k4_fq")]},
+            "k6_sass": sass_instructions(Path(libs[csrc]["field_kernels"]._name)),
             **{k.replace("_ms", "_mean_ms"): sum(v) / len(v) for k, v in times[name].items()},
             "runs_ms": times[name],
         })

@@ -48,9 +48,10 @@ from zprize_wasm_msm_tpu_torch import _build  # noqa: E402
 STEMS = ("bucket", "sorted")
 
 
-def build_forms(forms, stems=STEMS):
+def build_forms(forms, stems=STEMS, only=None):
     """nvcc every (form, stem) at once, with the package's flags for the
-    stem; returns {csrc: {stem: loaded lib}}."""
+    stem (``only``: {csrc: stems} where a form needs fewer); returns
+    {csrc: {stem: loaded lib}}."""
     cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     procs, libs = {}, {}
     for name, csrc, _ in forms:
@@ -59,7 +60,7 @@ def build_forms(forms, stems=STEMS):
         libs[csrc] = {}
         out = ROOT / "build" / "ab" / name
         out.mkdir(parents=True, exist_ok=True)
-        for stem in stems:
+        for stem in (only or {}).get(csrc, stems):
             so = out / f"libzp_{stem}.so"
             log = open(out / f"nvcc_{stem}.log", "w")
             cmd = [f"{cuda}/bin/nvcc", *_build.NVCC_FLAGS, *_build.STEM_FLAGS.get(stem, ()), "-o", str(so),

@@ -236,3 +236,68 @@ __device__ __forceinline__ void fe_mul_cc(Fe<NW>& r, const Fe<NW>& a, const Fe<N
   for (int i = 0; i < NW; ++i) s[i] = t[i];
   fe_reduce_once<NW>(r, s);
 }
+
+// Montgomery square a^2 R^{-1} mod q, canonical (the TPU kernel's
+// _square_kernel on 16-bit limbs: the upper triangle doubled plus the
+// diagonal, then the reduction rows).  Separated operand scanning: the NW
+// (NW - 1) / 2 cross products a_i a_j (i < j) once, doubled by a one-bit
+// shift of the 2 NW words, the NW squares a_i^2 added on the diagonal, then
+// NW reduction rows t += (t_i np mod 2^32) q 2^(32 i), each row's last
+// carry kept for the word above the next row's top: NW (NW - 1) / 2 + NW
+// products for the square and NW + NW^2 for the reduction (each row's m =
+// t_i np and its NW products m q_j) against fe_mul's 2 NW^2 + NW (234
+// against 300 at NW = 12).
+// a^2 < q^2 and the rows add less than R q, so the top NW words hold less
+// than 2q < R: no word beyond them, one conditional subtract.  r may alias
+// a.  Every step is 64-bit C, as fe_mul's rows.
+template <int NW>
+__device__ __forceinline__ void fe_sqr(Fe<NW>& r, const Fe<NW>& a) {
+  uint32_t t[2 * NW];
+#pragma unroll
+  for (int i = 0; i < 2 * NW; ++i) t[i] = 0u;
+#pragma unroll
+  for (int i = 0; i + 1 < NW; ++i) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = i + 1; j < NW; ++j) {
+      const uint64_t s = (uint64_t)a.w[i] * a.w[j] + t[i + j] + c;  // <= 2^64 - 1
+      t[i + j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    t[i + NW] = (uint32_t)c;
+  }
+  // the cross sum is below 2^(64 NW - 1): its double fits the 2 NW words
+#pragma unroll
+  for (int i = 2 * NW - 1; i > 0; --i) t[i] = (t[i] << 1) | (t[i - 1] >> 31);
+  t[0] <<= 1;
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    const uint64_t d = (uint64_t)a.w[i] * a.w[i];
+    uint64_t s = (uint64_t)t[2 * i] + (uint32_t)d + c;
+    t[2 * i] = (uint32_t)s;
+    s = (uint64_t)t[2 * i + 1] + (d >> 32) + (s >> 32);
+    t[2 * i + 1] = (uint32_t)s;
+    c = s >> 32;
+  }
+  uint32_t hi = 0;  // carry into word i + NW + 1
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    const uint32_t m = t[i] * c_fc.np;
+    uint64_t s = (uint64_t)m * c_fc.q[0] + t[i];  // low word becomes 0
+    c = s >> 32;
+#pragma unroll
+    for (int j = 1; j < NW; ++j) {
+      s = (uint64_t)m * c_fc.q[j] + t[i + j] + c;
+      t[i + j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    s = (uint64_t)t[i + NW] + c + hi;
+    t[i + NW] = (uint32_t)s;
+    hi = (uint32_t)(s >> 32);
+  }
+  uint32_t s[NW];
+#pragma unroll
+  for (int i = 0; i < NW; ++i) s[i] = t[NW + i];
+  fe_reduce_once<NW>(r, s);
+}

@@ -6,12 +6,16 @@
 // product a * b * R^{-1} mod q (and a^2 * R^{-1}) over a batch, canonical
 // output.  The TPU versions block the batch as (L, S, 128) tiles, keep the
 // product accumulator in on-chip memory and pad the batch to 1024; none of
-// that has a counterpart here: one thread per element runs fe_mul in its
-// registers, any n, no padding.  Word j of neighbouring elements is
-// contiguous ([NW][n]), so a warp's loads and stores coalesce as they are.
-// Bound: bytes.  An element moves 3 * 4 * NW bytes (2 * 4 * NW for the
-// square) against 2 NW^2 + NW multiply-adds: at NW = 12 the card's memory
-// takes twice as long as its integer units.
+// that has a counterpart here: one thread per element runs fe_mul (fe_sqr)
+// in its registers, any n, no padding.  Word j (limb j) of neighbouring
+// elements is contiguous ([NW][n], [2 NW][n]), so a warp's loads and stores
+// coalesce as they are.
+// Bound: bytes.  The product moves 3 * 4 * NW bytes an element on packed
+// words against 2 NW^2 + NW multiply-adds: at NW = 12 the card's memory
+// takes twice as long as its integer units.  The square reads and writes
+// the package's int64 limbs itself (2 * 2 NW * 8 bytes an element), so its
+// wrapper packs nothing: one launch where packing words around it took
+// three.
 //
 // field_inverse_kernel is the field inversion of
 // zprize_wasm_msm_tpu/ops/field/mont.py `inverse`: a^{-1} in Montgomery form
@@ -241,16 +245,23 @@ __global__ void __launch_bounds__(MUL_THREADS)
   fe_store_soa<NW>(r, n, i, x);
 }
 
-// a, r: [NW][n].  r = a^2 * R^{-1} mod q.
+// a, r: [2 NW][n] int64 16-bit limbs (the package's public layout).
+// r = a^2 * R^{-1} mod q (field.cuh fe_sqr).
 template <int NW>
 __global__ void __launch_bounds__(MUL_THREADS)
-    mont_square_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ r, size_t n) {
+    mont_square_kernel(const int64_t* __restrict__ a, int64_t* __restrict__ r, size_t n) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   Fe<NW> x;
-  fe_load_soa<NW>(x, a, n, i);
-  fe_mul<NW>(x, x, x);
-  fe_store_soa<NW>(r, n, i, x);
+#pragma unroll
+  for (int j = 0; j < NW; ++j)
+    x.w[j] = (uint32_t)a[(2 * j) * n + i] | ((uint32_t)a[(2 * j + 1) * n + i] << 16);
+  fe_sqr<NW>(x, x);
+#pragma unroll
+  for (int j = 0; j < NW; ++j) {
+    r[(2 * j) * n + i] = x.w[j] & 0xFFFFu;
+    r[(2 * j + 1) * n + i] = x.w[j] >> 16;
+  }
 }
 
 extern "C" int zp_mont_mul(int nw, const uint32_t* host_consts, const uint32_t* a,
@@ -268,8 +279,9 @@ extern "C" int zp_mont_mul(int nw, const uint32_t* host_consts, const uint32_t* 
   return (int)cudaGetLastError();
 }
 
-extern "C" int zp_mont_square(int nw, const uint32_t* host_consts, const uint32_t* a,
-                              uint32_t* r, long long n, void* stream_ptr) {
+// a, r: [2 NW][n] limbs.
+extern "C" int zp_mont_square(int nw, const uint32_t* host_consts, const int64_t* a,
+                              int64_t* r, long long n, void* stream_ptr) {
   if (n <= 0) return 0;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   int err = zp_set_consts(nw, host_consts, stream);

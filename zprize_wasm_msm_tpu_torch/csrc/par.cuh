@@ -33,8 +33,12 @@
 //
 // Over Fq2 (the second half of this file) the same two levels run with an
 // Fq2 product on each slot (three Fq products in sequence, each shared by
-// PL lanes), and 3b is a full Fq2 constant: its products get a level of
-// their own between the two.  A point is 72 words at NW = 12, too many to
+// PL lanes).  3b is an Fq2 constant: where it is k (1 + u) for a small
+// integer k (BLS12-381 G2: 3b = 12 + 12u) its products are additions
+// (fe_mul_b3k) and the entry point passes k; else (BN254 G2) b3k is 0 and
+// they get a level of products of their own between the two.  The window
+// fold runs fold2.cuh's links instead, each Fq2 product's three Fq products
+// side by side.  A point is 72 words at NW = 12, too many to
 // keep two of them and the levels' values in registers, so the Fq2 forms
 // take their points in shared memory (the group's slots; every lane of the
 // group writes the same result) and gather only what each slot needs.
@@ -207,12 +211,46 @@ __device__ __forceinline__ void par_mul(Fe2<NW>& r, const Fe2<NW>& a, const Fe2<
   else fe_mul_coop<NW, PL>(r, a, b, sub % PL);
 }
 
+// Whether the Fq2 group ops of par.cuh and fold2.cuh take 3b t as additions
+// where the entry point passes a k (else a level of products by fe_b3).
+__device__ __forceinline__ constexpr bool b3_as_additions() {
+  return true;
+}
+
+// r1 = k x1 and r2 = k x2 for a small k >= 1: fe_mul_small's doubling and
+// adding on two chains side by side.  r1, r2 may alias x1, x2.
+template <int NW>
+__device__ __forceinline__ void fe_mul_small2(Fe<NW>& r1, const Fe<NW>& x1, Fe<NW>& r2,
+                                              const Fe<NW>& x2, uint32_t k) {
+  Fe<NW> a = x1, b = x2;
+  for (int i = 30 - __clz(k); i >= 0; --i) {
+    fe_add<NW>(a, a, a);
+    fe_add<NW>(b, b, b);
+    if ((k >> i) & 1u) {
+      fe_add<NW>(a, a, x1);
+      fe_add<NW>(b, b, x2);
+    }
+  }
+  r1 = a;
+  r2 = b;
+}
+
+// r = 3b x where 3b = k (1 + u): k (x0 - x1) + k (x0 + x1) u (u^2 = -1), the
+// same canonical value as the product by fe_b3.  r may alias x.
+template <int NW>
+__device__ __forceinline__ void fe_mul_b3k(Fe2<NW>& r, const Fe2<NW>& x, uint32_t k) {
+  Fe<NW> d, s;
+  fe_sub<NW>(d, x.c0, x.c1);
+  fe_add<NW>(s, x.c0, x.c1);
+  fe_mul_small2<NW>(r.c0, d, r.c1, s, k);
+}
+
 // p = 2p (RCB16 algorithm 9), p in shared memory.  Level 1 as over Fq
-// (slot s of 4: Y Y, Y Z, Z Z, X Y); then 3b t2 on every lane; level 2
-// (t0' XY, 3b t2 8Y^2, t0' Y3s, YZ 8Y^2).  b3k is not read: 3b is the
-// constant of field2.cuh's fe_b3.
+// (slot s of 4: Y Y, Y Z, Z Z, X Y); then 3b t2 on every lane (additions
+// where b3k = k, else a product by field2.cuh's fe_b3); level 2 (t0' XY,
+// 3b t2 8Y^2, t0' Y3s, YZ 8Y^2).
 template <int NW, int PL>
-__device__ __forceinline__ void pt_double_par(Pt<NW, 2>& p, int sub, uint32_t) {
+__device__ __forceinline__ void pt_double_par(Pt<NW, 2>& p, int sub, uint32_t b3k) {
   const int s = (sub / PL) & 3;
   const Fe2<NW>* pc = &p.x;
   Fe2<NW> a, b, m, t0, t2b, g, u;
@@ -220,8 +258,12 @@ __device__ __forceinline__ void pt_double_par(Pt<NW, 2>& p, int sub, uint32_t) {
   sh_get<NW>(b, pc[s == 0 || s == 3 ? 1 : 2]);
   par_mul<NW, PL>(m, a, b, sub);
   fe_shfl<NW, PL>(a, m, 2);  // t2
-  fe_b3<NW>(b);
-  par_mul<NW, PL>(t2b, b, a, sub);
+  if (b3_as_additions() && b3k) {
+    fe_mul_b3k<NW>(t2b, a, b3k);
+  } else {
+    fe_b3<NW>(b);
+    par_mul<NW, PL>(t2b, b, a, sub);
+  }
   fe_shfl<NW, PL>(t0, m, 0);
   fe_shfl<NW, PL>(g, m, s == 0 ? 3 : 1);  // XY to slot 0, YZ to slot 3
   fe_add<NW>(u, t2b, t2b);
@@ -249,13 +291,14 @@ __device__ __forceinline__ void pt_double_par(Pt<NW, 2>& p, int sub, uint32_t) {
 
 // r = p + q (RCB16 algorithm 7), all three in shared memory (r may alias p
 // or q).  Level 1 as over Fq (slots 0-5); then slot s holds v_s = 3 t0, t1,
-// t2, t3, t4, Yr, each from two gathered products; a level of 3b products
-// makes slot 2's t2b and slot 5's Yb; level 2 gathers each slot's two
-// operands (t1l and Z3l from slots 1 and 2) and runs the tail's six
-// products.  Slots 6 and 7 repeat slot 5; no one reads them.
+// t2, t3, t4, Yr, each from two gathered products; 3b times v_s (additions
+// where b3k = k, else a level of products) makes slot 2's t2b and slot 5's
+// Yb; level 2 gathers each slot's two operands (t1l and Z3l from slots 1
+// and 2) and runs the tail's six products.  Slots 6 and 7 repeat slot 5; no
+// one reads them.
 template <int NW, int PL>
 __device__ __forceinline__ void pt_add_par(Pt<NW, 2>& r, const Pt<NW, 2>& p,
-                                           const Pt<NW, 2>& q, int sub, uint32_t) {
+                                           const Pt<NW, 2>& q, int sub, uint32_t b3k) {
   const int s = min(sub / PL, 5);
   const Fe2<NW>* pc = &p.x;
   const Fe2<NW>* qc = &q.x;
@@ -281,9 +324,13 @@ __device__ __forceinline__ void pt_add_par(Pt<NW, 2>& r, const Pt<NW, 2>& p,
     fe_add<NW>(f, m, m);
     fe_add<NW>(m, f, m);
   }
-  // the 3b level: t2b on slot 2, Yb on slot 5
-  fe_b3<NW>(a);
-  par_mul<NW, PL>(b, a, m, sub);
+  // 3b v_s: t2b on slot 2, Yb on slot 5
+  if (b3_as_additions() && b3k) {
+    fe_mul_b3k<NW>(b, m, b3k);
+  } else {
+    fe_b3<NW>(a);
+    par_mul<NW, PL>(b, a, m, sub);
+  }
   if (s == 2 || s == 5) m = b;
   // level 2: (t3, t1l), (t4, Yb), (t1l, Z3l), (Yb, 3 t0), (Z3l, t4), (3 t0, t3)
   fe_shfl<NW, PL>(f, m, 1);

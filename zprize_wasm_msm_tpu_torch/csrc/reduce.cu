@@ -7,19 +7,21 @@
 // and at B = 1 the window fold of finish_large stage B).
 //
 // The TPU kernels are generic over the coordinate field, so they also run
-// G2 over Fq2; here the same bodies serve both (EXT = 1, 2): over Fq2 on
-// par.cuh's Fq2 doubling and addition, with the points in the groups'
-// shared slots (collapse2_kernel, combine2_kernel, finish_kernel<NW, 2>).
+// G2 over Fq2; here the collapse's bodies serve both (EXT = 1, 2): over Fq2
+// on par.cuh's Fq2 doubling and addition, with the points in the groups'
+// shared slots (collapse2_kernel, combine2_kernel).  The fold over Fq2 is a
+// kernel of its own, finish2_kernel, on fold2.cuh's links: each Fq2
+// product's three Karatsuba products side by side on a block of warps.
 //
 // The TPU versions run every phase through ONE generic masked body, a
 // grid step per round, to keep the compiled program small, and move data
 // between lanes with rolls.  Here the phases are written out plainly:
 //   collapse: runs of m buckets, a group of lanes each, over the whole card:
 //     a walk per run, then a tree over a window's runs (below);
-//   finish:   finish_kernel: ONE warp folds the window sums (at B > 1 the
-//     collapse's, an entry call before) by Horner's rule,
-//     acc <- 2^c acc + S_w from the top window down: c (W-1) doublings and
-//     W-1 additions, as many as the depth of the sum.
+//   finish:   finish_kernel (finish2_kernel over Fq2): ONE warp (one block)
+//     folds the window sums (at B > 1 the collapse's, an entry call before)
+//     by Horner's rule, acc <- 2^c acc + S_w from the top window down:
+//     c (W-1) doublings and W-1 additions, as many as the depth of the sum.
 //
 // Bound: operations, and within them latency: the work is a few thousand
 // group operations with a serial depth of tens to hundreds of group ops,
@@ -37,23 +39,21 @@
 #include <cuda_runtime.h>
 
 #include "async.cuh"
+#include "fold2.cuh"
 #include "limbs.cuh"
-#include "par.cuh"
 
 #define FOLD_THREADS 32
 
-// sums [3][EXT NW][W] -> out [3][EXT NW][1]: sum_w 2^(c w) sums_w by
-// Horner's rule; one warp (each of its groups runs the same fold).  Over
-// Fq2 the two points are the group's shared slots (par.cuh work_point).
-template <int NW, int EXT>
+// sums [3][NW][W] -> out [3][NW][1]: sum_w 2^(c w) sums_w by Horner's rule
+// over Fq; one warp (each of its groups runs the same fold, the points in
+// registers).  The fold over Fq2 is finish2_kernel below.
+template <int NW>
 __global__ void __launch_bounds__(FOLD_THREADS)
     finish_kernel(const uint32_t* __restrict__ sums, uint32_t* __restrict__ out, int W, int c,
                   uint32_t b3k) {
-  constexpr int PL = coop_lanes<NW>(), GL = 8 * PL, GW = FOLD_THREADS / GL;
-  const int sub = threadIdx.x % GL, g = threadIdx.x / GL;
-  Pt<NW, EXT> acc_own, s_own;
-  Pt<NW, EXT>& acc = work_point<NW, EXT, 2 * GW>(acc_own, g);
-  Pt<NW, EXT>& s = work_point<NW, EXT, 2 * GW>(s_own, GW + g);
+  constexpr int PL = coop_lanes<NW>(), GL = 8 * PL;
+  const int sub = threadIdx.x % GL;
+  Pt<NW> acc, s;
   pt_load_soa<NW>(acc, sums, (size_t)W, (size_t)(W - 1));
   for (int w = W - 2; w >= 0; --w) {
     pt_load_soa<NW>(s, sums, (size_t)W, (size_t)w);
@@ -61,6 +61,36 @@ __global__ void __launch_bounds__(FOLD_THREADS)
     pt_add_par<NW, PL>(acc, acc, s, sub, b3k);
   }
   if (threadIdx.x == 0) pt_store_soa<NW>(out, (size_t)1, (size_t)0, acc);
+}
+
+// The fold's link form over Fq2 (fold2.cuh): a block of FOLD2_THREADS, each
+// Fq product on coop_lanes lanes (96: three warps) or on one lane (32: one
+// warp).  On BLS12-381 G2 the three warps' fold took about 0.7 of the one
+// warp's time (csrc/diag/ab_fq2_reductions.py, edit fold_lane_form;
+// chip_smoke.py's link_us times both forms).
+#define FOLD2_THREADS 96
+template <int NW>
+__host__ __device__ constexpr int fold2_lanes() {
+  return FOLD2_THREADS == 32 ? 1 : coop_lanes<NW>();
+}
+
+// finish_kernel's contract over Fq2: sums [3][2 NW][W] -> out [3][2 NW][1],
+// the two points and the links' exchange in shared memory; b3k = k where
+// 3b = k (1 + u), else 0 (par.cuh b3_as_additions).
+template <int NW>
+__global__ void __launch_bounds__(FOLD2_THREADS, 1)
+    finish2_kernel(const uint32_t* __restrict__ sums, uint32_t* __restrict__ out, int W, int c,
+                   uint32_t b3k) {
+  constexpr int PL = fold2_lanes<NW>();
+  __shared__ PtK<NW> acc, s;
+  __shared__ Fold2Sh<NW> sh;
+  fold2_load<NW>(acc, sums, (size_t)W, (size_t)(W - 1));
+  for (int w = W - 2; w >= 0; --w) {
+    fold2_load<NW>(s, sums, (size_t)W, (size_t)w);
+    for (int i = 0; i < c; ++i) fold2_link_double<NW, PL, FOLD2_THREADS>(&acc, &sh, b3k);
+    fold2_link_add<NW, PL, FOLD2_THREADS>(&acc, &acc, &s, &sh, b3k);
+  }
+  if (threadIdx.x == 0) fold2_store<NW>(out, (size_t)1, (size_t)0, acc);
 }
 
 // ---- collapse: sum_b (b+1) S_{w,b} per window over the whole card --------
@@ -109,25 +139,25 @@ __device__ __forceinline__ constexpr bool links_out_of_line() {
 
 template <int NW, int PL>
 __device__ __noinline__ void pt2_link_add(Pt<NW, 2>* r, const Pt<NW, 2>* p, const Pt<NW, 2>* q,
-                                          int sub) {
-  pt_add_par<NW, PL>(*r, *p, *q, sub, 0u);
+                                          int sub, uint32_t b3k) {
+  pt_add_par<NW, PL>(*r, *p, *q, sub, b3k);
 }
 
 template <int NW, int PL>
-__device__ __noinline__ void pt2_link_double(Pt<NW, 2>* p, int sub) {
-  pt_double_par<NW, PL>(*p, sub, 0u);
+__device__ __noinline__ void pt2_link_double(Pt<NW, 2>* p, int sub, uint32_t b3k) {
+  pt_double_par<NW, PL>(*p, sub, b3k);
 }
 
 template <int NW, int PL, int EXT>
 __device__ __forceinline__ void link_add(Pt<NW, EXT>& r, const Pt<NW, EXT>& p,
                                          const Pt<NW, EXT>& q, int sub, uint32_t b3k) {
-  if constexpr (links_out_of_line<EXT>()) pt2_link_add<NW, PL>(&r, &p, &q, sub);
+  if constexpr (links_out_of_line<EXT>()) pt2_link_add<NW, PL>(&r, &p, &q, sub, b3k);
   else pt_add_par<NW, PL>(r, p, q, sub, b3k);
 }
 
 template <int NW, int PL, int EXT>
 __device__ __forceinline__ void link_double(Pt<NW, EXT>& p, int sub, uint32_t b3k) {
-  if constexpr (links_out_of_line<EXT>()) pt2_link_double<NW, PL>(&p, sub);
+  if constexpr (links_out_of_line<EXT>()) pt2_link_double<NW, PL>(&p, sub, b3k);
   else pt_double_par<NW, PL>(p, sub, b3k);
 }
 
@@ -355,7 +385,8 @@ __global__ void words_to_limbs_kernel(const uint32_t* __restrict__ words,
 // [3][EXT NW][W] words at the head of scratch, and (out not NULL) as
 // [3][2 EXT NW][W] int64 limbs in out; the combine launches' pairs follow
 // the sums in scratch; B and m powers of two, m <= B; b3k = 3b as an
-// integer over Fq (0 refuses the launch), not read over Fq2.
+// integer over Fq (0 refuses the launch), over Fq2 k where 3b = k (1 + u),
+// else 0 (the level of products by 3b).
 extern "C" int zp_collapse(int nw, int ext, const uint32_t* host_consts, uint32_t b3k,
                            const int64_t* x, const int64_t* y, const int64_t* z, int64_t* out,
                            uint32_t* scratch, int W, int B, int m, void* stream_ptr) {
@@ -392,24 +423,33 @@ extern "C" int zp_collapse_info(int nw, int ext, int which, int* out) {
 }
 
 // The window sums S [3][EXT NW][W] words -> out [3][EXT NW][1]; b3k = 3b as
-// an integer over Fq (0 refuses the launch: 3b does not fit a word), not
-// read over Fq2.
+// an integer over Fq (0 refuses the launch: 3b does not fit a word), over
+// Fq2 k where 3b = k (1 + u), else 0.  Over Fq one warp (finish_kernel),
+// over Fq2 one block of FOLD2_THREADS (finish2_kernel).
 extern "C" int zp_finish(int nw, int ext, const uint32_t* host_consts, uint32_t b3k,
                          const uint32_t* S, uint32_t* out, int W, int c, void* stream_ptr) {
   if (ext == 1 && b3k == 0) return -5;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   int err = zp_set_consts(nw, host_consts, stream);
   if (err) return err;
-#define CALL(NW_, EXT_) \
-  finish_kernel<NW_, EXT_><<<1, FOLD_THREADS, 0, stream>>>(S, out, W, c, b3k)
+#define CALL(NW_, EXT_)                                                        \
+  if constexpr (EXT_ == 1)                                                     \
+    finish_kernel<NW_><<<1, FOLD_THREADS, 0, stream>>>(S, out, W, c, b3k);    \
+  else                                                                         \
+    finish2_kernel<NW_><<<1, FOLD2_THREADS, 0, stream>>>(S, out, W, c, b3k)
   ZP_DISPATCH_NW_EXT(nw, ext, CALL)
 #undef CALL
   return (int)cudaGetLastError();
 }
 
-// out[0..4] as zp_kernel_info for the fold (finish_kernel).
+// out[0..4] as zp_kernel_info for the fold (finish_kernel, over Fq2
+// finish2_kernel).
 extern "C" int zp_finish_info(int nw, int ext, int* out) {
-#define CALL(NW_, EXT_) return zp_kernel_info(finish_kernel<NW_, EXT_>, FOLD_THREADS, out)
+#define CALL(NW_, EXT_)                                                 \
+  if constexpr (EXT_ == 1)                                              \
+    return zp_kernel_info(finish_kernel<NW_>, FOLD_THREADS, out);       \
+  else                                                                  \
+    return zp_kernel_info(finish2_kernel<NW_>, FOLD2_THREADS, out)
   ZP_DISPATCH_NW_EXT(nw, ext, CALL)
 #undef CALL
   return -1;

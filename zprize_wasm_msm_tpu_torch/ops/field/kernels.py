@@ -5,9 +5,12 @@ zprize_wasm_msm_tpu/ops/field/kernels.py ``mont_mul`` / ``mont_square``:
 a * b * R^{-1} mod q (a^2 * R^{-1} mod q) per batch element, canonical
 output.  On a CUDA tensor each is ONE launch of csrc/field_kernels.cu
 ``mont_mul_kernel`` / ``mont_square_kernel`` (one thread per element, any
-batch size, no padding); on a CPU tensor the plain PyTorch ``mont.mont_mul``
-/ ``mont.mont_square``.  ops.field.batch routes the batched field surface
-(and with it the GLV endomorphism's beta * x) through them.
+batch size, no padding): the product on packed words, between a packing
+and an unpacking of the operands; the square (field.cuh ``fe_sqr``) on the
+limbs as they are, with nothing around it.  On a CPU tensor they are the
+plain PyTorch ``mont.mont_mul`` / ``mont.mont_square``.  ops.field.batch
+routes the batched field surface (and with it the GLV endomorphism's
+beta * x) through them.
 
 ``inverse`` is a^{-1} per batch element (0 -> 0), the function of
 zprize_wasm_msm_tpu/ops/field/mont.py ``inverse``.  On a CUDA tensor it is
@@ -73,22 +76,6 @@ def _mul_words(spec: FieldSpec, aw: torch.Tensor, bw: torch.Tensor) -> torch.Ten
     return out
 
 
-def _square_words(spec: FieldSpec, aw: torch.Tensor) -> torch.Tensor:
-    """Launch mont_square_kernel on packed words, (NW, n) -> (NW, n) int32."""
-    lib = _build.load("field_kernels")
-    fn = lib.zp_mont_square
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
-    out = torch.empty_like(aw)
-    err = fn(
-        spec.n_words, _consts_ptr(spec), _launch.ptr(aw), _launch.ptr(out), aw.shape[1],
-        _launch.stream_ptr(),
-    )
-    _build.check_launch(err, "mont_square")
-    launches["mont_square"] += 1
-    return out
-
-
 def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     """Elementwise Montgomery product, (L, *batch) int64 x2 -> same.
 
@@ -107,13 +94,25 @@ def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, impl: str = "aut
 
 
 def mont_square(spec: FieldSpec, a: torch.Tensor, impl: str = "auto") -> torch.Tensor:
-    """Elementwise Montgomery square, (L, *batch) int64 -> same."""
+    """Elementwise Montgomery square, (L, *batch) int64 -> same: one launch
+    on the limbs."""
     if not _launch.use_kernel(impl, a):
         return mont_square_plain(spec, a)
-    batch = tuple(a.shape[1:])
-    _launch.check_limbs("a", a, (spec.n_limbs,) + batch, a.device)
-    out = _square_words(spec, _launch.pack_point((a,))[0])
-    return _launch.unpack_point(out[None], batch)[0]
+    L = spec.n_limbs
+    _launch.check_limbs("a", a, (L,) + tuple(a.shape[1:]), a.device)
+    lib = _build.load("field_kernels")
+    fn = lib.zp_mont_square
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
+    flat = a.reshape(L, -1).contiguous()
+    out = torch.empty_like(flat)
+    err = fn(
+        spec.n_words, _consts_ptr(spec), _launch.ptr(flat), _launch.ptr(out), flat.shape[1],
+        _launch.stream_ptr(),
+    )
+    _build.check_launch(err, "mont_square")
+    launches["mont_square"] += 1
+    return out.reshape(a.shape)
 
 
 def inverse_plain(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,9 @@ They replace the TPU kernels of zprize_wasm_msm_tpu/ops/msm/pl_reduce.py:
   finish        (``_finish_kernel``): sum_w 2^(c w) sum_b (b+1) S_{w,b} ->
                 ONE point (csrc/reduce.cu: the collapse's launches when
                 B > 1; then finish_kernel, one warp, the window fold by
-                Horner's rule).
+                Horner's rule; over Fq2 finish2_kernel, one block whose
+                links run each Fq2 product's three Karatsuba products side
+                by side, csrc/fold2.cuh).
 
 Reference lineage: reduceBucketsToSinglePoint (running sum over buckets,
 wasmcurves/src/build_multiexp_opt.js:1597-1706) + accumulateAcrossChunks
@@ -42,6 +44,8 @@ from . import _launch, pippenger
 
 #: lanes (W*B) the one-block finish takes; above it msm uses finish_large
 FINISH_LANES = 1024
+#: threads of the fold's block over Fq2 (csrc/reduce.cu FOLD2_THREADS)
+FOLD2_THREADS = 96
 #: times each kernel was launched (read by chip_smoke.py)
 launches = {"lane_reduce": 0, "collapse": 0, "finish": 0}
 
