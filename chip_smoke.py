@@ -119,7 +119,25 @@ What it does, in order (any failure exits non-zero and prints no result):
      the skewed stream, with K2 over Fq2 at B = 512 and K3 over Fq2 at
      W = 27 beside them.  K2 over Fq2 also at every run length up to 64 at
      both shapes, and the Fq2 links at 1, 2 and 4 warps a SM (its depth
-     floor at both).
+     floor at both);
+  8. the Groth16 stack, each phase with the kernel counts zeroed before it
+     and read after it: ntt (ctx.fft / ctx.ifft on BLS12-381 Fr at 2^20:
+     the round trip, the K5-routed NTT against impl="plain" bit for bit,
+     2^10 against oracle.ntt, set-up apart from the warm calls, K5
+     launches, peak memory, one K5 call at a stage's shape against plain);
+     poly (the snarkjs FFT helpers, build_abc / join_abc, construct_lc
+     above 2^10 terms an output and batch_apply_key_fr at 2^16,
+     pedersen_hash on 256 messages, each against its formula on host
+     ints; group_fft / group_ifft on 16 BLS12-381 G1 points: FFT(k_i G) =
+     NTT(k) G and the round trip); pairing on BLS12-381 and BN254
+     (miller_loop and final_exponentiation on four pairs, timed:
+     bilinearity, non-degeneracy, e(O, Q) = 1; the fast final
+     exponentiation against final_exponentiation_plain; device operations
+     from short loops, pairing_ops); groth16 (verify on BLS12-381 and
+     BN254 with two public inputs: True, and False on a corrupted C: its
+     pairing_eq of four pairings true and false; the IC MSM on the kernel
+     engine at N = 2); in_group (ctx.in_group_affine on G1 and G2 at 2^10
+     points, True on [m]G, False on curve points outside the subgroup).
 
 Output: one JSON object per line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -915,6 +933,451 @@ def inverse_check(fq, dev, rng):
     ok = (one == mont.one_mont(fq, (len(vals),), dev)).all(0) | (x == 0).all(0)
     check(bool(ok.all()), f"{fq!r}: x * inverse(x) != 1")
     return len(vals)
+
+
+# ---- the Groth16 stack: NTT, poly, pairings, subgroup checks, verifier ------
+# Plain PyTorch but for the NTT's products (the mont_mul kernel, K5), the
+# field inversion of the pairing's one Fq2 inversion and of to_affine, and
+# the MSM kernels of the verifier's IC sum; launch-bound on the host.
+
+
+def device_ops(fn):
+    """(result, device operations) of one call of fn: the kernels, copies
+    and fills torch.profiler records on the card (CUDA activity only, so
+    the host side runs as without it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA)
+    check(n > 0, "torch.profiler recorded no device activity")
+    return out, n
+
+
+def host_timed(fn, reps: int = 1):
+    """(last result, best host-clock seconds) of reps calls, each ending in
+    a synchronize."""
+    best, out = None, None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t
+        best = s if best is None else min(best, s)
+    return out, best
+
+
+def _fr_limbs(fr, n, rng, dev):
+    """n random canonical Fr elements as (L, n) limbs on the card: random
+    16-bit limbs under a top limb below q's (so every value is below q)."""
+    L = fr.n_limbs
+    top = int(fr.q_limbs[L - 1])
+    limbs = rng.integers(0, 1 << 16, size=(L, n), dtype=np.int64)
+    limbs[L - 1] = rng.integers(0, top, size=n, dtype=np.int64)
+    return torch.as_tensor(limbs, device=dev)
+
+
+def _fr_ints(fr, t):
+    """(L, n) Montgomery limbs on the card -> standard-domain ints."""
+    from zprize_wasm_msm_tpu_torch.utils.limbs import limbs_to_ints
+
+    return [fr.from_mont_int(v) for v in limbs_to_ints(t.cpu().numpy())]
+
+
+def ntt_phase(dev, rng, log2n=20):
+    """ctx.fft / ctx.ifft on BLS12-381 Fr at 2^log2n: the round trip, the
+    K5-routed NTT against impl='plain' bit for bit, 2^10 against oracle.ntt;
+    set-up (the host tables) apart from the warm calls (best of 3), K5
+    launches a call, peak memory; one K5 call at a stage's shape."""
+    import zprize_wasm_msm_tpu_torch as Z
+    from zprize_wasm_msm_tpu_torch.ops.field import kernels as field_kernels
+    from zprize_wasm_msm_tpu_torch.ops.poly import fft as fft_mod
+    from zprize_wasm_msm_tpu_torch.oracle import ntt
+
+    ctx = Z.build_bls12381()
+    fr = ctx.fr
+    n = 1 << log2n
+    x = _fr_limbs(fr, n, rng, dev)
+    out = {"n": n, "field": "bls12_381 Fr", "L": fr.n_limbs}
+    for name, call in (("fft", lambda: ctx.fft(x)), ("ifft", lambda: ctx.ifft(x))):
+        _, first_s = host_timed(call)
+        _, warm_s = host_timed(call, 3)
+        k5_before = field_kernels.launches["mont_mul"]
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _, ops = device_ops(call)
+        out[name] = {"first_call_s": first_s, "best_s": warm_s, "setup_s": first_s - warm_s,
+                     "k5_launches": field_kernels.launches["mont_mul"] - k5_before, "device_ops": ops,
+                     "peak_bytes_above_input": torch.cuda.max_memory_allocated() - base}
+        check(out[name]["k5_launches"] == log2n + (name == "ifft"),
+              f"{name} at 2^{log2n} launched K5 {out[name]['k5_launches']} times")
+    y = ctx.fft(x)
+    check(torch.equal(ctx.ifft(y), x), f"ifft(fft(x)) != x at 2^{log2n}")
+    yp, plain_s = host_timed(lambda: ctx.fft(x, impl="plain"))
+    check(torch.equal(y, yp), f"the K5-routed NTT differs from impl='plain' at 2^{log2n}")
+    out["plain_fft_s"] = plain_s
+    out["round_trip_exact"] = out["k5_equals_plain"] = True
+    # one stage's product (2^(log2n-1) elements) through K5 against plain
+    half = n // 2
+    tw = fft_mod._twiddles_on(fr.q, fr.n_limbs, n, False, x.device)
+    a = x[:, :half].contiguous()
+    field_kernels.mont_mul(fr, a, tw)
+    got, k5_ms = sync_ms(lambda: field_kernels.mont_mul(fr, a, tw), 5)
+    ref, k5_plain_ms = sync_ms(lambda: field_kernels.mont_mul_plain(fr, a, tw))
+    check(torch.equal(got, ref), "K5 at the NTT's stage shape differs from mont_mul")
+    nw = fr.n_words
+    b_bytes, b_ops = 3 * 4 * nw * half, half * (2 * nw * nw + nw) * 2
+    out["k5_stage_call"] = {"shape": f"({fr.n_limbs},{half})", "ms": k5_ms, "plain_ms": k5_plain_ms,
+                            "max_abs_err": 0,
+                            "bound_ms": max(b_bytes / PEAK_BYTES_PER_S, b_ops / PEAK_INT32_OPS_PER_S) * 1e3,
+                            "bound_by": "bytes" if b_bytes / PEAK_BYTES_PER_S >= b_ops / PEAK_INT32_OPS_PER_S
+                            else "operations"}
+    del y, yp, got, ref
+    # 2^10 against the O(n^2) oracle
+    m = 1 << 10
+    xs = x[:, :m].contiguous()
+    t0 = time.perf_counter()
+    want = ntt(_fr_ints(fr, xs), fr.q, fft_mod._root_of_unity(fr.q, m))
+    check(_fr_ints(fr, ctx.fft(xs)) == want, "fft at 2^10 differs from oracle.ntt")
+    out["oracle_2^10"] = {"equal": True, "host_s": time.perf_counter() - t0}
+    return out
+
+
+def poly_phase(dev, rng, log2n=16, log2n_group=4):
+    """The snarkjs FFT helpers, the QAP and applykey helpers at 2^log2n and
+    pedersen_hash on a batch, each against the formula on host ints; then
+    group_fft / group_ifft on BLS12-381 G1 at 2^log2n_group: FFT(k_i G) =
+    NTT(k) G, and the round trip."""
+    from zprize_wasm_msm_tpu_torch.models.curves import bls12_381
+    from zprize_wasm_msm_tpu_torch.ops.curve import group
+    from zprize_wasm_msm_tpu_torch.ops.field import kernels as field_kernels
+    from zprize_wasm_msm_tpu_torch.ops.poly import applykey, fft as fft_mod, pedersen, pol, qap
+    from zprize_wasm_msm_tpu_torch.oracle import ntt
+    import zprize_wasm_msm_tpu_torch as Z
+
+    ctx = Z.build_bls12381()
+    fr = ctx.fr
+    r = fr.q
+    n = 1 << log2n
+    out = {"n": n}
+    k5_before = field_kernels.launches["mont_mul"]
+    b1, b2 = _fr_limbs(fr, n, rng, dev), _fr_limbs(fr, n, rng, dev)
+    fi = _fr_limbs(fr, 2, rng, dev)
+    first, inc = fi[:, 0].contiguous(), fi[:, 1].contiguous()
+    h1, h2 = _fr_ints(fr, b1), _fr_ints(fr, b2)
+    f0, i0 = _fr_ints(fr, fi)
+    w = [f0]
+    for _ in range(n - 1):
+        w.append(w[-1] * i0 % r)
+    total_bits = log2n
+    m_, s_ = fft_mod._shift_consts(r, total_bits)
+
+    def helper(name, call, want):
+        got, s = host_timed(call)
+        got = got if isinstance(got, tuple) else (got,)
+        check(all(_fr_ints(fr, g) == wv for g, wv in zip(got, want)), f"{name} differs from its formula")
+        out[name] = {"s": s, "equal_to_formula": True}
+
+    helper("fft_join", lambda: fft_mod.fft_join(fr, b1, b2, first, inc),
+           ([(a + wi * b) % r for a, b, wi in zip(h1, h2, w)], [(a - wi * b) % r for a, b, wi in zip(h1, h2, w)]))
+    exp = 4
+    root = fft_mod._root_of_unity(r, 1 << exp)
+    half = 1 << (exp - 1)
+    mix_want = list(h1)
+    for g in range(0, n, 1 << exp):
+        for j in range(half):
+            a, b = h1[g + j], h1[g + j + half] * pow(root, j, r) % r
+            mix_want[g + j], mix_want[g + j + half] = (a + b) % r, (a - b) % r
+    helper("fft_mix", lambda: fft_mod.fft_mix(fr, b1, exp), (mix_want,))
+    helper("fft_final", lambda: fft_mod.fft_final(fr, b1, first), ([a * f0 % r for a in h1],))
+    helper("fft_join_ext", lambda: fft_mod.fft_join_ext(fr, b1, b2, first, inc, total_bits),
+           ([(a + b) % r for a, b in zip(h1, h2)], [(a + m_ * b) * wi % r for a, b, wi in zip(h1, h2, w)]))
+    helper("fft_join_ext_inv", lambda: fft_mod.fft_join_ext_inv(fr, b1, b2, first, inc, total_bits),
+           ([(b * wi - m_ * a) * s_ % r for a, b, wi in zip(h1, h2, w)],
+            [(a - b * wi) * s_ % r for a, b, wi in zip(h1, h2, w)]))
+    helper("prepare_lagrange_evaluation",
+           lambda: fft_mod.prepare_lagrange_evaluation(fr, b1, b2, first, inc, total_bits),
+           ([(b - m_ * a) * s_ % r for a, b in zip(h1, h2)], [(a - b) * wi % r for a, b, wi in zip(h1, h2, w)]))
+    helper("batch_apply_key_fr", lambda: applykey.batch_apply_key_fr(fr, b1, first, inc),
+           ([a * wi % r for a, wi in zip(h1, w)],))
+    # QAP: n records (A and B) into n/16 constraints, then C = A*B and A*B - C
+    nc = n // 16
+    mat = torch.as_tensor(rng.integers(0, 2, n), device=dev)
+    con = torch.as_tensor(rng.integers(0, nc, n), device=dev)
+    (A, B), abc_s = host_timed(lambda: qap.build_abc(fr, mat, con, b1, b2, nc))
+    wa, wb = [0] * nc, [0] * nc
+    for mm, cc, co, wv in zip(mat.tolist(), con.tolist(), h1, h2):
+        if mm == 0:
+            wa[cc] = (wa[cc] + co * wv) % r
+        else:
+            wb[cc] = (wb[cc] + co * wv) % r
+    check(_fr_ints(fr, A) == wa and _fr_ints(fr, B) == wb, "build_abc differs from its sums")
+    C = qap.mul_ab(fr, A, B)
+    check(_fr_ints(fr, C) == [a * b % r for a, b in zip(wa, wb)], "mul_ab differs")
+    P_, join_s = host_timed(lambda: qap.join_abc(fr, A, B, B))
+    check(_fr_ints(fr, P_) == [(a * b - b) % r for a, b in zip(wa, wb)], "join_abc differs")
+    out["build_abc"] = {"s": abc_s, "records": n, "constraints": nc, "equal_to_formula": True}
+    out["join_abc"] = {"s": join_s, "equal_to_formula": True}
+    # construct_lc with 4 096 terms per output, above the JAX package's 2^10
+    pos = torch.arange(n, device=dev) % 16
+    lc, lc_s = host_timed(lambda: pol.construct_lc(fr, b1, pos, b2, 16))
+    lc_want = [0] * 16
+    for j, (co, sg) in enumerate(zip(h1, h2)):
+        lc_want[j % 16] = (lc_want[j % 16] + co * sg) % r
+    check(_fr_ints(fr, lc) == lc_want, "construct_lc above 2^10 terms an output differs from the oracle")
+    out["construct_lc"] = {"s": lc_s, "terms_per_output": n // 16, "equal_to_oracle": True}
+    out["k5_launches"] = field_kernels.launches["mont_mul"] - k5_before
+    check(out["k5_launches"] > 0, "the poly helpers never launched K5")
+    # pedersen_hash: 256 messages of 48 bits on BLS12-381 G1, a base every 8 windows
+    oc = oracle_of(bls12_381)
+    bases = [oc.mul(oc.g, int(k)) for k in rng.integers(2, 1 << 60, size=2)]
+    table = pedersen.make_base_table(bls12_381, bases, dev)
+    nb, nm, chunk = 48, 256, 8
+    bits_np = rng.integers(0, 2, size=(nb, nm))
+    hsh, ped_s = host_timed(lambda: pedersen.pedersen_hash(bls12_381, torch.as_tensor(bits_np, device=dev),
+                                                           table, chunk_size=chunk))
+    got = [None if p == (0, 0) else p  # (0, 0) encodes the identity
+           for p in zip(*[bls12_381.field.to_host(c) for c in group.to_affine(bls12_381, hsh)])]
+    for j in range(nm):
+        acc = None
+        for wd in range(nb // 3):
+            b0, b1_, sg = bits_np[3 * wd : 3 * wd + 3, j]
+            pt = oc.mul(bases[min(wd // chunk, len(bases) - 1)], 1 + int(b0) + 2 * int(b1_))
+            acc = oc.add(acc, oc.neg(pt) if sg else pt)
+        check(got[j] == acc, f"pedersen_hash message {j} differs from the oracle")
+    out["pedersen_hash"] = {"s": ped_s, "messages": nm, "bits": nb, "equal_to_oracle": True}
+    # group FFT over k_i G (host-made points) and back
+    ng = 1 << log2n_group
+    ks = [int.from_bytes(rng.bytes(32), "little") % r for _ in range(ng)]
+    pts = group.from_affine(bls12_381, ctx.points_to_device([oc.mul(oc.g, k) for k in ks]))
+    G, gfft_s = host_timed(lambda: ctx.group_fft(pts))
+    want = [oc.mul(oc.g, k) for k in ntt(ks, r, fft_mod._root_of_unity(r, ng))]
+    ax, ay = group.to_affine(bls12_381, G)
+    check(list(zip(bls12_381.field.to_host(ax), bls12_381.field.to_host(ay))) == want,
+          "group_fft(k_i G) != NTT(k) G")
+    back, gifft_s = host_timed(lambda: fft_mod.group_ifft(bls12_381, G))
+    bx, by = group.to_affine(bls12_381, back)
+    check(torch.equal(bx, pts[0]) and torch.equal(by, pts[1]), "group_ifft(group_fft(P)) != P")
+    out["group_fft"] = {"n": ng, "curve": "bls12_381 G1", "fft_s": gfft_s, "ifft_s": gifft_s,
+                        "equal_to_oracle": True, "round_trip_exact": True}
+    return out
+
+
+def pairing_ops(ps, cols, device, P=None, Q=None, count=None):
+    """Device operations of final_exponentiation (and, given the pairs P, Q,
+    of miller_loop) at ps's full exponent and loop count, for a batch of
+    ``cols`` columns, from counted runs at short ones.  Every Miller step
+    launches the same operations whatever its bit (the add step is computed
+    and selected), and each exponentiation step a cyclotomic square and, on
+    a nonzero digit, an Fq12 product: so a loop of n steps is its head and
+    tail plus n steps, and the final exponentiation's chain of
+    exponentiations by |x| (BLS12, five) or z (BN, three) is its fixed part
+    plus their squares and products.  ``count`` (device_ops by default)
+    counts one call, after a first call has filled the constant caches."""
+    import dataclasses
+
+    from zprize_wasm_msm_tpu_torch.ops.pairing import bls12
+
+    counter = count or (lambda fn: device_ops(fn)[1])
+
+    def count(fn):
+        fn()
+        return counter(fn)
+
+    tw = ps.tower
+    if isinstance(ps, bls12.PairingSpec):
+        mod, exps, param, sign = bls12, 5, abs(ps.x), -1 if ps.x < 0 else 1
+        short = lambda e: dataclasses.replace(ps, x=sign * e)  # noqa: E731
+        steps = lambda e: e.bit_length() - 2  # noqa: E731
+    else:
+        from zprize_wasm_msm_tpu_torch.ops.pairing import bn as mod
+
+        exps, param = 3, ps.z
+        short = lambda e: dataclasses.replace(ps, z=e)  # noqa: E731
+        steps = lambda e: (6 * e + 2).bit_length() - 1  # noqa: E731
+    e_a, e_b = 3, 7  # one loop step apart on either family (BN: 6z+2 = 20, 44)
+    out = {}
+    if P is not None:
+        Pc, Qc = (tuple(x[:, :1].expand(-1, cols).contiguous() for x in pt) for pt in (P, Q))
+        ml_a = count(lambda: mod.miller_loop(short(e_a), Pc, Qc))
+        ml_b = count(lambda: mod.miller_loop(short(e_b), Pc, Qc))
+        out["miller_step"] = (ml_b - ml_a) // (steps(e_b) - steps(e_a))
+        out["miller_loop"] = ml_a + (steps(param) - steps(e_a)) * out["miller_step"]
+    f = tw.f12_one((cols,), device)
+    fe_a = count(lambda: mod.final_exponentiation(short(e_a), f))
+    sq = count(lambda: tw.f12_cyclotomic_square(f))
+    mul = count(lambda: tw.f12_mul(f, f))
+
+    def chain(e):  # cyclotomic squares and products of one exponentiation
+        digits = bls12._naf_digits_msb(e)
+        return (len(digits) - 1) * sq + sum(1 for d in digits[1:] if d) * mul
+
+    out.update({"final_exponentiation": fe_a + exps * (chain(param) - chain(e_a)),
+                "cyclotomic_square": sq, "f12_mul": mul})
+    return out
+
+
+def pairing_phase(curve_pair, dev, rng):
+    """One pairing family (BLS12-381 or BN254).  ctx.pairing is
+    final_exponentiation(miller_loop(.)): the two calls on four pairs,
+    timed one after the other, give bilinearity e(aP, bQ) = e(P, Q)^(ab) =
+    e(abP, Q), non-degeneracy and e(O, Q) = 1; the fast final
+    exponentiation against final_exponentiation_plain on e(P, Q)'s Miller
+    value (BLS12-381: the plain value cubed; BN254: to the power
+    d = 2z(6z^2+3z+1), the fixed multiple the BN chain computes);
+    device operations (torch.profiler) by pairing_ops: a Miller step's count
+    times the steps.  pairing_eq is checked true on a product of four
+    pairings that is 1 and false on a perturbed one by the groth16 phase:
+    its verifies are exactly that."""
+    import zprize_wasm_msm_tpu_torch as Z
+    from zprize_wasm_msm_tpu_torch.ops.field import kernels as field_kernels
+    from zprize_wasm_msm_tpu_torch.ops.pairing import bls12
+
+    g1c, g2c = curve_pair
+    c1, c2 = Z.build_curve(g1c), Z.build_curve(g2c)
+    oc1, oc2 = oracle_of(g1c), oracle_of(g2c)
+    _, ps = c1._pairing
+    tw = ps.tower
+    r = g1c.r
+    P, Q = oc1.g, oc2.g
+    a, b = (int(v) for v in rng.integers(2, 1 << 62, size=2))
+    out = {"curve": g1c.name}
+    P4 = c1.points_to_device([oc1.mul(P, a), P, oc1.mul(P, a * b % r), None])
+    Q4 = c2.points_to_device([oc2.mul(Q, b), Q, Q, Q])
+    inv_before = field_kernels.launches["inverse"]
+    f, ml_s = host_timed(lambda: c1.miller_loop(P4, Q4))
+    e, fe_s = host_timed(lambda: c1.final_exponentiation(f))
+    inverses = field_kernels.launches["inverse"] - inv_before
+    ops4 = pairing_ops(ps, 4, dev, P4, Q4)
+    out["pairing_4_pairs"] = {"s": ml_s + fe_s, "miller_loop_s": ml_s, "final_exponentiation_s": fe_s,
+                              "field_inverse_launches": inverses,
+                              "device_ops": ops4["miller_loop"] + ops4["final_exponentiation"],
+                              "device_ops_by_part": ops4}
+    one = tw.f12_one((1,), dev)[:, 0]
+    check(torch.equal(e[:, 0], e[:, 2]), f"{g1c.name}: e(aP, bQ) != e(abP, Q)")
+    pow_ab = bls12._cyclotomic_exp(tw, e[:, 1:2], a * b, False)[:, 0]
+    check(torch.equal(e[:, 0], pow_ab), f"{g1c.name}: e(aP, bQ) != e(P, Q)^(ab)")
+    check(not torch.equal(e[:, 1], one), f"{g1c.name}: e(P, Q) = 1 (degenerate)")
+    check(torch.equal(e[:, 3], one), f"{g1c.name}: e(O, Q) != 1")
+    plain, plain_s = host_timed(lambda: bls12.final_exponentiation_plain(ps, f[:, 1:2]))
+    power = 3 if isinstance(ps, bls12.PairingSpec) else 2 * ps.z * (6 * ps.z * ps.z + 3 * ps.z + 1)
+    check(torch.equal(e[:, 1:2], bls12._cyclotomic_exp(tw, plain, power, False)),
+          f"{g1c.name}: final_exponentiation != final_exponentiation_plain^{power}")
+    out["final_exponentiation_plain"] = {"s": plain_s, "fast_equals_plain_to_the": power}
+    # pairing_eq on four pairs: the Miller loop on four pairs, the product
+    # tree, one final exponentiation on one column and the comparison (its
+    # true and false cases and its time: the groth16 phase's verifies)
+    ops1 = pairing_ops(ps, 1, dev)
+    _, tree_ops = device_ops(lambda: (bls12._f12_product_tree(ps, f) == tw.f12_one((1,), dev)).all())
+    out["pairing_eq_4_pairs"] = {
+        "device_ops": ops4["miller_loop"] + tree_ops + ops1["final_exponentiation"],
+        "checked_and_timed_in": "groth16 (verify: true on the valid proof, false on a corrupted one)"}
+    return out
+
+
+def groth16_phase(dev, rng):
+    """groth16.verify on an instance made as tests/test_groth16.py makes it
+    (two public inputs), on BLS12-381 (G2 from bls12_381_g2) and BN254: the
+    valid proof True, a corrupted C False (a corrupted public input: the
+    CPU tests).  These are ctx.pairing_eq true on a product of four
+    pairings that is 1 and false on a perturbed one.  The time of a
+    verify, of its IC MSM alone, and the rest: its pairing_eq (with the
+    vk_x fold and the copies)."""
+    import zprize_wasm_msm_tpu_torch as Z
+    from zprize_wasm_msm_tpu_torch.models import groth16
+    from zprize_wasm_msm_tpu_torch.models.curves import bls12_381, bls12_381_g2, bn254, bn254_g2
+    from zprize_wasm_msm_tpu_torch.ops.field import kernels as field_kernels
+    from zprize_wasm_msm_tpu_torch.ops.msm import pl_bucket, pl_reduce
+
+    import importlib.util
+
+    # the instance maker of the port's tests (jax-free), by its path: another
+    # package named "tests" may stand earlier on the path
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "_torch_groth16.py")
+    spec = importlib.util.spec_from_file_location("_torch_groth16", path)
+    helper = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(helper)
+    make_instance = helper.make_instance
+
+    out = {}
+    for g1c, g2c in ((bls12_381, bls12_381_g2), (bn254, bn254_g2)):
+        c1, c2 = Z.build_curve(g1c), Z.build_curve(g2c)
+        vk, proof, publics, oc1, c = make_instance(rng, 2, g1c, g2c)
+        before = {"bucket_sweep": pl_bucket.launches, **pl_reduce.launches, **field_kernels.launches}
+        ok, s = host_timed(lambda: groth16.verify(c1, c2, vk, proof, publics))
+        after = {"bucket_sweep": pl_bucket.launches, **pl_reduce.launches, **field_kernels.launches}
+        launches = {key: after[key] - before[key] for key in after}
+        check(ok is True, f"groth16 on {g1c.name}: a valid proof is rejected")
+        check(launches["bucket_sweep"] > 0, f"groth16 on {g1c.name}: the IC MSM launched no sweep")
+        bad = groth16.Proof(a=proof.a, b=proof.b, c=oc1.mul(oc1.g, c + 1))
+        check(groth16.verify(c1, c2, vk, bad, publics) is False, f"groth16 on {g1c.name}: a corrupted C verifies")
+        P = c1.points_to_device(vk.ic[1:])
+        k = c1.scalars_to_device(publics)
+        acc, msm_s = host_timed(lambda: c1.msm(P, k))
+        check(c1.result_to_affine(acc) == oc1.msm(vk.ic[1:], publics), f"groth16 on {g1c.name}: IC MSM wrong")
+        out[g1c.name] = {"verify_s": s, "msm_s": msm_s, "n_publics": 2,
+                         "pairing_eq_4_pairs_s": s - msm_s, "pairing_eq_timed_as": "verify less its MSM",
+                         "valid": True, "corrupted_c": False,
+                         "kernel_launches": {a: v for a, v in launches.items() if v}}
+    return out
+
+
+def in_group_phase(dev, rng, log2n=10):
+    """ctx.in_group_affine on BLS12-381 G1 and G2 at 2^log2n points: True on
+    [m]G, False on curve points outside the subgroup (G1: x from 5 up with
+    y^2 = x^3 + 4 solvable; G2: x = (3 + i, 1), as the JAX tests make them)."""
+    import zprize_wasm_msm_tpu_torch as Z
+    from zprize_wasm_msm_tpu_torch.models.curves import bls12_381, bls12_381_g2
+    from zprize_wasm_msm_tpu_torch.oracle import F as HostF, F2 as HostF2
+
+    n = 1 << log2n
+    out = {"n": n}
+    q = bls12_381.q
+    f = HostF(q)
+    f2 = HostF2(q, -1)
+
+    def sqrt_f2(a):
+        c0, c1 = a
+        sn = f.sqrt((c0 * c0 + c1 * c1) % q)
+        if sn is None:
+            return None
+        for s in (sn, (-sn) % q):
+            x0 = f.sqrt((c0 + s) * pow(2, q - 2, q) % q)
+            if x0 is None or x0 == 0:
+                continue
+            cand = (x0, c1 * pow(2 * x0, q - 2, q) % q)
+            if f2.sqr(cand) == f2.of(a):
+                return cand
+        return None
+
+    for curve in (bls12_381, bls12_381_g2):
+        ctx = Z.build_curve(curve)
+        oc = oracle_of(curve)
+        bad, x = [], 5
+        while len(bad) < 8:  # curve points of random cosets: outside the order-r subgroup
+            if curve.ext == 1:
+                y = f.sqrt((x * x * x + 4) % q)
+                pt = (x, y) if y else None
+            else:
+                xx = (3 + x, 1)
+                y = sqrt_f2(f2.add(f2.mul(f2.mul(xx, xx), xx), f2.of((4, 4))))
+                pt = (xx, y) if y else None
+            if pt is not None and oc.is_on_curve(pt) and oc.mul(pt, curve.r) is not None:
+                bad.append(pt)
+            x += 1
+        ms = [int(v) for v in rng.integers(1, 1 << 62, size=4)]
+        seeds = [oc.mul(oc.g, m) for m in ms]
+        pts = [seeds[i % 4] for i in range(n - len(bad))] + bad
+        want = [True] * (n - len(bad)) + [False] * len(bad)
+        Pd = ctx.points_to_device(pts)
+        got, s = host_timed(lambda: ctx.in_group_affine(Pd))
+        check(got.tolist() == want, f"in_group_affine on {curve.name} disagrees with membership")
+        out[curve.name] = {"s": s, "in_group": n - len(bad), "outside": len(bad)}
+    return out
 
 
 def main() -> None:
@@ -2392,6 +2855,40 @@ def main() -> None:
             entry["other_shapes"] = other_g2[entry["name"]]
     kernels += fq2_entries
     del buckets_g, sums_g, fold_g
+
+    # ---- 8. the Groth16 stack: NTT, poly helpers, pairings, subgroup checks,
+    # the verifier; each phase with the kernel counts zeroed before it
+    groth_rng = np.random.default_rng(SEED + 10)
+    torch.cuda.empty_cache()  # the 2^20 paths' cached blocks: these phases allocate small tensors
+    stack, reports = {}, {}
+    for name, phase in (
+        ("ntt", lambda: ntt_phase(dev, groth_rng)),
+        ("poly", lambda: poly_phase(dev, groth_rng)),
+        ("pairing_bls12_381", lambda: pairing_phase((bls12_381, bls12_381_g2), dev, groth_rng)),
+        ("pairing_bn254", lambda: pairing_phase((bn254, bn254_g2), dev, groth_rng)),
+        ("groth16", lambda: groth16_phase(dev, groth_rng)),
+        ("in_group", lambda: in_group_phase(dev, groth_rng)),
+    ):
+        reset_counts()
+        t0 = time.perf_counter()
+        reports[name] = report = phase()
+        counts = read_counts()
+        stack[name] = {"kernel_launches": {k: v for k, v in counts.items() if v},
+                       "seconds": round(time.perf_counter() - t0, 2)}
+        emit({name: report, **stack[name]})
+    check(stack["ntt"]["kernel_launches"].get("mont_mul", 0) > 0, "the NTT phase never launched K5")
+    k5 = next(e for e in kernels if e["name"] == "mont_mul")
+    k5["launches_by_path"] = {
+        "A": k5["launches"], "ntt fft 2^20": reports["ntt"]["fft"]["k5_launches"],
+        "ntt ifft 2^20": reports["ntt"]["ifft"]["k5_launches"],
+        "poly helpers": reports["poly"]["k5_launches"],
+        "groth16 verify (bls12_381)": reports["groth16"]["bls12_381"]["kernel_launches"].get("mont_mul", 0),
+    }
+    k5["ntt_stage_call"] = reports["ntt"]["k5_stage_call"]
+    inv = next(e for e in kernels if e["name"] == "field_inverse")
+    inv["launches_by_path"] = {"full": inv["launches"], **{
+        f"{p} phase": stack[p]["kernel_launches"].get("field_inverse", 0)
+        for p in ("pairing_bls12_381", "pairing_bn254", "groth16", "in_group")}}
 
     emit({
         "peaks": {"bytes_per_s": PEAK_BYTES_PER_S, "int32_ops_per_s": PEAK_INT32_OPS_PER_S},

@@ -2,6 +2,8 @@
 from a seed with numpy, go to the JAX package (as jnp arrays) and to the
 PyTorch port (as CPU tensors); results come back as numpy for comparison."""
 
+import contextlib
+
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -78,7 +80,11 @@ def assert_same(got_torch, want_jax, msg=""):
 
 
 def oracle_of(curve):
-    return OracleCurve(q=curve.q, a=curve.a, b=curve.b, r=curve.r, gx=curve.gx, gy=curve.gy)
+    """The host oracle of a curve: coordinates in Fq, or in Fq2 for ext 2."""
+    from zprize_wasm_msm_tpu_torch.oracle import F2
+
+    field = F2(curve.q, curve.nr) if curve.ext == 2 else None
+    return OracleCurve(q=curve.q, a=curve.a, b=curve.b, r=curve.r, gx=curve.gx, gy=curve.gy, field=field)
 
 
 def affine_np(curve, pts):
@@ -104,3 +110,50 @@ def random_points(curve, n, seed, bound=None):
     oc = oracle_of(curve)
     hi = min(curve.r, bound or (1 << 30))
     return [oc.mul(oc.g, int(rng.integers(1, hi))) for _ in range(n)]
+
+
+@contextlib.contextmanager
+def jax_stages_eager(*modules, functions=()):
+    """Run the JAX package's pairing code op by op: ``jax.lax.scan`` and
+    ``jax.lax.fori_loop`` as Python loops, and every jitted function of
+    ``modules`` (and each (module, name) of ``functions``) as its unjitted
+    body, so each field op is one call of its own small jit.  XLA:CPU
+    compiles the fused toy-BN Miller loop in about a minute and its final
+    exponentiation in several (a full-width inversion's loop runs out of
+    memory); op by op the whole pairing takes seconds, and computes the
+    same values.  Restored on exit."""
+    import jax
+
+    def scan(f, init, xs=None, length=None, reverse=False, **kw):
+        n = length if xs is None else len(jax.tree_util.tree_leaves(xs)[0])
+        carry, ys = init, []
+        for i in range(n - 1, -1, -1) if reverse else range(n):
+            carry, y = f(carry, None if xs is None else jax.tree_util.tree_map(lambda a: a[i], xs))
+            ys.append(y)
+        if reverse:
+            ys.reverse()
+        if not ys or jax.tree_util.tree_leaves(ys[0]) == []:
+            return carry, None
+        return carry, jax.tree_util.tree_map(lambda *a: jnp.stack(a), *ys)
+
+    def fori_loop(lower, upper, body, init, **kw):
+        val = init
+        for i in range(lower, upper):
+            val = body(i, val)
+        return val
+
+    saved = [(jax.lax, "scan", jax.lax.scan), (jax.lax, "fori_loop", jax.lax.fori_loop)]
+    for mod in modules:
+        for name in dir(mod):
+            obj = getattr(mod, name)
+            if callable(obj) and hasattr(obj, "__wrapped__") and hasattr(obj, "lower"):
+                saved.append((mod, name, obj))
+    saved += [(mod, name, getattr(mod, name)) for mod, name in functions]
+    try:
+        jax.lax.scan, jax.lax.fori_loop = scan, fori_loop
+        for mod, name, obj in saved[2:]:
+            setattr(mod, name, obj.__wrapped__)
+        yield
+    finally:
+        for mod, name, obj in saved:
+            setattr(mod, name, obj)

@@ -150,7 +150,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "zprize_wasm_msm_tpu_torch.ops.field.batch, zprize_wasm_msm_tpu_torch.ops.field.intops, "
         "zprize_wasm_msm_tpu_torch.ops.field.kernels, zprize_wasm_msm_tpu_torch.oracle, "
         "zprize_wasm_msm_tpu_torch.ops.msm.naive, zprize_wasm_msm_tpu_torch.ops.msm.utility, "
-        "zprize_wasm_msm_tpu_torch.ops.field.f1, zprize_wasm_msm_tpu_torch.utils.serde; "
+        "zprize_wasm_msm_tpu_torch.ops.field.f1, zprize_wasm_msm_tpu_torch.utils.serde, "
+        "zprize_wasm_msm_tpu_torch.ops.poly.fft, zprize_wasm_msm_tpu_torch.ops.poly.pol, "
+        "zprize_wasm_msm_tpu_torch.ops.poly.qap, zprize_wasm_msm_tpu_torch.ops.poly.applykey, "
+        "zprize_wasm_msm_tpu_torch.ops.poly.pedersen, zprize_wasm_msm_tpu_torch.ops.pairing.tower, "
+        "zprize_wasm_msm_tpu_torch.ops.pairing.bls12, zprize_wasm_msm_tpu_torch.ops.pairing.bn, "
+        "zprize_wasm_msm_tpu_torch.ops.pairing.ingroup, zprize_wasm_msm_tpu_torch.models.groth16, "
+        "tests._torch_groth16; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'zprize_wasm_msm_tpu' or m.startswith('zprize_wasm_msm_tpu.')]; "
         "assert not bad, bad; print('clean')"
@@ -162,3 +168,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         [sys.executable, "-c", code], capture_output=True, text=True, cwd=root, timeout=120
     )
     assert out.returncode == 0 and out.stdout.strip() == "clean", out.stderr
+
+
+@pytest.mark.parametrize("m", [6, 12])
+def test_tower_arrays_round_trip(m):
+    """Fq6 / Fq12 batches, (m L, N) flat components as the JAX package's
+    ops/pairing/tower.py holds them, cross as they are."""
+    fq = port_curves.bls12_381.fq
+    a, _ = field_operands(fq.q, 3 * m, seed=m)
+    cols = len(a) // m
+    limbs = np.concatenate([mont_limbs(fq, a[i * cols : (i + 1) * cols]) for i in range(m)])
+    t = convert.from_reference(limbs)
+    assert t.dtype == torch.int64 and t.shape == (m * fq.n_limbs, limbs.shape[1])
+    assert np.array_equal(convert.to_reference(t), limbs)

@@ -206,8 +206,9 @@ def test_context_device_and_glv_default():
     # GLV is this curve's default: 5 * G through the split equals the oracle
     oc = oracle_of(ctx.spec)
     assert ctx.result_to_affine(ctx.msm(P, s)) == oc.mul(oc.g, 5)
-    for absent in ("pairing", "fft", "in_group"):  # later slices of the port
-        assert not hasattr(ctx, absent)
+    for present in ("pairing", "pairing_eq", "fft", "ifft", "group_fft", "in_group"):  # the Groth16 slice
+        assert hasattr(ctx, present)
+    assert not hasattr(ctx, "group_map")  # general a and Fq3: a later slice of the port
     for present in ("msm_legacy", "to_compressed", "from_compressed", "to_uncompressed",
                     "from_uncompressed", "field_exp"):
         assert callable(getattr(ctx, present))

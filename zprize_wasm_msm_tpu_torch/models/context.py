@@ -9,9 +9,8 @@ The device is explicit.  ``device=None`` means the card: it resolves to
 ``torch.device("cuda")`` and raises if there is none; nothing here decides
 on its own to run on the CPU.  Pass ``device="cpu"`` to do so.
 
-Only the surface whose modules are ported exists; the rest of the JAX
-package's CurveContext (subgroup checks, pairings, FFT) arrives with its
-slices.
+The surface is the JAX package's CurveContext, but ``group_map`` and the
+MNT6753 pairing (general a and Fq3), which arrive with the next slice.
 """
 
 from __future__ import annotations
@@ -164,6 +163,68 @@ class CurveContext:
     def in_curve(self, p):
         return group.in_curve(self.spec, p)
 
+    def in_group_affine(self, P):
+        """Subgroup membership on an affine batch (ref g1m/g2m_inGroupAffine,
+        build_bls12381.js:1376-1556): an (N,) bool tensor.  BLS curves only
+        (needs bls_x)."""
+        from ..ops.pairing import ingroup
+
+        spec = self.spec
+        if spec.bls_x is None:
+            raise ValueError(f"{spec.name}: no BLS parameter, no subgroup check")
+        if spec.ext == 1:
+            return ingroup.g1_in_group(spec, spec.bls_x, P)
+        return ingroup.g2_in_group(spec, spec.bls_x, P)
+
+    def in_group(self, p):
+        """Subgroup check on a projective batch (ref g1m_inGroup)."""
+        return self.in_group_affine(group.to_affine(self.spec, p))
+
+    # ---- pairing surface (ref g1m/g2m pairing exports per assembly:
+    # build_bls12381.js:1592-1615, bn128 :1368, mnt6753 :1345) -------------
+
+    @property
+    def _pairing(self):
+        """(module, spec) for this curve family's pairing."""
+        name = self.spec.name
+        if name.startswith("bls12_381"):
+            from ..ops.pairing import bls12
+
+            return bls12, bls12.get_bls12_381_spec()
+        if name.startswith("bn254") or name == "bn128":
+            from ..ops.pairing import bn
+
+            return bn, bn.get_bn254_spec()
+        if name.startswith("toy_bn"):
+            from ..ops.pairing import bn
+
+            return bn, bn.get_toy_bn_spec()
+        if name.startswith("mnt6753"):
+            raise NotImplementedError(
+                f"{name}: the MNT6753 pairing (Fq3, general a) arrives with the next "
+                "slice of the port"
+            )
+        raise NotImplementedError(f"no pairing for curve {name}")
+
+    def pairing(self, P, Q):
+        """e(P, Q) batched: P affine G1 batch, Q affine G2 batch."""
+        mod, spec = self._pairing
+        return mod.pairing(spec, P, Q)
+
+    def pairing_eq(self, Ps, Qs):
+        """prod_i e(P_i, Q_i) == 1 (the reference's pairingEq1-5): a 0-dim
+        bool tensor on the points' device."""
+        mod, spec = self._pairing
+        return mod.pairing_eq(spec, Ps, Qs)
+
+    def miller_loop(self, P, Q):
+        mod, spec = self._pairing
+        return mod.miller_loop(spec, P, Q)
+
+    def final_exponentiation(self, f):
+        mod, spec = self._pairing
+        return mod.final_exponentiation(spec, f)
+
     def times_scalar(self, points, scalars):
         return group.times_scalar(self.spec, points, scalars)
 
@@ -233,6 +294,24 @@ class CurveContext:
         from ..utils import serde
 
         return serde.points_from_compressed(self.spec, raw, self.device)
+
+    # ---- FFT over Fr (ref frm_fft/ifft, build_bls12381.js:43) -------------
+    # The stages' products run the mont_mul kernel for tensors on the card.
+
+    def fft(self, x, inverse: bool = False, impl: str = "auto"):
+        from ..ops.poly import fft as fft_mod
+
+        return fft_mod.fft(self.spec.fr, x, inverse, impl)
+
+    def ifft(self, x, impl: str = "auto"):
+        from ..ops.poly import fft as fft_mod
+
+        return fft_mod.ifft(self.spec.fr, x, impl)
+
+    def group_fft(self, p, inverse: bool = False):
+        from ..ops.poly import fft as fft_mod
+
+        return fft_mod.group_fft(self.spec, p, inverse)
 
     @property
     def g1(self):

@@ -29,6 +29,7 @@ from typing import Tuple
 
 import torch
 
+from ..field.tower import stack_elems
 from .spec import CurveSpec
 
 Point = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -120,20 +121,18 @@ def add(curve: CurveSpec, p: Point, q: Point) -> Point:
     b3 = _b3(curve, X1)
     fadd, fsub = F.add, F.sub
 
-    # round 1: six independent products, one stacked multiply
+    # round 1: six independent products, one stacked multiply (their six
+    # operand sums one stacked add: eager PyTorch pays per launch)
+    sX1Y1, sX2Y2, sY1Z1, sY2Z2, sX1Z1, sX2Z2 = fadd(
+        stack_elems(X1, X2, Y1, Y2, X1, X2), stack_elems(Y1, Y2, Z1, Z2, Z1, Z2)
+    ).unbind(1)
     t0, t1, t2, A, B, C = F.mul_many(
-        [
-            (X1, X2),
-            (Y1, Y2),
-            (Z1, Z2),
-            (fadd(X1, Y1), fadd(X2, Y2)),
-            (fadd(Y1, Z1), fadd(Y2, Z2)),
-            (fadd(X1, Z1), fadd(X2, Z2)),
-        ]
+        [(X1, X2), (Y1, Y2), (Z1, Z2), (sX1Y1, sX2Y2), (sY1Z1, sY2Z2), (sX1Z1, sX2Z2)]
     )
-    t3 = fsub(fsub(A, t0), t1)  # X1Y2 + X2Y1
-    t4 = fsub(fsub(B, t1), t2)  # Y1Z2 + Y2Z1
-    Yr = fsub(fsub(C, t0), t2)  # X1Z2 + X2Z1
+    # X1Y2 + X2Y1, Y1Z2 + Y2Z1, X1Z2 + X2Z1
+    t3, t4, Yr = fsub(
+        fsub(stack_elems(A, B, C), stack_elems(t0, t1, t0)), stack_elems(t1, t2, t2)
+    ).unbind(1)
     t0_3 = fadd(fadd(t0, t0), t0)
 
     # round 2: the two b3 products
@@ -152,7 +151,8 @@ def add(curve: CurveSpec, p: Point, q: Point) -> Point:
             (Z3l, t4),
         ]
     )
-    return (fsub(t2c, X3a), fadd(t1c, Yc), fadd(Z3c, t0c))
+    Y3, Z3 = fadd(stack_elems(t1c, Z3c), stack_elems(Yc, t0c)).unbind(1)
+    return (fsub(t2c, X3a), Y3, Z3)
 
 
 def add_mixed(curve: CurveSpec, p: Point, q: AffinePoint) -> Point:
@@ -170,22 +170,14 @@ def add_mixed(curve: CurveSpec, p: Point, q: AffinePoint) -> Point:
     fadd, fsub = F.add, F.sub
 
     # round 1: six independent products (incl. b3*Z1), one stacked multiply
+    sX1Y1, sX2Y2 = fadd(stack_elems(X1, X2), stack_elems(Y1, Y2)).unbind(1)
     t0, t1, A, t4a, Ya, t2b = F.mul_many(
-        [
-            (X1, X2),
-            (Y1, Y2),
-            (fadd(X1, Y1), fadd(X2, Y2)),
-            (Y2, Z1),
-            (X2, Z1),
-            (b3, Z1),
-        ]
+        [(X1, X2), (Y1, Y2), (sX1Y1, sX2Y2), (Y2, Z1), (X2, Z1), (b3, Z1)]
     )
-    t3 = fsub(fsub(A, t0), t1)
-    t4 = fadd(t4a, Y1)
-    Yr = fadd(Ya, X1)
-    t0_3 = fadd(fadd(t0, t0), t0)
-    Z3l = fadd(t1, t2b)
-    t1l = fsub(t1, t2b)
+    t4, Yr, t0_2, Z3l = fadd(stack_elems(t4a, Ya, t0, t1), stack_elems(Y1, X1, t0, t2b)).unbind(1)
+    At0, t1l = fsub(stack_elems(A, t1), stack_elems(t0, t2b)).unbind(1)
+    t3 = fsub(At0, t1)
+    t0_3 = fadd(t0_2, t0)
 
     # round 2
     (Yb,) = F.mul_many([(b3, Yr)])
@@ -202,8 +194,7 @@ def add_mixed(curve: CurveSpec, p: Point, q: AffinePoint) -> Point:
         ]
     )
     X3 = fsub(t2c, X3a)
-    Y3 = fadd(t1c, Yc)
-    Z3 = fadd(Z3c, t0c)
+    Y3, Z3 = fadd(stack_elems(t1c, Z3c), stack_elems(Yc, t0c)).unbind(1)
 
     qz = is_zero_affine(curve, q)
     return (
@@ -227,20 +218,20 @@ def double(curve: CurveSpec, p: Point) -> Point:
 
     # round 1: four independent products
     t0, t1, t2, txy = F.mul_many([(Y, Y), (Y, Z), (Z, Z), (X, Y)])
-    Z8 = fadd(t0, t0)
-    Z8 = fadd(Z8, Z8)
-    Z8 = fadd(Z8, Z8)  # 8*Y^2
 
-    # round 2
+    # round 2; then 8 Y^2, t0 + t2b and t0 - 3 t2b, their sums stacked
     (t2b,) = F.mul_many([(b3, t2)])
-    Y3s = fadd(t0, t2b)
-    t0p = fsub(t0, fadd(fadd(t2b, t2b), t2b))
+    Z2, Y3s, t2b_2 = fadd(stack_elems(t0, t0, t2b), stack_elems(t0, t2b, t2b)).unbind(1)
+    Z4, t2b_3 = fadd(stack_elems(Z2, t2b_2), stack_elems(Z2, t2b)).unbind(1)
+    Z8 = fadd(Z4, Z4)  # 8*Y^2
+    t0p = fsub(t0, t2b_3)
 
     # round 3: four independent products
     X3a, Z3c, Yc, Xc = F.mul_many(
         [(t2b, Z8), (t1, Z8), (t0p, Y3s), (t0p, txy)]
     )
-    return (fadd(Xc, Xc), fadd(X3a, Yc), Z3c)
+    X3, Y3 = fadd(stack_elems(Xc, X3a), stack_elems(Xc, Yc)).unbind(1)
+    return (X3, Y3, Z3c)
 
 
 def neg(curve: CurveSpec, p: Point) -> Point:

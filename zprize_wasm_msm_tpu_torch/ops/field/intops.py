@@ -87,8 +87,8 @@ def int_mul(a: torch.Tensor, b: torch.Tensor, out_limbs: Optional[int] = None) -
     for i in range(min(La, total)):
         hi_len = min(Lb, total - i)
         p = a[i][None] * b[:hi_len]
-        acc[i : i + hi_len] += p & LIMB_MASK
-        acc[i + 1 : i + 1 + hi_len] += p >> LIMB_BITS
+        acc[i : i + hi_len].add_(p & LIMB_MASK)
+        acc[i + 1 : i + 1 + hi_len].add_(p >> LIMB_BITS)
     out = []
     carry = None
     for k in range(total):

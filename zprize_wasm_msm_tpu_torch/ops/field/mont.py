@@ -102,19 +102,21 @@ def _resolve(x: torch.Tensor):
     Returns (canonical limbs in [0, 2^16), carry_out).  ``>>`` on int64 is an
     arithmetic shift, so a negative limb propagates a borrow (carry -1); a
     final carry_out of -1 means the value was negative.  The serial pass runs
-    over pairs of limbs as 32-bit digits (x_2j + 2^16 x_2j+1 < 2^62): three
-    launches a pair where a pass over limbs takes four a limb.  Eager
-    PyTorch pays per launch, and this pass is most of the launches of every
-    field op.
+    over pairs of limbs as 32-bit digits (x_2j + 2^16 x_2j+1 < 2^62): two
+    launches a pair (the carry in, the carry out; the digits are masked to
+    32 bits once, after the pass) where a pass over limbs takes four a limb.
+    Eager PyTorch pays per launch, and this pass is most of the launches of
+    every field op.
     """
     K, P = x.shape[0], x.shape[0] // 2
     even, odd = x[0 : 2 * P : 2], x[1 : 2 * P : 2]
     even.add_(odd, alpha=1 << LIMB_BITS)
     carry = None
     for j in range(P):
-        d = even[j] if carry is None else even[j] + carry
-        carry = d >> (2 * LIMB_BITS)
-        torch.bitwise_and(d, 0xFFFFFFFF, out=even[j])
+        if carry is not None:
+            even[j].add_(carry)
+        carry = even[j] >> (2 * LIMB_BITS)
+    even.bitwise_and_(0xFFFFFFFF)
     torch.bitwise_right_shift(even, LIMB_BITS, out=odd)
     even.bitwise_and_(LIMB_MASK)
     if K % 2:
@@ -182,7 +184,7 @@ def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     batch = torch.broadcast_shapes(a.shape[1:], b.shape[1:])
     acc = torch.zeros((2 * L + 1,) + tuple(batch), dtype=I64, device=a.device)
     for i in range(L):
-        acc[i : i + L] += a[i] * b
+        acc[i : i + L].addcmul_(a[i], b)
     return _mont_reduce(spec, acc)
 
 
@@ -198,9 +200,9 @@ def _mont_reduce(spec: FieldSpec, acc: torch.Tensor) -> torch.Tensor:
         # m depends on acc[i] mod 2^16 only; int64 wraparound cannot occur
         # (acc < 2^40, np16 < 2^16)
         m = (acc[i] * np16) & LIMB_MASK
-        acc[i : i + L] += m * qv
+        acc[i : i + L].addcmul_(m, qv)
         # acc[i] is now == 0 mod 2^16: push its carry up and retire it
-        acc[i + 1] += acc[i] >> LIMB_BITS
+        acc[i + 1].add_(acc[i] >> LIMB_BITS)
     res = acc[L : 2 * L + 1]  # value < 2q -> L+1 limbs
     qpad = torch.cat([qv, torch.zeros_like(qv[:1])], dim=0)
     sl, _, dl, borrow = _resolve_pair(res, res - qpad)

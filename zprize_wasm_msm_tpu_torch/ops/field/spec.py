@@ -68,6 +68,11 @@ class FieldSpec:
         return (self.R * self.R) % self.q
 
     @cached_property
+    def R_inv_mod_q(self) -> int:
+        """R^{-1} mod q: from_mont_int's factor, computed once."""
+        return mod_inv(self.R, self.q)
+
+    @cached_property
     def np16(self) -> int:
         """-q^{-1} mod 2^16 (reference np32, build_f1m.js:504, for word=16)."""
         return (-mod_inv(self.q, 1 << LIMB_BITS)) % (1 << LIMB_BITS)
@@ -140,7 +145,7 @@ class FieldSpec:
         return (a % self.q) * self.R % self.q
 
     def from_mont_int(self, a: int) -> int:
-        return a * mod_inv(self.R, self.q) % self.q
+        return a * self.R_inv_mod_q % self.q
 
     def __repr__(self) -> str:  # keep reprs short in test output
         return f"FieldSpec(bits={self.bits}, n_limbs={self.n_limbs})"

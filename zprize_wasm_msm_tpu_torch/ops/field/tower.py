@@ -33,6 +33,15 @@ from .spec import FieldSpec
 IntLike = Union[int, Tuple[int, ...]]
 
 
+def stack_elems(*xs: torch.Tensor) -> torch.Tensor:
+    """Stack same-width elements (Fq or Fq2) along a new axis 1, after the
+    limb axis, broadcasting their batch shapes: k independent values become
+    one batch, so k independent field ops run as one (eager PyTorch pays
+    per launch, not per element)."""
+    shape = torch.broadcast_shapes(*(x.shape for x in xs))
+    return torch.stack([x.expand(shape) for x in xs], dim=1)
+
+
 @dataclass(frozen=True)
 class Fq:
     """Base prime field backend (delegates to ops.field.mont)."""
@@ -78,14 +87,10 @@ class Fq:
     def mul_many(self, pairs):
         """One stacked multiply for independent products: eager PyTorch pays
         per call, so k products in one call cost about what one does."""
-        k = len(pairs)
-        if k == 1:
+        if len(pairs) == 1:
             return [self.mul(*pairs[0])]
-        shape = torch.broadcast_shapes(*(t.shape for p in pairs for t in p))
-        a = torch.stack([p[0].expand(shape) for p in pairs], dim=1)
-        b = torch.stack([p[1].expand(shape) for p in pairs], dim=1)
-        r = mont.mont_mul(self.spec, a, b)
-        return [r[:, i] for i in range(k)]
+        a, b = (stack_elems(*side) for side in zip(*pairs))
+        return list(mont.mont_mul(self.spec, a, b).unbind(1))
 
     def square(self, a):
         return mont.mont_square(self.spec, a)
@@ -201,27 +206,26 @@ class Fq2:
 
     def mul(self, a, b):
         """Karatsuba: 3 base products in one stacked call (ref build_f2m.js
-        mul:153)."""
+        mul:153); the two operand sums in one base op and, for nr = -1, the
+        differences m0 - m1 and m2 - m0 in one more."""
         s = self.spec
         a0, a1 = self._split(a)
         b0, b1 = self._split(b)
-        m0, m1, m2 = Fq(s).mul_many(
-            [(a0, b0), (a1, b1), (mont.add(s, a0, a1), mont.add(s, b0, b1))]
-        )
+        sa, sb = mont.add(s, stack_elems(a0, b0), stack_elems(a1, b1)).unbind(1)
+        m0, m1, m2 = Fq(s).mul_many([(a0, b0), (a1, b1), (sa, sb)])
+        if self._nr_is_m1:
+            c0, d = mont.sub(s, stack_elems(m0, m2), stack_elems(m1, m0)).unbind(1)
+            return torch.cat([c0, mont.sub(s, d, m1)])
         c0 = mont.add(s, m0, self._mul_nr(m1))
         c1 = mont.sub(s, mont.sub(s, m2, m0), m1)
         return torch.cat([c0, c1])
 
     def mul_many(self, pairs):
         """Independent products in one stacked Karatsuba (see Fq.mul_many)."""
-        k = len(pairs)
-        if k == 1:
+        if len(pairs) == 1:
             return [self.mul(*pairs[0])]
-        shape = torch.broadcast_shapes(*(t.shape for p in pairs for t in p))
-        a = torch.stack([p[0].expand(shape) for p in pairs], dim=1)
-        b = torch.stack([p[1].expand(shape) for p in pairs], dim=1)
-        r = self.mul(a, b)
-        return [r[:, i] for i in range(k)]
+        a, b = (stack_elems(*side) for side in zip(*pairs))
+        return list(self.mul(a, b).unbind(1))
 
     def square(self, a):
         """Complex squaring (2 base products, ref build_f2m.js square:212)."""

@@ -274,8 +274,11 @@ class Curve:
 
 
 def ntt(values: List[int], r: int, root: int) -> List[int]:
-    """O(n^2) DFT over Z_r with given primitive n-th root (oracle only)."""
+    """O(n^2) DFT over Z_r with given primitive n-th root (oracle only):
+    out_i = sum_j values_j root^(i j), the powers read from a table of the
+    n distinct ones (root^n = 1)."""
     n = len(values)
+    powers = [pow(root, k, r) for k in range(n)]
     return [
-        sum(values[j] * pow(root, i * j, r) for j in range(n)) % r for i in range(n)
+        sum(values[j] * powers[i * j % n] for j in range(n)) % r for i in range(n)
     ]

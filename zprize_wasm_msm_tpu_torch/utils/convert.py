@@ -15,7 +15,9 @@ tensors are int32: only their bit pattern matters to a kernel.  An Fq2
 batch is (2L, *batch) limbs, component 0 then component 1 (tower.Fq2); a
 limb pair never straddles the two, so it packs to [c0 words][c1 words], NW
 each: the CUDA kernels' Fe2 layout.  from_reference carries the JAX
-package's Fq2 arrays across as they are.
+package's Fq2 arrays across as they are, and its Fq6 / Fq12 batches
+((6L, *batch), (12L, *batch): ops.pairing.tower's flat component layout,
+the JAX package's) the same way: any uint32 limb array.
 """
 
 from __future__ import annotations
