@@ -1,10 +1,12 @@
-"""PyTorch port: the plain field core's carry pass (ops/field/mont.py
-_resolve), which walks pairs of 16-bit limbs as 32-bit digits, against a
-limb-by-limb pass written out here, on signed redundant limbs at the bounds
-its callers give it (sums and differences of canonical limbs, the
-Montgomery product's accumulator) and on the long carry and borrow
-ripples; and Fq2's componentwise ops, one base op on both components,
-against the base ops on each."""
+"""PyTorch port: the plain field core's carry passes (ops/field/mont.py
+_resolve: the serial pass over pairs of 16-bit limbs as 32-bit digits, and
+the parallel pass the card takes on wide tensors) against a limb-by-limb
+pass written out here, on signed redundant limbs at the bounds its callers
+give it (sums and differences of canonical limbs, the Montgomery product's
+accumulator) and on the long carry and borrow ripples; the card's form of
+the wide Montgomery product (one convolution) against the CPU's rows; and
+Fq2's componentwise ops, one base op on both components, against the base
+ops on each."""
 
 import numpy as np
 import pytest
@@ -25,6 +27,9 @@ def resolve_by_limbs(x):
     return out, carry
 
 
+PASSES = {"serial": mont._resolve_serial, "parallel": mont._resolve_parallel}
+
+
 @pytest.mark.parametrize("K", [1, 2, 3, 24, 25, 49])
 @pytest.mark.parametrize("bits", [17, 41, 46])
 def test_resolve_matches_limb_by_limb(K, bits):
@@ -35,8 +40,21 @@ def test_resolve_matches_limb_by_limb(K, bits):
     assert torch.equal(got, want) and torch.equal(carry, want_carry)
 
 
-@pytest.mark.parametrize("K", [2, 5, 24, 25])
-def test_resolve_ripples(K):
+@pytest.mark.parametrize("K", [1, 3, 49, 97])
+@pytest.mark.parametrize("bits", [16, 18, 41, 46])
+def test_parallel_resolve_matches_limb_by_limb(K, bits):
+    """The parallel pass (the card's above mont._PARALLEL_FROM limbs), told
+    the bound of its limbs (its bias and its number of passes follow it)."""
+    g = torch.Generator().manual_seed(K * 100 + bits + 7)
+    x = torch.randint(-(1 << bits) + 1, 1 << bits, (K, 3, 256), generator=g)
+    got, carry = mont._resolve_parallel(x.clone(), bits)
+    want, want_carry = resolve_by_limbs(x)
+    assert torch.equal(got, want) and torch.equal(carry, want_carry)
+
+
+@pytest.mark.parametrize("K", [2, 5, 24, 25, 49, 97])
+@pytest.mark.parametrize("form", sorted(PASSES))
+def test_resolve_ripples(K, form):
     """A carry through limbs of all ones and a borrow through zero limbs,
     entering at every limb, and both signs of the top carry."""
     ones = torch.full((K, K), 0xFFFF, dtype=torch.int64)
@@ -45,10 +63,48 @@ def test_resolve_ripples(K):
         ones[k, k] += 1
         zeros[k, k] -= 1
     x = torch.cat([ones, zeros, ones - (1 << 30), zeros + (1 << 40)], dim=1)
-    got, carry = mont._resolve(x.clone())  # it overwrites its argument
+    got, carry = PASSES[form](x.clone())  # it may overwrite its argument
     want, want_carry = resolve_by_limbs(x)
     assert torch.equal(got, want) and torch.equal(carry, want_carry)
     assert bool((carry[:K] == 1).all()) and bool((carry[K : 2 * K] == -1).all())
+
+
+def test_wide_product_convolution_is_the_rows():
+    """On the card a product of mont._PARALLEL_FROM limbs or more is one
+    convolution (mont._conv) and its reduction carries in parallel: the
+    same words as the CPU's L row updates and serial carries, on MNT6753's
+    Fq (edge values, all-ones words, random values; broadcast and
+    multi-axis batches; the convolution in parts of the batch too)."""
+    fq = port_curves.mnt6753.fq
+    L, q = fq.n_limbs, fq.q
+    rng = np.random.default_rng(5)
+    vals = [0, 1, q - 1, q // 2, q // 2 + 1, ((1 << (16 * (L - 1))) - 1) % q]
+    vals += [int.from_bytes(rng.bytes(100), "little") % q for _ in range(30)]
+    a = torch.cat([mont.full_const(fq, v, (1,)) for v in vals], dim=1)
+    b = torch.cat([a, a.roll(5, dims=1)], dim=1).reshape(L, 2, -1)
+    a2 = torch.stack([a, a.flip(1)], dim=1)
+    c = a[:, 7:8, None]  # one element for the whole batch
+
+    resolve, serial = mont._resolve, mont._resolve_serial
+
+    def card_form(x, y):
+        try:
+            mont._resolve = lambda t, bits=46: (mont._in_parts(lambda v: mont._resolve_parallel(v, bits), t)
+                                                if t.shape[0] >= mont._PARALLEL_FROM else serial(t))
+            return mont._in_parts(lambda u, v: mont._mont_reduce(fq, mont._conv(u, v, 2 * L + 1)), x, y)
+        finally:
+            mont._resolve = resolve
+
+    for x, y in ((a2, b), (a2, c)):
+        want = mont.mont_mul(fq, x, y)
+        assert torch.equal(card_form(x, y), want)
+        saved = mont._CONV_CHUNK_BYTES, mont._PART_ELEMENTS
+        try:
+            # the convolution in parts of five elements, every op in parts of seven
+            mont._CONV_CHUNK_BYTES, mont._PART_ELEMENTS = 8 * L * 4 * L * 5, 7
+            assert torch.equal(card_form(x, y), want)
+        finally:
+            mont._CONV_CHUNK_BYTES, mont._PART_ELEMENTS = saved
 
 
 @pytest.mark.parametrize("name", ["toy_g2", "bls12_381_g2"])

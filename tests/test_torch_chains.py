@@ -33,7 +33,7 @@ gen = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(gen)
 
 M32 = (1 << 32) - 1
-NAMES = ["toy", "bn254", "bls12_381"]
+NAMES = ["toy", "bn254", "bls12_381", "mnt6753"]
 
 
 def run_ptx(lines, regs):
@@ -87,21 +87,40 @@ def run_ptx(lines, regs):
     return regs
 
 
+def run_chain(name, nw, env):
+    """Run the asm statements of one chain (gen.parts: one statement up to
+    SPLIT words, several above, their carry in a C variable) on ``env``, a
+    dict from the operands' C expressions to words; returns env updated."""
+    for lines, ops in gen.parts(name, nw):
+        regs = run_ptx(lines, [env.get(expr, 0) for _, expr in ops])
+        for (cons, expr), v in zip(ops, regs):
+            if cons[0] in "+=":
+                env[expr] = v
+    return env
+
+
+def _env(**arrays):
+    return {f"{k}[{i}]": v for k, vals in arrays.items() for i, v in enumerate(vals)}
+
+
 def chain_add(nw, s, b):
-    return run_ptx(gen.add_chain(nw), s + b)[:nw]
+    env = run_chain("add", nw, _env(s=s, b=b))
+    return [env[f"s[{i}]"] for i in range(nw)]
 
 
 def chain_sub(nw, d, b):
-    out = run_ptx(gen.sub_chain(nw), [0] + d + b)
-    return out[1 : nw + 1], out[0]
+    env = run_chain("sub", nw, _env(d=d, b=b))
+    return [env[f"d[{i}]"] for i in range(nw)], env["mask"]
 
 
 def chain_mac(nw, t, a, b):
-    return run_ptx(gen.mac_chain(nw), t + a + [b])[: nw + 1]
+    env = run_chain("mac", nw, {**_env(t=t, a=a), "b": b})
+    return [env[f"t[{i}]"] for i in range(nw + 1)]
 
 
 def chain_reduce(nw, t, q, np32):
-    return run_ptx(gen.reduce_chain(nw), t + q + [np32])[: nw + 1]
+    env = run_chain("reduce", nw, {**_env(t=t, q=q), "np": np32})
+    return [env[f"t[{i}]"] for i in range(nw + 1)]
 
 
 class Core:
@@ -191,23 +210,34 @@ def test_chains_match_reference_field_ops(name, op):
 
 def test_header_is_the_generators_output():
     assert gen.HEADER.read_text() == gen.render()
-    assert gen.WIDTHS == _build.SUPPORTED_WORDS
+    assert gen.WIDTHS == _build.FIELD_KERNEL_WORDS
+    assert set(_build.SUPPORTED_WORDS) <= set(gen.WIDTHS)
 
 
 @pytest.mark.parametrize("nw", gen.WIDTHS)
 def test_chains_stay_within_asm_operand_limit(nw):
-    """GCC-style inline assembly takes at most 30 operands per statement."""
-    for name, make in gen.CHAINS.items():
-        used = {int(tok[1:].rstrip(";,")) for line in make(nw) for tok in line.split() if tok.startswith("%")}
-        assert max(used) < 30, (name, nw)
-        assert used == set(range(max(used) + 1)), (name, nw)
+    """GCC-style inline assembly takes at most 30 operands per statement;
+    every operand of a statement is used, outputs numbered first (as GCC
+    numbers them), and a chain is split only above SPLIT words."""
+    for name in gen.CHAINS:
+        statements = gen.parts(name, nw)
+        assert (len(statements) == 1) == (nw <= gen.SPLIT), (name, nw)
+        for lines, ops in statements:
+            used = {int(tok[1:].rstrip(";,")) for line in lines for tok in line.split() if tok.startswith("%")}
+            assert len(ops) <= 30 and used == set(range(len(ops))), (name, nw)
+            kinds = [cons[0] in "+=" for cons, _ in ops]
+            assert kinds == sorted(kinds, reverse=True), (name, nw)
 
 
 def test_field_consts_refuse_a_modulus_without_a_free_top_bit():
     q = (1 << 63) - 25  # prime, top word 0x7fffffff: the no-carry product's bound fails
     with pytest.raises(NotImplementedError, match="top bit"):
         _build.field_consts(FieldSpec(q=q))
+    with pytest.raises(NotImplementedError, match="top bit"):
+        _build.field_kernel_consts(FieldSpec(q=q))
     for name in NAMES:  # every field the kernels cover qualifies
-        block = _build.field_consts(getattr(port_curves, name).fq)
-        nw = getattr(port_curves, name).fq.n_words
-        assert block[nw - 1] < _build.TOP_WORD_LIMIT
+        fq = getattr(port_curves, name).fq
+        nw = fq.n_words
+        assert _build.field_kernel_consts(fq)[nw - 1] < _build.TOP_WORD_LIMIT
+        if nw in _build.SUPPORTED_WORDS:
+            assert _build.field_consts(fq)[nw - 1] < _build.TOP_WORD_LIMIT

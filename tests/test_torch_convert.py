@@ -156,6 +156,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "zprize_wasm_msm_tpu_torch.ops.poly.pedersen, zprize_wasm_msm_tpu_torch.ops.pairing.tower, "
         "zprize_wasm_msm_tpu_torch.ops.pairing.bls12, zprize_wasm_msm_tpu_torch.ops.pairing.bn, "
         "zprize_wasm_msm_tpu_torch.ops.pairing.ingroup, zprize_wasm_msm_tpu_torch.models.groth16, "
+        "zprize_wasm_msm_tpu_torch.ops.pairing.mnt6, zprize_wasm_msm_tpu_torch.ops.curve.groupmap, "
         "tests._torch_groth16; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'zprize_wasm_msm_tpu' or m.startswith('zprize_wasm_msm_tpu.')]; "
@@ -181,3 +182,56 @@ def test_tower_arrays_round_trip(m):
     t = convert.from_reference(limbs)
     assert t.dtype == torch.int64 and t.shape == (m * fq.n_limbs, limbs.shape[1])
     assert np.array_equal(convert.to_reference(t), limbs)
+
+
+def test_fq3_elements_and_points_cross_as_the_reference_holds_them():
+    """Fq3 batches ((3L, N) flat components, tower.Fq3's layout and the JAX
+    package's) cross as they are; CurveContext.points_to_device on
+    MNT6753 G2 and toy_g3 gives the JAX package's arrays, and
+    result_to_affine gives the points back ((c0, c1, c2) triples, None for
+    the identity)."""
+    from zprize_wasm_msm_tpu.models.context import build_curve as ref_build_curve
+    from zprize_wasm_msm_tpu_torch.models.context import build_curve
+    from zprize_wasm_msm_tpu_torch.ops.curve import group
+    from zprize_wasm_msm_tpu_torch.oracle import F3, Curve as OracleCurve
+
+    for name in ("toy_g3", "mnt6753_g2"):
+        port = port_curves.CURVES.get(name) or getattr(port_curves, name)
+        fq = port.fq
+        oc = OracleCurve(q=port.q, a=port.a, b=port.b, r=port.r, gx=port.gx, gy=port.gy,
+                         field=F3(port.q, port.nr))
+        pts = [oc.g, oc.double(oc.g), None, oc.neg(oc.g)]
+        ctx = build_curve(port, device="cpu")
+        P = ctx.points_to_device(pts)
+        want = ref_build_curve(getattr(ref_curves, name)).points_to_device(pts)
+        for got, w in zip(P, want):
+            assert got.shape == (3 * fq.n_limbs, 4)
+            assert np.array_equal(convert.to_reference(got), np.asarray(w))
+            assert torch.equal(convert.from_reference(np.asarray(w)), got)
+        proj = group.from_affine(port, P)
+        assert [ctx.result_to_affine(tuple(c[:, i] for c in proj)) for i in range(4)] == pts
+        a, _ = field_operands(fq.q, 9, seed=3)
+        limbs = np.concatenate([mont_limbs(fq, a[k : 33 : 3]) for k in range(3)])
+        assert np.array_equal(convert.to_reference(convert.from_reference(limbs)), limbs)
+
+
+@pytest.mark.parametrize("name", ["mnt6753", "bls12_381"])
+def test_field_kernel_constant_block(name):
+    """The block field_kernels.cu receives (its ZP_MAX_NW = 24 slots, every
+    width of FIELD_KERNEL_WORDS, MNT6753's 753-bit q and r among them): q, R
+    mod q, the curve constant's slot zero, np32; and the inversion's fix =
+    2^steps R^3 mod q in 24 words."""
+    from zprize_wasm_msm_tpu_torch.ops.field import kernels
+
+    M = _build.FIELD_KERNEL_MAX_WORDS
+    for fq in (port_curves.CURVES[name].fq, port_curves.CURVES[name].fr):
+        nw = fq.n_words
+        assert nw in _build.FIELD_KERNEL_WORDS
+        block = _build.field_kernel_consts(fq)
+        assert block.dtype == np.uint32 and block.shape == (4 * M + 1,) and not block.flags.writeable
+        assert limbs_to_int(block[0:M], 32) == fq.q
+        assert limbs_to_int(block[M : 2 * M], 32) == (1 << (32 * nw)) % fq.q
+        assert not block[2 * M : 3 * M].any() and int(block[3 * M]) == fq.np32 and not block[3 * M + 1 :].any()
+        steps, fix = kernels.inverse_consts(fq)
+        assert steps == -(-(2 * fq.bits - 1) // kernels.GCD_INNER) and fix.shape == (M,)
+        assert limbs_to_int(fix, 32) == pow(2, steps, fq.q) * pow(1 << (32 * nw), 3, fq.q) % fq.q

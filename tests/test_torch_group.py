@@ -129,7 +129,14 @@ def test_times_scalar_bls12_381_against_oracle():
 
 
 def test_general_a_curves_are_refused_until_ported():
+    """General-a curves are ported (RCB16 algorithm 1): toy_a's complete
+    add on the identity and on P + (-P) gives the identity, where the a = 0
+    formulas it once refused would not.  The full check against the JAX
+    package is tests/test_torch_general_a.py."""
     from zprize_wasm_msm_tpu_torch.models.curves import toy_a
 
-    with pytest.raises(NotImplementedError):
-        group.add(toy_a, group.zero(toy_a, (1,)), group.zero(toy_a, (1,)))
+    O = group.zero(toy_a, (1,))
+    assert bool(group.is_zero(toy_a, group.add(toy_a, O, O)).all())
+    G = group.generator(toy_a, (1,))
+    assert bool(group.is_zero(toy_a, group.add(toy_a, G, group.neg(toy_a, G))).all())
+    assert bool(group.in_curve(toy_a, group.double(toy_a, G)).all())

@@ -208,7 +208,9 @@ def test_context_device_and_glv_default():
     assert ctx.result_to_affine(ctx.msm(P, s)) == oc.mul(oc.g, 5)
     for present in ("pairing", "pairing_eq", "fft", "ifft", "group_fft", "in_group"):  # the Groth16 slice
         assert hasattr(ctx, present)
-    assert not hasattr(ctx, "group_map")  # general a and Fq3: a later slice of the port
+    assert callable(ctx.group_map)  # the SvdW map (MNT6753's slice; BLS12-381 has no constants for it)
+    with pytest.raises(ValueError, match="SvdW"):
+        ctx.group_map(ctx.points_to_device([(ctx.spec.gx, ctx.spec.gy)])[0])
     for present in ("msm_legacy", "to_compressed", "from_compressed", "to_uncompressed",
                     "from_uncompressed", "field_exp"):
         assert callable(getattr(ctx, present))

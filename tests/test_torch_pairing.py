@@ -201,8 +201,8 @@ def test_toy_bn_pairing_eq_matches_jax():
 
 def test_context_pairing_surface_toy_bn():
     """The CurveContext dispatch: toy_bn's pairing, miller_loop,
-    final_exponentiation and pairing_eq are the bn module's; MNT6753 names
-    the next slice; a curve with no pairing raises."""
+    final_exponentiation and pairing_eq are the bn module's; MNT6753's the
+    mnt6 module's; a curve with no pairing raises."""
     ps = bn.get_toy_bn_spec()
     c1 = build_curve(port_curves.toy_bn, device="cpu")
     c2 = build_curve(port_curves.toy_bn_g2, device="cpu")
@@ -212,8 +212,11 @@ def test_context_pairing_surface_toy_bn():
     assert torch.equal(f, bn.miller_loop(ps, P, Q))
     assert torch.equal(c1.final_exponentiation(f), c1.pairing(P, Q))
     assert bool(c1.pairing_eq(P, Q)) is False
-    with pytest.raises(NotImplementedError, match="next slice"):
-        build_curve(port_curves.mnt6753, device="cpu").pairing(P, Q)
+    from zprize_wasm_msm_tpu_torch.ops.pairing import mnt6
+
+    for name in ("mnt6753", "mnt6753_g2"):
+        mod, spec = build_curve(getattr(port_curves, name), device="cpu")._pairing
+        assert mod is mnt6 and spec is mnt6.get_mnt6753_spec()
     with pytest.raises(NotImplementedError):
         build_curve(port_curves.toy, device="cpu").pairing(P, Q)
 

@@ -34,6 +34,7 @@ from hypothesis import strategies as st
 from zprize_wasm_msm_tpu.ops.field import mont as ref_mont
 from zprize_wasm_msm_tpu.ops.msm import pippenger as ref_pippenger
 import zprize_wasm_msm_tpu_torch as ZT
+from zprize_wasm_msm_tpu_torch import _build
 from zprize_wasm_msm_tpu_torch.models import curves as port_curves
 from zprize_wasm_msm_tpu_torch.ops.curve import group
 from zprize_wasm_msm_tpu_torch.ops.field import kernels
@@ -207,14 +208,16 @@ def test_inverse_model_every_toy_element_matches_jax():
 
 
 def test_inverse_consts():
-    """steps and the fix-up constant 2^steps R^3 mod q per field."""
-    for name, steps in (("toy", 1), ("bn254", 17), ("bls12_381", 25)):
+    """steps and the fix-up constant 2^steps R^3 mod q per field, as the
+    field kernels' library takes it (FIELD_KERNEL_MAX_WORDS words: 24, for
+    MNT6753's 753-bit field)."""
+    for name, steps in (("toy", 1), ("bn254", 17), ("bls12_381", 25), ("mnt6753", 49)):
         spec = _fq(name)
         s, fix = kernels.inverse_consts(spec)
         R = 1 << (32 * spec.n_words)
         assert s == steps == -(-(2 * spec.q.bit_length() - 1) // 31)
         assert _int([int(w) for w in fix]) == pow(2, s, spec.q) * pow(R, 3, spec.q) % spec.q
-        assert fix.dtype == np.uint32 and len(fix) == 12
+        assert fix.dtype == np.uint32 and len(fix) == _build.FIELD_KERNEL_MAX_WORDS == 24
 
 
 # ---------------------------------------------------------------------------

@@ -84,17 +84,20 @@ def test_resolve_config_equals_reference(name):
 
 def test_kernel_engine_refuses_curves_it_does_not_cover():
     """A general-a curve or a cubic extension field asked for on the kernel
-    engine (or on "auto" with CUDA tensors) raises; it is never rewritten
-    to the plain engine.  The plain engine still resolves.  (G2 curves over
+    engine raises; it is never rewritten to the plain engine.  "auto" picks
+    the plain engine for them on every device, as the reference's
+    resolve_config sends them to its jnp engine
+    (zprize_wasm_msm_tpu/ops/msm/pippenger.py:334-337).  (G2 curves over
     Fq2 take the bucket kernel engine: tests/test_torch_g2.py.)"""
     from zprize_wasm_msm_tpu_torch.models.curves import CURVES
 
     uncovered = [c for c in CURVES.values() if c.ext not in (1, 2) or c.a != 0]
     assert uncovered
     for curve in uncovered:
-        with pytest.raises(NotImplementedError, match="later slices"):
-            pippenger.resolve_config(curve, 64, 16, 4, 2, 2 << 30, "kernel")
-        with pytest.raises(NotImplementedError, match="later slices"):
-            pippenger.resolve_config(curve, 64, 16, None, None, 2 << 30, "auto", device="cuda")
+        for impl in ("kernel", "kernel-sorted"):
+            with pytest.raises(NotImplementedError, match="jnp engine"):
+                pippenger.resolve_config(curve, 64, 16, 4, 2, 2 << 30, impl)
+        for device in ("cuda", "cpu"):
+            assert pippenger.resolve_config(curve, 64, 16, None, None, 2 << 30, "auto", device=device)[0] == "plain"
         assert pippenger.resolve_config(curve, 64, 16, 4, 2, 2 << 30, "plain") == ("plain", 4, 2)
         assert pippenger.resolve_config(curve, 64, 16, 4, 2, 2 << 30, "auto", device="cpu")[0] == "plain"

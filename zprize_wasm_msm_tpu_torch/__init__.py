@@ -7,13 +7,16 @@ It imports ``torch`` and ``numpy`` only — never ``jax`` and nothing of the
 JAX package; host-side modules it needs (field/curve specs, curve registry,
 oracle, bigint/limb helpers) are its own copies.
 
-What is here so far: the BLS12-381 / BLS12-377 / BN254 G1 MSM end to end —
+What is here: the BLS12-381 / BLS12-377 / BN254 G1 and G2 MSM end to end —
 field core, multi-limb integers and batched field ops (ops.field), complete
-projective group law (ops.curve), GLV endomorphism split and signed-window
-Pippenger with a bucket-sweep engine and a sorted large-window engine
-(ops.msm), CUDA kernels for the Montgomery product and square, the bucket
-sweep, lane reduction, collapse, finish, sorted sweep and segmented scan
-(csrc/), and the CurveContext API (models).
+projective group law for a = 0 and any a over Fq, Fq2 and Fq3 (ops.curve),
+GLV endomorphism split and signed-window Pippenger with a bucket-sweep
+engine and a sorted large-window engine (ops.msm), CUDA kernels for the
+Montgomery product and square (MNT6753's 753-bit fields included), the
+field inversion, the bucket sweep, lane reduction, collapse, finish, sorted
+sweep and segmented scan (csrc/) —, the Groth16 stack (ops.poly, the
+BLS12, BN and MNT6 pairings and subgroup checks in ops.pairing,
+models.groth16), the SvdW group map, and the CurveContext API (models).
 
 Limb representation (decided once, for the whole package)
 ---------------------------------------------------------

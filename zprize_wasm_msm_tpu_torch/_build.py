@@ -38,13 +38,20 @@ NVCC_FLAGS = (
 #: build_seconds_by_library).  Not for sorted.cu: its Fq sweep then spilled
 #: (chip_smoke.py's spill gate)
 STEM_FLAGS = {"reduce": ("-split-compile=4",), "check": ("-split-compile=4",)}
-#: field widths (32-bit words per element) the sources instantiate
+#: field widths (32-bit words per element) the MSM sources instantiate
+#: (bucket.cu, reduce.cu, sorted.cu, check.cu)
 SUPPORTED_WORDS = (2, 8, 12)
 #: words per constant array in csrc/field.cuh's FieldConsts
 MAX_WORDS = 12
 #: words of the host block copied into FieldConsts: q, R mod q, 3b's
 #: component 0, np32, 3b's component 1 (over Fq2)
 CONSTS_WORDS = 4 * MAX_WORDS + 1
+#: field widths of the elementwise field kernels (field_kernels.cu: K5, K6,
+#: the inversion), MNT6753's 753-bit fields (24 words) among them, and the
+#: words per constant array of that library's FieldConsts (it defines
+#: ZP_MAX_NW as this before csrc/field.cuh): the MSM libraries keep theirs
+FIELD_KERNEL_WORDS = SUPPORTED_WORDS + (24,)
+FIELD_KERNEL_MAX_WORDS = 24
 #: extension degrees of the coordinate field the sources instantiate
 SUPPORTED_EXT = (1, 2)
 #: the no-carry Montgomery product of csrc/field.cuh needs q[NW-1] below this
@@ -150,27 +157,35 @@ def load(stem: str) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def field_consts(spec) -> np.ndarray:
+def field_consts(spec, max_words: int = MAX_WORDS) -> np.ndarray:
     """The host block the entry points copy into csrc/field.cuh's
-    FieldConsts for a bare prime field: q and R mod q as MAX_WORDS words
-    each, the curve constant's slots left zero, np32."""
+    FieldConsts for a bare prime field: q and R mod q as ``max_words`` words
+    each, the curve constant's slots left zero, np32.  ``max_words`` is the
+    library's ZP_MAX_NW: MAX_WORDS for the MSM libraries,
+    FIELD_KERNEL_MAX_WORDS for field_kernels.cu (field_kernel_consts)."""
     nw = spec.n_words
-    if nw not in SUPPORTED_WORDS:
+    widths = FIELD_KERNEL_WORDS if max_words == FIELD_KERNEL_MAX_WORDS else SUPPORTED_WORDS
+    if nw not in widths:
         raise NotImplementedError(
-            f"{spec!r}: the CUDA kernels cover fields of {SUPPORTED_WORDS} "
-            "words per element"
+            f"{spec!r}: these CUDA kernels cover fields of {widths} words per element"
         )
     if int(spec.q_words[nw - 1]) >= TOP_WORD_LIMIT:
         raise NotImplementedError(
             f"{spec!r}: the CUDA field core's no-carry product needs the top "
             f"bit of q free (top word below {TOP_WORD_LIMIT:#x})"
         )
-    block = np.zeros(CONSTS_WORDS, dtype=np.uint32)
+    block = np.zeros(4 * max_words + 1, dtype=np.uint32)
     block[:nw] = spec.q_words
-    block[MAX_WORDS : MAX_WORDS + nw] = spec.one_mont_words
-    block[3 * MAX_WORDS] = spec.np32
+    block[max_words : max_words + nw] = spec.one_mont_words
+    block[3 * max_words] = spec.np32
     block.setflags(write=False)
     return block
+
+
+def field_kernel_consts(spec) -> np.ndarray:
+    """field_consts laid out for field_kernels.cu (FIELD_KERNEL_MAX_WORDS
+    words a slot), which instantiates FIELD_KERNEL_WORDS."""
+    return field_consts(spec, FIELD_KERNEL_MAX_WORDS)
 
 
 @functools.lru_cache(maxsize=None)

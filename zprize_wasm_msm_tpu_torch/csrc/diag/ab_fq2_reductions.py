@@ -339,7 +339,11 @@ def main() -> None:
         fn = lib.zp_mont_square
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
-        consts = _build.field_consts(fq).ctypes.data_as(ctypes.c_void_p)
+        # the constant block as that tree's field_kernels.cu lays it out
+        wide = f"#define ZP_MAX_NW {_build.FIELD_KERNEL_MAX_WORDS}" in \
+            (Path(csrc) / "field_kernels.cu").read_text()
+        block = _build.field_kernel_consts(fq) if wide else _build.field_consts(fq)
+        consts = block.ctypes.data_as(ctypes.c_void_p)
         if "zp_mont_square(int nw, const uint32_t* host_consts, const int64_t* a" in \
                 (Path(csrc) / "field_kernels.cu").read_text():
             out = torch.empty_like(sq_in)

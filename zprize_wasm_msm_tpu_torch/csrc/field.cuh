@@ -30,7 +30,10 @@
 // over Fq2 the second component of 3b) sit in __constant__ memory, written by the host entry point on the launch's
 // stream just before the kernel: one source serves every field with
 // NW <= ZP_MAX_NW.  Launches for two different curves must therefore not
-// overlap on two streams.
+// overlap on two streams.  ZP_MAX_NW is 12 (the MSM curves' fields) unless
+// a source defines it before this header: field_kernels.cu takes 24
+// (MNT6753), and the host lays its block out to match
+// (_build.field_kernel_consts).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -38,7 +41,9 @@
 
 #include "chains.cuh"
 
+#ifndef ZP_MAX_NW
 #define ZP_MAX_NW 12
+#endif
 
 struct FieldConsts {
   uint32_t q[ZP_MAX_NW];     // modulus

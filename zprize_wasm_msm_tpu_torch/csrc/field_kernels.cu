@@ -12,7 +12,8 @@
 // coalesce as they are.
 // Bound: bytes.  The product moves 3 * 4 * NW bytes an element on packed
 // words against 2 NW^2 + NW multiply-adds: at NW = 12 the card's memory
-// takes twice as long as its integer units.  The square reads and writes
+// takes twice as long as its integer units; at NW = 24 (MNT6753) the
+// integer units take longer (operations).  The square reads and writes
 // the package's int64 limbs itself (2 * 2 NW * 8 bytes an element), so its
 // wrapper packs nothing: one launch where packing words around it took
 // three.
@@ -47,6 +48,11 @@
 //   wanted a^{-1} R is x^{-1} R^2 = v * (2^steps R^3 mod q) * R^{-1}: one
 //   Montgomery product by a constant the host computes per field.  x = 0
 //   keeps v = 0 and is also mapped to 0 explicitly.
+// Steps 3 and 4 update a, b and u, v in place, both rows in one pass over
+// the words (word j - 1 of a result is written once word j of the operands
+// has been read by both rows; q - u is formed word by word with its
+// borrow), so a thread holds four elements and no copies: at NW = 24 that
+// is 96 words of its 255 registers.
 //
 // Bound: latency.  One element is ~2 bits(q) dependent iterations of a few
 // 64-bit operations and `steps` updates of ~8 NW word products, on one
@@ -54,8 +60,22 @@
 
 #include <cuda_runtime.h>
 
+// this library's constant block holds fields of up to 24 words (MNT6753's
+// 753-bit q and r); the MSM libraries keep 12 (csrc/field.cuh)
+#define ZP_MAX_NW 24
+
 #include "async.cuh"
 #include "group.cuh"
+
+// the widths this library instantiates (_build.FIELD_KERNEL_WORDS)
+#define ZP_DISPATCH_FIELD_NW(nw, CALL) \
+  switch (nw) {                        \
+    case 2: { CALL(2); } break;        \
+    case 8: { CALL(8); } break;        \
+    case 12: { CALL(12); } break;      \
+    case 24: { CALL(24); } break;      \
+    default: return -1;                \
+  }
 
 #define INV_THREADS 64
 
@@ -64,69 +84,100 @@ struct InverseConsts {
   int steps;                // outer steps of 31 iterations
 };
 
-// (f a + g b) / 2^31 for a, b < 2^(32 NW - 1) and |f| + |g| <= 2^31, the
-// low 31 bits of the sum zero: r = its absolute value; returns true where
-// the sum was negative.  Each word's sum fits int64: |a_j f + b_j g| <=
-// (2^32 - 1) 2^31 and the carry is below 2^31 in size.
+// a, b <- (f0 a + g0 b) / 2^31, (f1 a + g1 b) / 2^31 in place, for
+// a, b < 2^(32 NW - 1) and |f| + |g| <= 2^31 a row, the low 31 bits of each
+// sum zero: each becomes its absolute value, and a row whose sum was
+// negative is negated (f, g <- -f, -g).  Each word's sum fits int64:
+// |a_j f + b_j g| <= (2^32 - 1) 2^31 and the carry is below 2^31 in size.
+// Word j - 1 of a result needs words j - 1 and j of the sum, so it is
+// written once both rows have read a_j and b_j.
 template <int NW>
-__device__ __forceinline__ bool lin_shift(uint32_t (&r)[NW], const uint32_t (&a)[NW],
-                                          const uint32_t (&b)[NW], int64_t f, int64_t g) {
-  uint32_t t[NW + 1];
-  int64_t c = 0;
+__device__ __forceinline__ void lin_shift(uint32_t (&a)[NW], uint32_t (&b)[NW], int64_t& f0,
+                                          int64_t& g0, int64_t& f1, int64_t& g1) {
+  int64_t c0 = 0, c1 = 0;
+  uint32_t p0 = 0, p1 = 0;  // word j - 1 of each sum
 #pragma unroll
   for (int j = 0; j < NW; ++j) {
-    const int64_t s = (int64_t)a[j] * f + (int64_t)b[j] * g + c;
-    t[j] = (uint32_t)s;
-    c = s >> 32;  // arithmetic
+    const int64_t s0 = (int64_t)a[j] * f0 + (int64_t)b[j] * g0 + c0;
+    const int64_t s1 = (int64_t)a[j] * f1 + (int64_t)b[j] * g1 + c1;
+    c0 = s0 >> 32;  // arithmetic
+    c1 = s1 >> 32;
+    if (j > 0) {
+      a[j - 1] = (p0 >> 31) | ((uint32_t)s0 << 1);
+      b[j - 1] = (p1 >> 31) | ((uint32_t)s1 << 1);
+    }
+    p0 = (uint32_t)s0;
+    p1 = (uint32_t)s1;
   }
-  t[NW] = (uint32_t)c;
-  const uint32_t neg = c < 0 ? 0xFFFFFFFFu : 0u;
-  // shift right by 31 and take the absolute value: (t ^ neg) + (neg & 1)
-  uint32_t carry = neg & 1u;
+  a[NW - 1] = (p0 >> 31) | ((uint32_t)c0 << 1);  // word NW of the sum is c
+  b[NW - 1] = (p1 >> 31) | ((uint32_t)c1 << 1);
+  // absolute values: (w ^ neg) + (neg & 1)
+  const uint32_t n0 = c0 < 0 ? 0xFFFFFFFFu : 0u, n1 = c1 < 0 ? 0xFFFFFFFFu : 0u;
+  uint32_t k0 = n0 & 1u, k1 = n1 & 1u;
 #pragma unroll
   for (int j = 0; j < NW; ++j) {
-    const uint32_t w = ((t[j] >> 31) | (t[j + 1] << 1)) ^ neg;
-    const uint64_t s = (uint64_t)w + carry;
-    r[j] = (uint32_t)s;
-    carry = (uint32_t)(s >> 32);
+    const uint64_t s0 = (uint64_t)(a[j] ^ n0) + k0;
+    const uint64_t s1 = (uint64_t)(b[j] ^ n1) + k1;
+    a[j] = (uint32_t)s0;
+    b[j] = (uint32_t)s1;
+    k0 = (uint32_t)(s0 >> 32);
+    k1 = (uint32_t)(s1 >> 32);
   }
-  return neg != 0u;
+  if (n0) {
+    f0 = -f0;
+    g0 = -g0;
+  }
+  if (n1) {
+    f1 = -f1;
+    g1 = -g1;
+  }
 }
 
-// (f u + g v) / 2^32 mod q for u, v < q, |f| + |g| <= 2^31: a negative
-// factor takes q - u (<= q) for u, so the sum t = |f| u' + |g| v' < 2^31 q
-// is unsigned; m = t_0 np clears its low word, (t + m q) / 2^32 < 2q, and
-// one conditional subtract makes it canonical.
+// u, v <- (f0 u + g0 v) / 2^32 mod q, (f1 u + g1 v) / 2^32 mod q in place,
+// for u, v < q and |f| + |g| <= 2^31 a row: a negative factor takes q - u
+// (<= q) for u, so a row's sum t = |f| u' + |g| v' < 2^31 q is unsigned;
+// m = t_0 np clears its low word, (t + m q) / 2^32 < 2q, and one
+// conditional subtract makes it canonical.  q - u and q - v are formed word
+// by word with their borrows; word j - 1 of a row's result is written once
+// both rows have read u_j and v_j.
 template <int NW>
-__device__ __forceinline__ void lin_mod(Fe<NW>& r, const Fe<NW>& u, const Fe<NW>& v, int64_t f,
-                                        int64_t g) {
-  uint32_t uu[NW], vv[NW];
-  fe_q<NW>(uu);
-  fe_q<NW>(vv);
-  Chains<NW>::sub(uu, u.w);  // q - u
-  Chains<NW>::sub(vv, v.w);
+__device__ __forceinline__ void lin_mod(Fe<NW>& u, Fe<NW>& v, int64_t f0, int64_t g0, int64_t f1,
+                                        int64_t g1) {
+  const uint64_t fa0 = (uint64_t)(f0 < 0 ? -f0 : f0), ga0 = (uint64_t)(g0 < 0 ? -g0 : g0);
+  const uint64_t fa1 = (uint64_t)(f1 < 0 ? -f1 : f1), ga1 = (uint64_t)(g1 < 0 ? -g1 : g1);
+  uint64_t bu = 0, bv = 0;            // borrows of q - u, q - v
+  uint64_t c10 = 0, c20 = 0, c11 = 0, c21 = 0;  // a row's two carries
+  uint32_t m0 = 0, m1 = 0;
 #pragma unroll
   for (int j = 0; j < NW; ++j) {
-    uu[j] = f < 0 ? uu[j] : u.w[j];
-    vv[j] = g < 0 ? vv[j] : v.w[j];
+    const uint32_t qj = c_fc.q[j], uj = u.w[j], vj = v.w[j];
+    const uint64_t du = (uint64_t)qj - uj - bu, dv = (uint64_t)qj - vj - bv;
+    bu = du >> 63;
+    bv = dv >> 63;
+    // row 0 and row 1: the sum's word (carry c1), then + m q (carry c2)
+    const uint64_t s10 = (uint64_t)(f0 < 0 ? (uint32_t)du : uj) * fa0 +
+                         (uint64_t)(g0 < 0 ? (uint32_t)dv : vj) * ga0 + c10;  // < 2^63 + 2^32
+    const uint64_t s11 = (uint64_t)(f1 < 0 ? (uint32_t)du : uj) * fa1 +
+                         (uint64_t)(g1 < 0 ? (uint32_t)dv : vj) * ga1 + c11;
+    c10 = s10 >> 32;
+    c11 = s11 >> 32;
+    if (j == 0) {
+      m0 = (uint32_t)s10 * c_fc.np;
+      m1 = (uint32_t)s11 * c_fc.np;
+    }
+    const uint64_t s20 = (uint64_t)m0 * qj + (uint32_t)s10 + c20;  // <= 2^64 - 1
+    const uint64_t s21 = (uint64_t)m1 * qj + (uint32_t)s11 + c21;
+    c20 = s20 >> 32;
+    c21 = s21 >> 32;
+    if (j > 0) {
+      u.w[j - 1] = (uint32_t)s20;
+      v.w[j - 1] = (uint32_t)s21;
+    }
   }
-  const uint64_t fa = (uint64_t)(f < 0 ? -f : f), ga = (uint64_t)(g < 0 ? -g : g);
-  // two chains in one pass: t = fa u' + ga v' (carry c1), then t + m q
-  // shifted down one word (carry c2)
-  uint64_t c1 = 0, c2 = 0;
-  uint32_t m = 0, t[NW];
-#pragma unroll
-  for (int j = 0; j < NW; ++j) {
-    const uint64_t s1 = (uint64_t)uu[j] * fa + (uint64_t)vv[j] * ga + c1;  // < 2^63 + 2^32
-    c1 = s1 >> 32;
-    const uint32_t tj = (uint32_t)s1;
-    if (j == 0) m = tj * c_fc.np;
-    const uint64_t s2 = (uint64_t)m * c_fc.q[j] + tj + c2;  // <= 2^64 - 1
-    c2 = s2 >> 32;
-    if (j > 0) t[j - 1] = (uint32_t)s2;
-  }
-  t[NW - 1] = (uint32_t)(c1 + c2);  // the sum is below 2q < 2^(32 NW)
-  fe_reduce_once<NW>(r, t);
+  u.w[NW - 1] = (uint32_t)(c10 + c20);  // the sum is below 2q < 2^(32 NW)
+  v.w[NW - 1] = (uint32_t)(c11 + c21);
+  fe_reduce_once<NW>(u, u.w);
+  fe_reduce_once<NW>(v, v.w);
 }
 
 // a, r: [2 NW][n] int64 16-bit limbs (the package's public layout: the
@@ -138,19 +189,18 @@ __global__ void __launch_bounds__(INV_THREADS)
                          int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  Fe<NW> x, u, v, fix;
-#pragma unroll
-  for (int j = 0; j < NW; ++j)
-    x.w[j] = (uint32_t)a[(size_t)(2 * j) * n + i] | ((uint32_t)a[(size_t)(2 * j + 1) * n + i] << 16);
   uint32_t A[NW], B[NW];
+  Fe<NW> u, v;
 #pragma unroll
   for (int j = 0; j < NW; ++j) {
-    A[j] = x.w[j];
+    A[j] = (uint32_t)a[(size_t)(2 * j) * n + i] | ((uint32_t)a[(size_t)(2 * j + 1) * n + i] << 16);
     B[j] = c_fc.q[j];
     u.w[j] = j == 0 ? 1u : 0u;
     v.w[j] = 0u;
-    fix.w[j] = k.fix[j];
   }
+  bool x_zero = true;
+#pragma unroll
+  for (int j = 0; j < NW; ++j) x_zero = x_zero && A[j] == 0u;
   constexpr uint64_t LOW31 = (1ull << 31) - 1;
   for (int step = 0; step < k.steps; ++step) {
     // n = max(len a, len b, 64); the 33 bits at n - 33 .. n - 1 of each
@@ -194,28 +244,14 @@ __global__ void __launch_bounds__(INV_THREADS)
       f1 = f1s * 2;
       g1 = g1s * 2;
     }
-    uint32_t An[NW], Bn[NW];
-    if (lin_shift<NW>(An, A, B, f0, g0)) {
-      f0 = -f0;
-      g0 = -g0;
-    }
-    if (lin_shift<NW>(Bn, A, B, f1, g1)) {
-      f1 = -f1;
-      g1 = -g1;
-    }
-    Fe<NW> un, vn;
-    lin_mod<NW>(un, u, v, f0, g0);
-    lin_mod<NW>(vn, u, v, f1, g1);
-#pragma unroll
-    for (int j = 0; j < NW; ++j) {
-      A[j] = An[j];
-      B[j] = Bn[j];
-    }
-    u = un;
-    v = vn;
+    lin_shift<NW>(A, B, f0, g0, f1, g1);
+    lin_mod<NW>(u, v, f0, g0, f1, g1);
   }
+  Fe<NW> fix;  // read from the kernel's parameters only now
+#pragma unroll
+  for (int j = 0; j < NW; ++j) fix.w[j] = k.fix[j];
   fe_mul<NW>(v, v, fix);
-  if (fe_is_zero<NW>(x)) fe_zero<NW>(v);
+  if (x_zero) fe_zero<NW>(v);
 #pragma unroll
   for (int j = 0; j < NW; ++j) {
     r[(size_t)(2 * j) * n + i] = v.w[j] & 0xFFFFu;
@@ -229,7 +265,7 @@ __global__ void __launch_bounds__(INV_THREADS)
 // for the whole batch, read by every thread from the same address),
 // r [NW][n].  r = a * b * R^{-1} mod q.
 template <int NW>
-__global__ void __launch_bounds__(MUL_THREADS)
+__global__ void __launch_bounds__(MUL_THREADS, 1)
     mont_mul_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
                     uint32_t* __restrict__ r, size_t n, int b_broadcast) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -248,7 +284,7 @@ __global__ void __launch_bounds__(MUL_THREADS)
 // a, r: [2 NW][n] int64 16-bit limbs (the package's public layout).
 // r = a^2 * R^{-1} mod q (field.cuh fe_sqr).
 template <int NW>
-__global__ void __launch_bounds__(MUL_THREADS)
+__global__ void __launch_bounds__(MUL_THREADS, 1)
     mont_square_kernel(const int64_t* __restrict__ a, int64_t* __restrict__ r, size_t n) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -274,7 +310,7 @@ extern "C" int zp_mont_mul(int nw, const uint32_t* host_consts, const uint32_t* 
   const unsigned blocks = (unsigned)((n + MUL_THREADS - 1) / MUL_THREADS);
 #define CALL(NW_) \
   mont_mul_kernel<NW_><<<blocks, MUL_THREADS, 0, stream>>>(a, b, r, (size_t)n, b_broadcast)
-  ZP_DISPATCH_NW(nw, CALL)
+  ZP_DISPATCH_FIELD_NW(nw, CALL)
 #undef CALL
   return (int)cudaGetLastError();
 }
@@ -288,7 +324,7 @@ extern "C" int zp_mont_square(int nw, const uint32_t* host_consts, const int64_t
   if (err) return err;
   const unsigned blocks = (unsigned)((n + MUL_THREADS - 1) / MUL_THREADS);
 #define CALL(NW_) mont_square_kernel<NW_><<<blocks, MUL_THREADS, 0, stream>>>(a, r, (size_t)n)
-  ZP_DISPATCH_NW(nw, CALL)
+  ZP_DISPATCH_FIELD_NW(nw, CALL)
 #undef CALL
   return (int)cudaGetLastError();
 }
@@ -307,7 +343,7 @@ extern "C" int zp_field_inverse(int nw, const uint32_t* host_consts, const uint3
   k.steps = steps;
   const unsigned blocks = (unsigned)((n + INV_THREADS - 1) / INV_THREADS);
 #define CALL(NW_) field_inverse_kernel<NW_><<<blocks, INV_THREADS, 0, stream>>>(k, a, r, n)
-  ZP_DISPATCH_NW(nw, CALL)
+  ZP_DISPATCH_FIELD_NW(nw, CALL)
 #undef CALL
   return (int)cudaGetLastError();
 }
@@ -319,7 +355,7 @@ extern "C" int zp_field_info(int nw, int which, int* out) {
   return which == 0   ? zp_kernel_info(mont_mul_kernel<NW_>, MUL_THREADS, out)    \
          : which == 1 ? zp_kernel_info(mont_square_kernel<NW_>, MUL_THREADS, out) \
                       : zp_kernel_info(field_inverse_kernel<NW_>, INV_THREADS, out)
-  ZP_DISPATCH_NW(nw, CALL)
+  ZP_DISPATCH_FIELD_NW(nw, CALL)
 #undef CALL
   return -1;
 }

@@ -9,8 +9,8 @@ The device is explicit.  ``device=None`` means the card: it resolves to
 ``torch.device("cuda")`` and raises if there is none; nothing here decides
 on its own to run on the CPU.  Pass ``device="cpu"`` to do so.
 
-The surface is the JAX package's CurveContext, but ``group_map`` and the
-MNT6753 pairing (general a and Fq3), which arrive with the next slice.
+The surface is the JAX package's CurveContext, MNT6753 (general a, Fq3
+coordinates, its ate pairing and group map) included.
 """
 
 from __future__ import annotations
@@ -55,14 +55,17 @@ class CurveContext:
 
     def _coords(self, vals) -> torch.Tensor:
         """Host coordinates (standard domain) -> (EL, n) Montgomery limbs:
-        ints for ext=1, (c0, c1) pairs for ext=2 (component 0's limbs, then
-        component 1's, the flat layout of tower.Fq2)."""
+        ints for ext=1, (c0, c1) pairs for ext=2, (c0, c1, c2) triples for
+        ext=3 (component 0's limbs, then component 1's, ..., the flat layout
+        of tower.Fq2 / Fq3)."""
         fq = self.spec.fq
         if self.spec.ext == 1:
             return self._limbs([fq.to_mont_int(v) for v in vals], fq.n_limbs)
-        self.spec.field  # raises for a coordinate field that is not ported
         return torch.cat(
-            [self._limbs([fq.to_mont_int(v[k]) for v in vals], fq.n_limbs) for k in range(2)]
+            [
+                self._limbs([fq.to_mont_int(v[k]) for v in vals], fq.n_limbs)
+                for k in range(self.spec.ext)
+            ]
         )
 
     def _zero_coord(self):
@@ -71,8 +74,9 @@ class CurveContext:
     def points_to_device(self, pts: Sequence[Optional[Tuple]]):
         """Affine python points (None = infinity) -> Montgomery limb batch.
 
-        Coordinates are ints for ext=1, (c0, c1) tuples for ext=2, as the
-        JAX package's points_to_device takes them."""
+        Coordinates are ints for ext=1, (c0, c1) tuples for ext=2 and
+        (c0, c1, c2) tuples for ext=3, as the JAX package's points_to_device
+        takes them."""
         zero = self._zero_coord()
         xs = [zero if p is None else p[0] for p in pts]
         ys = [zero if p is None else p[1] for p in pts]
@@ -84,8 +88,9 @@ class CurveContext:
 
     def result_to_affine(self, res) -> Optional[Tuple]:
         """Projective device point -> python affine (None = infinity);
-        coordinates are (c0, c1) tuples for ext=2.  Z is inverted once
-        (over Fq2 through its norm, by the Fq inversion: tower.Fq2)."""
+        coordinates are component tuples over an extension.  Z is inverted
+        once (over Fq2 through its norm, over Fq3 through its cofactors, by
+        the Fq inversion: tower.Fq2, tower.Fq3)."""
         F = self.spec.field
         r = tuple(c[:, None] if c.ndim == 1 else c for c in res)
         x, y = group.to_affine(self.spec, r)
@@ -200,10 +205,9 @@ class CurveContext:
 
             return bn, bn.get_toy_bn_spec()
         if name.startswith("mnt6753"):
-            raise NotImplementedError(
-                f"{name}: the MNT6753 pairing (Fq3, general a) arrives with the next "
-                "slice of the port"
-            )
+            from ..ops.pairing import mnt6
+
+            return mnt6, mnt6.get_mnt6753_spec()
         raise NotImplementedError(f"no pairing for curve {name}")
 
     def pairing(self, P, Q):
@@ -227,6 +231,15 @@ class CurveContext:
 
     def times_scalar(self, points, scalars):
         return group.times_scalar(self.spec, points, scalars)
+
+    def group_map(self, T):
+        """SvdW hash-to-curve (ref mnt6753 g1m_groupMap,
+        build_mnt6753.js:1362-1490).  T: (L, N) Montgomery field batch ->
+        projective point batch.  MNT6753 G1 (curves with registered SvdW
+        constants) only."""
+        from ..ops.curve import groupmap
+
+        return groupmap.group_map(self.spec, T)
 
     def field_exp(self, a, e):
         """Runtime-exponent field exponentiation (ref f1m_exp,

@@ -14,7 +14,7 @@ checked as  e(-A, B) * e(alpha, beta) * e(vk_x, gamma) * e(C, delta) == 1
 (the reference's pairingEq4 shape, build_bls12381.js pairingEq:1560-1590).
 
 Runs on the curve pairs with a pairing on CurveContext (BLS12-381, BN254,
-toy BN).  Every host value goes to the device first; vk_x stays on the
+toy BN, MNT6753 with its G2 over Fq3: the JAX package's groth16.py:80-81).  Every host value goes to the device first; vk_x stays on the
 device (affine, (0, 0) for the identity, as the pairing takes it); the one
 host synchronisation is the bool at the end.
 """

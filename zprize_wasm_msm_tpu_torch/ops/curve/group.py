@@ -14,8 +14,9 @@ construction, every batch element runs the identical straight-line code.
 Infinity is (0:1:0); affine zero is encoded as (0,0) exactly like the
 reference (build_curve_jacobian_a0.js isZeroAffine:55).
 
-Only a = 0 curves are covered so far; the general-a complete formulas
-(MNT6753) arrive with a later slice of the port, and ``add`` raises on them.
+Curves with a != 0 (MNT6753 G1 and G2, the reference's projective curve,
+build_curve_projective.js) take the complete formulas for any a (RCB16
+algorithm 1) in ``_add_general``; ``double`` and ``add_mixed`` reuse it.
 
 A point batch is a tuple (X, Y, Z) of int64 tensors of shape (EL, *batch)
 in Montgomery form (EL = field.elem_len); affine batches are (X, Y).
@@ -34,13 +35,6 @@ from .spec import CurveSpec
 
 Point = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 AffinePoint = Tuple[torch.Tensor, torch.Tensor]
-
-
-def _require_a0(curve: CurveSpec) -> None:
-    if curve.a != 0:
-        raise NotImplementedError(
-            f"{curve.name}: the general-a complete formulas are not ported yet"
-        )
 
 
 # ---------------------------------------------------------------------------
@@ -107,14 +101,65 @@ def _b3(curve: CurveSpec, like: torch.Tensor) -> torch.Tensor:
     return curve.field.const(curve.b3, (1,) * (like.ndim - 1), like.device)
 
 
+def _const(curve: CurveSpec, value, like: torch.Tensor) -> torch.Tensor:
+    """A coordinate-field constant as an (EL, 1, ..., 1) batch beside ``like``."""
+    return curve.field.const(value, (1,) * (like.ndim - 1), like.device)
+
+
+def _add_general(curve: CurveSpec, p: Point, q: Point) -> Point:
+    """Complete projective addition for ARBITRARY a (RCB16 alg. 1; 12M and
+    the products by a and 3b), in the JAX package's five rounds of
+    independent products; the sums of a round are stacked too.
+
+    Serves the reference's projective curve (build_curve_projective.js,
+    MNT6753 with a = 11) — but exception-free where the reference's
+    add-1998-cmo-2 has special cases.
+    """
+    F = curve.field
+    X1, Y1, Z1 = p
+    X2, Y2, Z2 = q
+    b3 = _const(curve, curve.b3, X1)
+    a = _const(curve, curve.a, X1)
+    fadd, fsub = F.add, F.sub
+
+    sX1Y1, sX2Y2, sX1Z1, sX2Z2, sY1Z1, sY2Z2 = fadd(
+        stack_elems(X1, X2, X1, X2, Y1, Y2), stack_elems(Y1, Y2, Z1, Z2, Z1, Z2)
+    ).unbind(1)
+    t0, t1, t2, m3, m4, m5 = F.mul_many(
+        [(X1, X2), (Y1, Y2), (Z1, Z2), (sX1Y1, sX2Y2), (sX1Z1, sX2Z2), (sY1Z1, sY2Z2)]
+    )
+    # X1Y2 + X2Y1, X1Z2 + X2Z1, Y1Z2 + Y2Z1
+    t3, t4, t5 = fsub(
+        stack_elems(m3, m4, m5), fadd(stack_elems(t0, t0, t1), stack_elems(t1, t2, t2))
+    ).unbind(1)
+
+    at4, bt2, at2 = F.mul_many([(a, t4), (b3, t2), (a, t2)])
+    Z3a, t0_2 = fadd(stack_elems(bt2, t0), stack_elems(at4, t0)).unbind(1)
+    Z3, t0_3 = fadd(stack_elems(t1, t0_2), stack_elems(Z3a, t0)).unbind(1)
+    X3, t2n = fsub(stack_elems(t1, t0), stack_elems(Z3a, at2)).unbind(1)
+    t1n = fadd(t0_3, at2)  # 3 t0 + a t2
+
+    bt4, at2n = F.mul_many([(b3, t4), (a, t2n)])
+    t4n = fadd(bt4, at2n)
+
+    Y3, m0, m1, m2, m3b = F.mul_many(
+        [(X3, Z3), (t1n, t4n), (t5, t4n), (t3, X3), (t3, t1n)]
+    )
+    (m4b,) = F.mul_many([(t5, Z3)])
+    Y3, Z3 = fadd(stack_elems(Y3, m4b), stack_elems(m0, m3b)).unbind(1)
+    return (fsub(m2, m1), Y3, Z3)
+
+
 def add(curve: CurveSpec, p: Point, q: Point) -> Point:
-    """Complete projective addition (RCB16 alg. 7 for a=0; 12M).
+    """Complete projective addition (RCB16 alg. 7 for a=0; 12M; alg. 1 for
+    general a, _add_general).
 
     Replaces the reference's branchy Jacobian add
     (build_curve_jacobian_a0.js:541-658) — handles P==Q, P==-Q and
     infinities with NO special cases.
     """
-    _require_a0(curve)
+    if curve.a != 0:
+        return _add_general(curve, p, q)
     F = curve.field
     X1, Y1, Z1 = p
     X2, Y2, Z2 = q
@@ -160,9 +205,11 @@ def add_mixed(curve: CurveSpec, p: Point, q: AffinePoint) -> Point:
 
     Replaces build_curve_jacobian_a0.js addMixed:661.  The affine identity
     (0,0) cannot be expressed in the complete formula, so it is handled by
-    one select — the only mask in the hot path.
+    one select — the only mask in the hot path.  General-a curves lift q
+    and take the complete add.
     """
-    _require_a0(curve)
+    if curve.a != 0:
+        return add(curve, p, from_affine(curve, q))
     F = curve.field
     X1, Y1, Z1 = p
     X2, Y2 = q
@@ -208,9 +255,11 @@ def double(curve: CurveSpec, p: Point) -> Point:
     """Complete projective doubling, a=0 (RCB16 alg. 9; 6M+2S).
 
     Replaces build_curve_jacobian_a0.js double:291; handles infinity for
-    free ((0:1:0) maps to itself).
+    free ((0:1:0) maps to itself).  General-a curves take the complete add
+    with P = Q.
     """
-    _require_a0(curve)
+    if curve.a != 0:
+        return _add_general(curve, p, p)
     F = curve.field
     X, Y, Z = p
     b3 = _b3(curve, X)
@@ -296,13 +345,14 @@ def to_affine(curve: CurveSpec, p: Point) -> AffinePoint:
 
 
 def in_curve(curve: CurveSpec, p: Point) -> torch.Tensor:
-    """Y^2*Z == X^3 + b*Z^3 (ref inCurve:1330), a = 0."""
-    _require_a0(curve)
+    """Y^2*Z == X^3 + a*X*Z^2 + b*Z^3 (ref inCurve:1330)."""
     F = curve.field
     X, Y, Z = p
-    b = F.const(curve.b, (1,) * (X.ndim - 1), X.device)
+    b = _const(curve, curve.b, X)
     zsq = F.mul(Z, Z)
     lhs = F.mul(F.mul(Y, Y), Z)
     x3 = F.mul(F.mul(X, X), X)
     rhs = F.add(x3, F.mul(b, F.mul(zsq, Z)))
+    if curve.a != 0:
+        rhs = F.add(rhs, F.mul(_const(curve, curve.a, X), F.mul(X, zsq)))
     return F.eq(lhs, rhs) | is_zero(curve, p)

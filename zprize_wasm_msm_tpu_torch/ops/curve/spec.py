@@ -45,13 +45,16 @@ class CurveSpec:
     ext=2: coordinates in Fq2 = Fq[u]/(u^2 - nr) (the reference's G2 over
     f2m, wasmcurves/src/bls12381/build_bls12381.js:47-53); b/gx/gy are
     2-tuples (c0, c1).
+    ext=3: coordinates in Fq3 = Fq[v]/(v^3 - nr) (MNT6753's G2 over f3m,
+    src/mnt6753/build_mnt6753.js:56); a/b/gx/gy are 3-tuples.
+    a: 0 for the a = 0 formulas, else the general-a ones (ops.curve.group).
     """
 
     name: str
     q: int
     r: int
-    a: int
-    b: Tuple[int, ...]  # int for ext=1, (c0, c1) for ext=2
+    a: Tuple[int, ...]  # int for ext=1; int or a component tuple over an extension
+    b: Tuple[int, ...]  # int for ext=1, (c0, c1) for ext=2, (c0, c1, c2) for ext=3
     gx: Tuple[int, ...]
     gy: Tuple[int, ...]
     glv: Optional[GLVSpec] = None
@@ -76,10 +79,9 @@ class CurveSpec:
             return tower.Fq(self.fq)
         if self.ext == 2:
             return tower.Fq2(self.fq, self.nr)
-        raise NotImplementedError(
-            f"{self.name}: extension degree {self.ext} coordinate fields "
-            "(tower.Fq3) are not ported yet"
-        )
+        if self.ext != 3:
+            raise ValueError(f"{self.name}: unsupported extension degree {self.ext}")
+        return tower.Fq3(self.fq, self.nr)
 
     @cached_property
     def b3(self):
@@ -90,9 +92,9 @@ class CurveSpec:
 
     # --- Montgomery-domain constants used by the projective formulas ------
     # b3_mont_limbs, b_mont_limbs and a_mont_limbs are Fq constants (on an
-    # Fq2 curve's pair they raise a TypeError); an extension curve's 3b
-    # reaches the kernels as b3_flat_limbs, and the plain group ops take b
-    # and 3b through curve.field.const.
+    # extension curve's tuples they raise a TypeError); an extension curve's
+    # 3b reaches the kernels as b3_flat_limbs, and the plain group ops take
+    # a, b and 3b through curve.field.const.
 
     @cached_property
     def b3_mont_limbs(self) -> np.ndarray:

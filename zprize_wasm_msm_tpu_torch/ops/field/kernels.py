@@ -1,5 +1,8 @@
 """Elementwise field kernels: Montgomery product, square and inversion.
 
+Every width of FIELD_KERNEL_WORDS: 2, 8 and 12 words (the MSM curves'
+fields) and 24 (MNT6753's 753-bit Fq and Fr).
+
 ``mont_mul`` / ``mont_square`` are the functions of
 zprize_wasm_msm_tpu/ops/field/kernels.py ``mont_mul`` / ``mont_square``:
 a * b * R^{-1} mod q (a^2 * R^{-1} mod q) per batch element, canonical
@@ -43,7 +46,7 @@ launches = {"mont_mul": 0, "mont_square": 0, "inverse": 0}
 
 
 def _consts_ptr(spec: FieldSpec) -> ctypes.c_void_p:
-    return _build.field_consts(spec).ctypes.data_as(ctypes.c_void_p)
+    return _build.field_kernel_consts(spec).ctypes.data_as(ctypes.c_void_p)
 
 
 def mont_mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -128,13 +131,13 @@ GCD_INNER = 31
 def inverse_consts(spec: FieldSpec):
     """(steps, fix) of field_inverse_kernel: steps = ceil((2 bits(q) - 1) /
     31) outer steps of the binary GCD, after which v = x^{-1} 2^{-steps};
-    fix = 2^steps R^3 mod q as MAX_WORDS words, so that one Montgomery
+    fix = 2^steps R^3 mod q as FIELD_KERNEL_MAX_WORDS words, so that one Montgomery
     product v * fix * R^{-1} is x^{-1} R^2, the inverse of x = aR in
     Montgomery form."""
     steps = -(-(2 * spec.q.bit_length() - 1) // GCD_INNER)
     R = 1 << (32 * spec.n_words)
     fix = pow(2, steps, spec.q) * pow(R, 3, spec.q) % spec.q
-    words = np.array([(fix >> (32 * j)) & 0xFFFFFFFF for j in range(_build.MAX_WORDS)],
+    words = np.array([(fix >> (32 * j)) & 0xFFFFFFFF for j in range(_build.FIELD_KERNEL_MAX_WORDS)],
                      dtype=np.uint32)
     words.setflags(write=False)
     return steps, words

@@ -14,16 +14,20 @@ int64 (not uint32) because PyTorch has no add / shift / compare for
 intermediate stay un-normalized until ONE carry pass at the end:
 
   * a 16x16 product is < 2^32 and a column of the schoolbook product
-    collects at most 2L of them plus the reduction's 2L: < 2^40 for L <= 48;
+    collects at most L of them: < 2^38 for L <= 48, and the reduction adds
+    as much again;
   * differences are formed limb-wise as signed values and the same carry
-    pass (arithmetic shift = floor division) resolves borrows.
+    pass resolves borrows.
 
 These functions are the plain version of the field core.  They run on any
 device a tensor lies on; the CUDA kernels (csrc/field.cuh) compute the same
 canonical values on 32-bit words, and are held against these bit for bit.
-Limb loops are Python loops: there is no trace or compile step.  Every
-op pays one launch per loop step on the card, so the loops are kept short
-(_resolve walks limb pairs).
+There is no trace or compile step, and every op pays one launch on the
+card, so the loops over limbs are kept short: the product is a loop of L
+row updates, but its Montgomery reduction is two products by constants
+(one float64 matrix product each) and a carry pass; the carry pass walks
+limb pairs, or takes a fixed number of whole-tensor steps on wide tensors
+(_resolve).
 """
 
 from __future__ import annotations
@@ -57,8 +61,15 @@ def _col(t: torch.Tensor, ndim_batch: int) -> torch.Tensor:
     return t.reshape(t.shape + (1,) * ndim_batch)
 
 
+@functools.lru_cache(maxsize=None)
+def _q_col(spec: FieldSpec, device: torch.device, ndim_batch: int) -> torch.Tensor:
+    return _col(_limb_const(spec, "q_limbs", device), ndim_batch)
+
+
 def _q(spec: FieldSpec, like: torch.Tensor) -> torch.Tensor:
-    return _col(_limb_const(spec, "q_limbs", like.device), like.ndim - 1)
+    """q's limbs as an (L, 1, ..., 1) column beside ``like`` (cached: every
+    add / sub needs it, and a view is a dispatch too)."""
+    return _q_col(spec, like.device, like.ndim - 1)
 
 
 def zeros(spec: FieldSpec, batch_shape=(), device=None) -> torch.Tensor:
@@ -95,7 +106,26 @@ def one_mont(spec: FieldSpec, batch_shape=(), device=None) -> torch.Tensor:
     )
 
 
-def _resolve(x: torch.Tensor):
+@functools.lru_cache(maxsize=None)
+def _resolve_consts(K: int, bits: int, device: torch.device, nb: int):
+    """(bias, limb index, zero, passes) of _resolve_parallel for K limbs below
+    2^bits in size: the bias 2^(bits+1) on limb 0, 2^(bits+1) - 2^(bits-15)
+    on the limbs above and -2^(bits-15) on the carry slot sums to zero and
+    makes every limb non-negative and below 2^(bits+2); ``passes``
+    normalising passes bring limbs below B to [0, 2^16] (each leaves them
+    below 2^16 + B / 2^16)."""
+    e = bits + 1
+    bias = torch.full((K,), (1 << e) - (1 << (e - LIMB_BITS)), dtype=I64)
+    bias[0] = 1 << e
+    passes, bound = 0, 1 << (bits + 2)
+    while bound > 1 << LIMB_BITS:
+        bound, passes = LIMB_MASK + ((bound - 1) >> LIMB_BITS), passes + 1
+    index = torch.arange(K, dtype=I64)
+    zero = torch.zeros((), dtype=I64, device=device)
+    return _col(bias, nb).to(device), _col(index, nb).to(device), zero, passes
+
+
+def _resolve_serial(x: torch.Tensor):
     """Carry-resolve a redundant SIGNED (K, *batch) limb tensor, |limbs| < 2^46,
     in place (x is overwritten; callers pass a temporary).
 
@@ -126,10 +156,98 @@ def _resolve(x: torch.Tensor):
     return x, carry
 
 
-def _resolve_pair(x: torch.Tensor, y: torch.Tensor):
-    """Resolve two same-shape redundant values in ONE serial pass (half the
-    op count of two passes): returns (x_limbs, x_carry, y_limbs, y_carry)."""
-    out, carry = _resolve(torch.stack([x, y], dim=1))
+def _resolve_parallel(x: torch.Tensor, bits: int = 46):
+    """Carry-resolve a redundant SIGNED (K, *batch) limb tensor whose limbs
+    lie in (-2^bits, 2^bits), bits >= 16.
+
+    Returns (canonical limbs in [0, 2^16), carry_out): the value is the
+    limbs' plus carry_out 2^(16 K), so a carry_out of -1 means the value was
+    negative.  A fixed number of whole-tensor steps, whatever K (eager
+    PyTorch pays per launch, and this pass is in every field op):
+      1. a bias that sums to zero makes every limb non-negative;
+      2. normalising passes (each limb keeps its low 16 bits and adds the
+         bits above them of the limb below: two for sums of canonical limbs,
+         three below 2^46) leave every limb in [0, 2^16], with the carries
+         out of the top limb in a carry slot;
+      3. a carry then leaves limb i iff the nearest limb j <= i that is not
+         2^16 - 1 (a limb that passes a carry on) is 2^16 (a limb that makes
+         one): a running maximum of the indices of such limbs and a gather.
+    """
+    K = x.shape[0]
+    bias, index, zero, passes = _resolve_consts(K, bits, x.device, x.ndim - 1)
+    y = torch.empty((K + 1,) + tuple(x.shape[1:]), dtype=I64, device=x.device)
+    lo, above, top = y[:K], y[1:], y[K]
+    torch.add(x, bias, out=lo)
+    top.fill_(-(1 << (bits + 1 - LIMB_BITS)))
+    for _ in range(passes):
+        c = lo >> LIMB_BITS
+        lo.bitwise_and_(LIMB_MASK)
+        above.add_(c)
+    # lo in [0, 2^16]: the nearest limb j <= i that does not pass a carry on
+    # (limb 0 where every limb up to i passes one on: it is 2^16 - 1 then,
+    # so it makes no carry, as none enters it)
+    last = torch.where(lo != LIMB_MASK, index, zero).cummax(0).values
+    above.add_(lo.gather(0, last) == 1 << LIMB_BITS)
+    lo.bitwise_and_(LIMB_MASK)
+    return lo, top
+
+
+#: limbs from which _resolve takes the parallel pass on the card (fewer
+#: launches than the serial pass above about 40 limbs)
+_PARALLEL_FROM = 41
+
+
+def _resolve(x: torch.Tensor, bits: int = 46):
+    """Carry-resolve a redundant SIGNED (K, *batch) limb tensor whose limbs
+    lie in (-2^bits, 2^bits), bits <= 46; x is a temporary (it may be
+    overwritten).  Returns
+    (canonical limbs in [0, 2^16), carry_out): the value is the limbs' plus
+    carry_out 2^(16 K), so a carry_out of -1 means the value was negative.
+    The two passes give the same words; which one runs is a matter of
+    cost.  On the card eager PyTorch pays per launch, and this pass is in
+    every field op: from _PARALLEL_FROM limbs (MNT6753's widths) the
+    parallel pass, a fixed number of launches, else the serial pass over
+    limb pairs (about K launches).  On the CPU, which pays per element
+    (the parallel pass's running maximum is slow there), the serial pass."""
+    if x.is_cuda and x.shape[0] >= _PARALLEL_FROM:
+        return _in_parts(lambda t: _resolve_parallel(t, bits), x)
+    return _resolve_serial(x)
+
+
+#: batch elements a product, or a wide (MNT6753) carry pass, on the card
+#: works on at once: their temporaries are a few kB an element, so a batch
+#: of tens of millions (the plain MSM engine's lane tree, 2^20 points) is
+#: taken in parts
+_PART_ELEMENTS = 1 << 20
+
+
+def _in_parts(fn, *xs):
+    """fn over the flattened batch of (K_i, *batch) tensors (batch shapes
+    broadcast), in parts of _PART_ELEMENTS elements where the batch is
+    larger, each part's result written into the whole result as it comes
+    (no list of parts and concatenation: that held the result twice); fn
+    returns a tensor or a tuple of (K, *batch) / (*batch) tensors."""
+    batch = tuple(torch.broadcast_shapes(*(x.shape[1:] for x in xs)))
+    n = int(np.prod(batch)) if batch else 1
+    if n <= _PART_ELEMENTS:
+        return fn(*xs)
+    flat = [x.expand((x.shape[0],) + batch).reshape(x.shape[0], n) for x in xs]
+    outs = None
+    for s in range(0, n, _PART_ELEMENTS):
+        part = fn(*(f[:, s : s + _PART_ELEMENTS] for f in flat))
+        part = part if isinstance(part, tuple) else (part,)
+        if outs is None:
+            outs = [torch.empty(p.shape[:-1] + (n,), dtype=p.dtype, device=p.device) for p in part]
+        for o, p in zip(outs, part):
+            o[..., s : s + _PART_ELEMENTS] = p
+    outs = [o.reshape(o.shape[:-1] + batch) for o in outs]
+    return tuple(outs) if len(outs) > 1 else outs[0]
+
+
+def _resolve_pair(x: torch.Tensor, y: torch.Tensor, bits: int = 46):
+    """Resolve two same-shape redundant values in ONE carry pass (half the
+    launches of two passes): returns (x_limbs, x_carry, y_limbs, y_carry)."""
+    out, carry = _resolve(torch.stack([x, y], dim=1), bits)
     return out[:, 0], carry[0], out[:, 1], carry[1]
 
 
@@ -143,23 +261,27 @@ def _select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tenso
 # ---------------------------------------------------------------------------
 
 
+#: bits of the limbs of sums and differences of two canonical values and q
+_SUM_BITS = 18
+
+
 def add(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(a + b) mod q, operands canonical < q."""
     s = a + b
-    sl, _, dl, borrow = _resolve_pair(s, s - _q(spec, s))
+    sl, _, dl, borrow = _resolve_pair(s, s - _q(spec, s), _SUM_BITS)
     return _select(borrow == 0, dl, sl)  # s >= q  <=>  no borrow
 
 
 def sub(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(a - b) mod q, operands canonical < q."""
     d = a - b
-    dl, borrow, tl, _ = _resolve_pair(d, d + _q(spec, d))
+    dl, borrow, tl, _ = _resolve_pair(d, d + _q(spec, d), _SUM_BITS)
     return _select(borrow != 0, tl, dl)
 
 
 def neg(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     """(-a) mod q = q - a, with -0 = 0 (ref build_f1m.js neg)."""
-    d, _ = _resolve(_q(spec, a) - a)
+    d, _ = _resolve(_q(spec, a) - a, _SUM_BITS)
     return _select(is_zero(spec, a), torch.zeros_like(a), d)
 
 
@@ -172,15 +294,57 @@ def double(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+#: bytes of _conv's temporaries above which it works through the batch in parts
+_CONV_CHUNK_BYTES = 4 << 30
+
+
+def _conv(a: torch.Tensor, b: torch.Tensor, out_len: int) -> torch.Tensor:
+    """The schoolbook product's columns, out[k] = sum_{i+j=k} a_i b_j for
+    k < out_len: (La, *batch) x (Lb, *batch) -> (out_len, *batch) int64,
+    the batch shapes broadcast.  One outer product, written into a zero
+    array row i shifted by i (a strided view), and a column sum: three
+    launches whatever the widths; in parts of the flattened batch where its
+    temporaries would pass _CONV_CHUNK_BYTES."""
+    La, Lb = a.shape[0], b.shape[0]
+    batch = tuple(torch.broadcast_shapes(a.shape[1:], b.shape[1:]))
+    W = max(La + Lb, out_len)
+    n = int(np.prod(batch)) if batch else 1
+    per_element = 8 * La * (W + Lb)
+    if n > 1 and n * per_element > _CONV_CHUNK_BYTES:
+        a2 = a.expand((La,) + batch).reshape(La, n)
+        b2 = b.expand((Lb,) + batch).reshape(Lb, n)
+        step = max(1, _CONV_CHUNK_BYTES // per_element)
+        out = torch.empty((out_len, n), dtype=I64, device=a.device)
+        for s in range(0, n, step):
+            out[:, s : s + step] = _conv(a2[:, s : s + step], b2[:, s : s + step], out_len)
+        return out.reshape((out_len,) + batch)
+    z = torch.zeros((La, W) + batch, dtype=I64, device=a.device)
+    # element (i, j) of the outer product written at z[i, i + j]
+    torch.mul(a.reshape((La, 1) + tuple(a.shape[1:])), b.reshape((1, Lb) + tuple(b.shape[1:])),
+              out=z.as_strided((La, Lb) + batch, ((W + 1) * n, n) + z.stride()[2:]))
+    return z[:, :out_len].sum(0)
+
+
 def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Montgomery product a*b*R^{-1} mod q.  Operands canonical < q.
 
-    Row-wise schoolbook product into a redundant int64 accumulator, then the
-    word-serial Montgomery reduction (L rounds, each clearing one low limb
-    with an m*q row update), one carry pass, one conditional subtract.
-    a and b must have the same number of batch axes (they broadcast).
+    The schoolbook product into a redundant int64 accumulator, then
+    _mont_reduce.  The product is L row updates (addcmul), or on the card
+    from _PARALLEL_FROM limbs one convolution of three launches (_conv:
+    more bytes, fewer launches; the same sums).  On the card a batch of
+    more than _PART_ELEMENTS is taken in parts (the reduction's temporaries
+    are a few times the accumulator).  a and b must have the same number of
+    batch axes (they broadcast).
     """
+    if a.is_cuda:
+        return _in_parts(lambda x, y: _mont_mul(spec, x, y), a, b)
+    return _mont_mul(spec, a, b)
+
+
+def _mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     L = spec.n_limbs
+    if a.is_cuda and L >= _PARALLEL_FROM:
+        return _mont_reduce(spec, _conv(a, b, 2 * L + 1))
     batch = torch.broadcast_shapes(a.shape[1:], b.shape[1:])
     acc = torch.zeros((2 * L + 1,) + tuple(batch), dtype=I64, device=a.device)
     for i in range(L):
@@ -188,25 +352,60 @@ def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _mont_reduce(spec, acc)
 
 
+@functools.lru_cache(maxsize=None)
+def _toeplitz(spec: FieldSpec, value: int, rows: int, device: torch.device) -> torch.Tensor:
+    """(rows, L) float64 matrix T with T[k, i] = c_{k-i} (0 for k - i
+    outside [0, L)), c the 16-bit limbs of ``value``: T @ x is the first
+    ``rows`` columns of the schoolbook product of x's limbs with c's."""
+    L = spec.n_limbs
+    c = int_to_limbs(value, L).astype(np.float64)
+    t = np.zeros((rows, L))
+    for i in range(L):
+        n = min(L, rows - i)
+        if n > 0:
+            t[i : i + n, i] = c[:n]
+    return torch.as_tensor(t, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _neg_q_inv(spec: FieldSpec) -> int:
+    """-q^{-1} mod R."""
+    return pow(-spec.q, -1, spec.R)
+
+
+def _const_product(spec: FieldSpec, value: int, x: torch.Tensor, rows: int) -> torch.Tensor:
+    """The first ``rows`` columns of the schoolbook product of x's limbs
+    (L, *batch) with a constant's, as int64: one float64 matrix product,
+    exact while every column sum stays below 2^53 (callers keep x's limbs
+    below 2^31: L = 48 such products sum below 2^53)."""
+    L = spec.n_limbs
+    t = _toeplitz(spec, value, rows, x.device)
+    out = t @ x.reshape(L, -1).to(torch.float64)
+    return out.to(I64).reshape((rows,) + tuple(x.shape[1:]))
+
+
 def _mont_reduce(spec: FieldSpec, acc: torch.Tensor) -> torch.Tensor:
     """acc * R^{-1} mod q from a redundant (2L+1, *batch) int64 accumulator
-    (limbs below ~2^40), updated in place: L rounds, each clearing one low
-    limb with an m*q row update, one carry pass, one conditional subtract.
-    Canonical when acc < q R (a product of canonical operands is)."""
+    (limbs below ~2^40), acc a temporary.  Montgomery's reduction on whole
+    numbers, not row by row (eager PyTorch pays per launch, and the rows
+    were L rounds of several launches): m = (acc mod R) (-q^{-1}) mod R is
+    one product by a constant (acc's low limbs after one normalising pass,
+    so below 2^25), carried, its carry out dropped; acc + m q (another) is
+    0 mod R, and its top L + 1 limbs, carried, are acc R^{-1} mod q plus 0
+    or q: the same carry pass on it less q R says which.  Canonical when
+    acc < q R (a product of canonical operands is)."""
     L = spec.n_limbs
-    qv = _q(spec, acc)
-    np16 = spec.np16
-    for i in range(L):
-        # m depends on acc[i] mod 2^16 only; int64 wraparound cannot occur
-        # (acc < 2^40, np16 < 2^16)
-        m = (acc[i] * np16) & LIMB_MASK
-        acc[i : i + L].addcmul_(m, qv)
-        # acc[i] is now == 0 mod 2^16: push its carry up and retire it
-        acc[i + 1].add_(acc[i] >> LIMB_BITS)
-    res = acc[L : 2 * L + 1]  # value < 2q -> L+1 limbs
-    qpad = torch.cat([qv, torch.zeros_like(qv[:1])], dim=0)
-    sl, _, dl, borrow = _resolve_pair(res, res - qpad)
-    return _select(borrow == 0, dl, sl)[:L]
+    lo = acc[:L].clone()
+    c = lo >> LIMB_BITS
+    lo.bitwise_and_(LIMB_MASK)
+    lo[1:].add_(c[:-1])  # the carry out of limb L - 1 is a multiple of R
+    m, _ = _resolve(_const_product(spec, _neg_q_inv(spec), lo, L))
+    acc[: 2 * L].add_(_const_product(spec, spec.q, m, 2 * L))
+    u = torch.stack([acc, acc], dim=1)
+    u[L : 2 * L, 1].sub_(_q(spec, acc))
+    limbs, carry = _resolve(u, 41)  # acc below 2^39 a limb, m q's columns below 2^38
+    # u / R < 2q: L + 1 limbs; borrow iff u / R < q
+    return _select(carry[1] == 0, limbs[L : 2 * L, 1], limbs[L : 2 * L, 0])
 
 
 def mont_square(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
@@ -271,7 +470,7 @@ def sign(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     shaped.  a is Montgomery."""
     std = from_mont(spec, a)
     half_plus1 = _col(_int_const(spec, (spec.q - 1) // 2 + 1, a.device), a.ndim - 1)
-    _, borrow = _resolve(std - half_plus1)  # -1 iff std < (q+1)/2
+    _, borrow = _resolve(std - half_plus1, _SUM_BITS)  # -1 iff std < (q+1)/2
     out = torch.where(borrow == 0, -1, 1).to(torch.int32)
     return torch.where(is_zero(spec, a), 0, out)
 

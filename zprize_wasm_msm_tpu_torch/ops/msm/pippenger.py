@@ -34,7 +34,9 @@ Engines (``impl``), chosen by where the tensors lie when ``impl="auto"``:
   "plain-sorted"   the sorted engine's stages with the plain sweep and scan,
                    then bucket_reduce_grouped + window_fold.
 
-"auto" is "kernel" for CUDA tensors and "plain" for CPU tensors.
+"auto" is "kernel" for CUDA tensors and "plain" for CPU tensors, and
+"plain" for cubic-extension and general-a curves on every device (the
+reference's routing, resolve_config).
 Asking for a kernel engine on a CPU tensor raises; nothing falls back.
 """
 
@@ -239,22 +241,28 @@ def resolve_config(
     cap on the kernel engine routes to the sorted kernel engine, over Fq
     and Fq2 alike.  ``device`` decides "auto": kernel on CUDA, plain on the
     CPU (the reference's _default_impl picks its bucket kernel for G1 and
-    G2).
+    G2), and plain on every device for cubic-extension and general-a curves
+    (MNT6753 G1 and G2): the reference sends those to its jnp engine
+    whatever the device (zprize_wasm_msm_tpu/ops/msm/pippenger.py:334-337),
+    and no TPU kernel ever ran on them.  An explicit kernel engine on them
+    raises.
     """
+    kernel_curve = curve.ext in (1, 2) and curve.a == 0
     if impl == "auto":
         if device is None:
             raise ValueError("resolve_config: impl='auto' needs the tensors' device")
-        impl = "kernel" if torch.device(device).type == "cuda" else "plain"
+        on_card = torch.device(device).type == "cuda"
+        impl = "kernel" if on_card and kernel_curve else "plain"
     if impl not in ENGINES:
         raise ValueError(f"impl must be 'auto' or one of {ENGINES}, got {impl!r}")
     if impl.startswith("kernel") and (
-        curve.ext not in (1, 2) or curve.a != 0
-        or (curve.ext == 2 and curve.nr % curve.q != curve.q - 1)
+        not kernel_curve or (curve.ext == 2 and curve.nr % curve.q != curve.q - 1)
     ):
         raise NotImplementedError(
             f"{curve.name}: the CUDA kernels cover a=0 curves over Fq and over "
-            "Fq2 = Fq[u]/(u^2 + 1); cubic extensions and general-a curves arrive "
-            "with later slices of the port (impl='plain' runs the PyTorch-op engine)"
+            "Fq2 = Fq[u]/(u^2 + 1); cubic extensions and general-a curves run the "
+            "PyTorch-op engine, as the reference runs its jnp engine on them "
+            "(impl='plain', which impl='auto' picks)"
         )
     c_cap = 7 if curve.ext == 1 else 6
     if impl == "kernel" and c is not None and c > c_cap:
