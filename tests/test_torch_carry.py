@@ -1,12 +1,12 @@
 """PyTorch port: the plain field core's carry passes (ops/field/mont.py
 _resolve: the serial pass over pairs of 16-bit limbs as 32-bit digits, and
-the parallel pass the card takes on wide tensors) against a limb-by-limb
-pass written out here, on signed redundant limbs at the bounds its callers
-give it (sums and differences of canonical limbs, the Montgomery product's
-accumulator) and on the long carry and borrow ripples; the card's form of
-the wide Montgomery product (one convolution) against the CPU's rows; and
-Fq2's componentwise ops, one base op on both components, against the base
-ops on each."""
+the parallel pass of the wide form, from mont._WIDE_FROM limbs) against a
+limb-by-limb pass written out here, on signed redundant limbs at the bounds
+its callers give it (sums and differences of canonical limbs, the
+Montgomery product's accumulator) and on the long carry and borrow ripples;
+the wide form of the Montgomery product (one convolution) against the row
+form; and Fq2's componentwise ops, one base op on both components, against
+the base ops on each."""
 
 import numpy as np
 import pytest
@@ -43,7 +43,7 @@ def test_resolve_matches_limb_by_limb(K, bits):
 @pytest.mark.parametrize("K", [1, 3, 49, 97])
 @pytest.mark.parametrize("bits", [16, 18, 41, 46])
 def test_parallel_resolve_matches_limb_by_limb(K, bits):
-    """The parallel pass (the card's above mont._PARALLEL_FROM limbs), told
+    """The parallel pass (the wide form's, from mont._WIDE_FROM limbs), told
     the bound of its limbs (its bias and its number of passes follow it)."""
     g = torch.Generator().manual_seed(K * 100 + bits + 7)
     x = torch.randint(-(1 << bits) + 1, 1 << bits, (K, 3, 256), generator=g)
@@ -70,13 +70,14 @@ def test_resolve_ripples(K, form):
 
 
 def test_wide_product_convolution_is_the_rows():
-    """On the card a product of mont._PARALLEL_FROM limbs or more is one
-    convolution (mont._conv) and its reduction carries in parallel: the
-    same words as the CPU's L row updates and serial carries, on MNT6753's
-    Fq (edge values, all-ones words, random values; broadcast and
-    multi-axis batches; the convolution in parts of the batch too)."""
+    """From mont._WIDE_FROM limbs a product is one convolution (mont._conv)
+    and a reduction by constant products whose carries run in parallel: the
+    same words as the row form (L row updates, L reduction rounds, serial
+    carries), on MNT6753's Fq (edge values, all-ones words, random values;
+    broadcast and multi-axis batches; in parts of the batch too)."""
     fq = port_curves.mnt6753.fq
     L, q = fq.n_limbs, fq.q
+    assert L >= mont._WIDE_FROM
     rng = np.random.default_rng(5)
     vals = [0, 1, q - 1, q // 2, q // 2 + 1, ((1 << (16 * (L - 1))) - 1) % q]
     vals += [int.from_bytes(rng.bytes(100), "little") % q for _ in range(30)]
@@ -85,26 +86,20 @@ def test_wide_product_convolution_is_the_rows():
     a2 = torch.stack([a, a.flip(1)], dim=1)
     c = a[:, 7:8, None]  # one element for the whole batch
 
-    resolve, serial = mont._resolve, mont._resolve_serial
-
-    def card_form(x, y):
-        try:
-            mont._resolve = lambda t, bits=46: (mont._in_parts(lambda v: mont._resolve_parallel(v, bits), t)
-                                                if t.shape[0] >= mont._PARALLEL_FROM else serial(t))
-            return mont._in_parts(lambda u, v: mont._mont_reduce(fq, mont._conv(u, v, 2 * L + 1)), x, y)
-        finally:
-            mont._resolve = resolve
-
+    saved = mont._WIDE_FROM, mont._PART_BYTES
     for x, y in ((a2, b), (a2, c)):
-        want = mont.mont_mul(fq, x, y)
-        assert torch.equal(card_form(x, y), want)
-        saved = mont._CONV_CHUNK_BYTES, mont._PART_ELEMENTS
         try:
-            # the convolution in parts of five elements, every op in parts of seven
-            mont._CONV_CHUNK_BYTES, mont._PART_ELEMENTS = 8 * L * 4 * L * 5, 7
-            assert torch.equal(card_form(x, y), want)
+            mont._WIDE_FROM = 1 << 30  # the row form at every width
+            want = mont.mont_mul(fq, x, y)
         finally:
-            mont._CONV_CHUNK_BYTES, mont._PART_ELEMENTS = saved
+            mont._WIDE_FROM = saved[0]
+        assert torch.equal(mont.mont_mul(fq, x, y), want)
+        try:
+            # the product in parts of five elements, the carry passes of seven
+            mont._PART_BYTES = 8 * L * (2 * L + 1) * 5
+            assert torch.equal(mont.mont_mul(fq, x, y), want)
+        finally:
+            mont._PART_BYTES = saved[1]
 
 
 @pytest.mark.parametrize("name", ["toy_g2", "bls12_381_g2"])

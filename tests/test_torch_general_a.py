@@ -95,7 +95,8 @@ def test_toy_a_group_ops_match_reference_and_oracle():
 def test_toy_a_plain_msm_matches_reference_and_oracle():
     """ctx.msm on a general-a curve: resolve_config picks the plain engine
     (on any device), against the JAX package's jnp MSM, the oracle and
-    msm_legacy."""
+    msm_legacy; the plain engine's lane tree in parts of one bucket (a
+    budget of one byte) gives the same point and the same bucket sums."""
     ref, port = curves_of("toy_a")
     oc, pts, _ = _cases(port, 10)
     pts = [p for p in pts if p is not None]
@@ -109,6 +110,11 @@ def test_toy_a_plain_msm_matches_reference_and_oracle():
     assert ctx.result_to_affine(ctx.msm_legacy(P, k)) == want
     jres = ref_pippenger.msm(ref, to_jax(torch_np(P)), to_jax(torch_np(k)), c=4, impl="xla")
     assert _port_affine(port, tuple(to_torch(np.asarray(c))[:, None] for c in jres)) == [want]
+    # the lane tree's adds in parts of one bucket (a budget of a byte): the
+    # same point
+    assert ctx.result_to_affine(ctx.msm(P, k, c=3, lanes=4, mem_budget_bytes=1)) == want
+    buckets = pippenger._bucket_sweep_plain(port, P, pippenger.windows.signed_window_digits(k, 3, 16), 2, 3)
+    assert_same(pippenger._lane_tree_reduce(port, buckets, 1), pippenger._lane_tree_reduce(port, buckets))
 
 
 def test_mnt6753_group_ops_match_reference():

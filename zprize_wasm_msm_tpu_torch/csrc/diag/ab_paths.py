@@ -12,7 +12,8 @@ first child includes its build), makes its inputs with this checkout's
 chip_smoke.py helpers from fixed seeds (BLS12-381 G1 and G2, 2^20 bases,
 full scalars), runs each path once against the oracle, then times it
 ``--reps`` times: host clock around ``ctx.msm`` ending in a synchronize,
-as chip_smoke.py's ``msm_s``.  Paths: full (use_glv=False, max_bits=255),
+as chip_smoke.py's ``msm_s``, and around ``ctx.result_to_affine`` of each
+result (its first call, after the path's first MSM, apart).  Paths: full (use_glv=False, max_bits=255),
 A (the default), B (c=10), G2 (build_curve(bls12_381_g2).msm) and
 G2-sorted (c=10).  Prints one JSON line a child, then one a checkout
 (best and median of every path over its children) and the card's name and
@@ -60,19 +61,27 @@ def child(checkout: str, reps: int) -> None:
         "G2": (g2, e2, lambda: g2.msm(P2, k2)),
         "G2-sorted": (g2, e2, lambda: g2.msm(P2, k2, c=smoke.C_SORTED)),
     }
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+
     out = {"checkout": checkout, "setup_s": None}
     for name, (ctx, expected, run) in paths.items():
-        smoke.check(ctx.result_to_affine(run()) == expected, f"{checkout}: path {name} misses the oracle")
+        res = run()
+        got, first_s = timed(lambda: ctx.result_to_affine(res))
+        smoke.check(got == expected, f"{checkout}: path {name} misses the oracle")
         if out["setup_s"] is None:
             out["setup_s"] = time.perf_counter() - t0  # the build and the inputs
-        times = []
+        times, to_affine = [], []
         for _ in range(reps):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t)
+            res, s = timed(run)
+            times.append(s)
+            to_affine.append(timed(lambda: ctx.result_to_affine(res))[1] * 1e3)
         out[name] = times
+        out[name + ":result_to_affine_ms"] = {"first": first_s * 1e3, "runs": to_affine}
     print(json.dumps(out), flush=True)
 
 
@@ -102,7 +111,11 @@ def main() -> None:
         summary = {}
         for path in ("full", "A", "B", "G2", "G2-sorted"):
             times = [t for line in lines for t in line[path]]
-            summary[path] = {"best_s": min(times), "median_s": statistics.median(times), "runs": len(times)}
+            rta = [t for line in lines for t in line[path + ":result_to_affine_ms"]["runs"]]
+            summary[path] = {"best_s": min(times), "median_s": statistics.median(times), "runs": len(times),
+                             "result_to_affine_ms": {
+                                 "first": [line[path + ":result_to_affine_ms"]["first"] for line in lines],
+                                 "median": statistics.median(rta), "best": min(rta)}}
         print(json.dumps({"checkout": name, **summary}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]

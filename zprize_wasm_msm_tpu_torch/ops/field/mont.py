@@ -14,20 +14,24 @@ int64 (not uint32) because PyTorch has no add / shift / compare for
 intermediate stay un-normalized until ONE carry pass at the end:
 
   * a 16x16 product is < 2^32 and a column of the schoolbook product
-    collects at most L of them: < 2^38 for L <= 48, and the reduction adds
-    as much again;
+    collects at most 2L of them plus the reduction's 2L: < 2^40 for L <= 48;
   * differences are formed limb-wise as signed values and the same carry
-    pass resolves borrows.
+    pass (arithmetic shift = floor division) resolves borrows.
 
 These functions are the plain version of the field core.  They run on any
 device a tensor lies on; the CUDA kernels (csrc/field.cuh) compute the same
 canonical values on 32-bit words, and are held against these bit for bit.
-There is no trace or compile step, and every op pays one launch on the
-card, so the loops over limbs are kept short: the product is a loop of L
-row updates, but its Montgomery reduction is two products by constants
-(one float64 matrix product each) and a carry pass; the carry pass walks
-limb pairs, or takes a fixed number of whole-tensor steps on wide tensors
-(_resolve).
+Limb loops are Python loops: there is no trace or compile step.  Every
+op pays one launch per loop step on the card, so the loops are kept short
+(_resolve walks limb pairs).
+
+Fields of _WIDE_FROM limbs or more (MNT6753's 753-bit Fq and Fr, 48 limbs)
+take a wide form on every device, where the loops over limbs would be
+longest: the product is one convolution (_conv), the Montgomery reduction
+two products by constants (_mont_reduce_wide) and the carry pass a fixed
+number of whole-tensor steps (_resolve_parallel), all in parts of large
+batches (_in_parts).  The same words; fewer launches, more bytes.  Every
+narrower field keeps the row form above.
 """
 
 from __future__ import annotations
@@ -68,7 +72,7 @@ def _q_col(spec: FieldSpec, device: torch.device, ndim_batch: int) -> torch.Tens
 
 def _q(spec: FieldSpec, like: torch.Tensor) -> torch.Tensor:
     """q's limbs as an (L, 1, ..., 1) column beside ``like`` (cached: every
-    add / sub needs it, and a view is a dispatch too)."""
+    add / sub needs it, and a view is a host dispatch too)."""
     return _q_col(spec, like.device, like.ndim - 1)
 
 
@@ -106,25 +110,6 @@ def one_mont(spec: FieldSpec, batch_shape=(), device=None) -> torch.Tensor:
     )
 
 
-@functools.lru_cache(maxsize=None)
-def _resolve_consts(K: int, bits: int, device: torch.device, nb: int):
-    """(bias, limb index, zero, passes) of _resolve_parallel for K limbs below
-    2^bits in size: the bias 2^(bits+1) on limb 0, 2^(bits+1) - 2^(bits-15)
-    on the limbs above and -2^(bits-15) on the carry slot sums to zero and
-    makes every limb non-negative and below 2^(bits+2); ``passes``
-    normalising passes bring limbs below B to [0, 2^16] (each leaves them
-    below 2^16 + B / 2^16)."""
-    e = bits + 1
-    bias = torch.full((K,), (1 << e) - (1 << (e - LIMB_BITS)), dtype=I64)
-    bias[0] = 1 << e
-    passes, bound = 0, 1 << (bits + 2)
-    while bound > 1 << LIMB_BITS:
-        bound, passes = LIMB_MASK + ((bound - 1) >> LIMB_BITS), passes + 1
-    index = torch.arange(K, dtype=I64)
-    zero = torch.zeros((), dtype=I64, device=device)
-    return _col(bias, nb).to(device), _col(index, nb).to(device), zero, passes
-
-
 def _resolve_serial(x: torch.Tensor):
     """Carry-resolve a redundant SIGNED (K, *batch) limb tensor, |limbs| < 2^46,
     in place (x is overwritten; callers pass a temporary).
@@ -154,6 +139,59 @@ def _resolve_serial(x: torch.Tensor):
         carry = s >> LIMB_BITS
         torch.bitwise_and(s, LIMB_MASK, out=x[K - 1])
     return x, carry
+
+
+#: limbs from which the field core takes its wide form (module docstring):
+#: MNT6753's 48-limb fields and their 49- to 97-limb accumulators; the
+#: widest other field has 24 limbs and accumulators of up to 26
+_WIDE_FROM = 41
+
+#: bytes of temporaries a wide op allocates at once: _in_parts takes larger
+#: batches (the plain MSM engine's lane tree, 10^5 to 10^7 elements) in parts
+_PART_BYTES = 4 << 30
+
+
+def _in_parts(fn, *xs, per_element: int):
+    """fn over the flattened batch of (K_i, *batch) tensors (batch shapes
+    broadcast), in parts of at most _PART_BYTES // per_element elements
+    where the batch is larger (``per_element``: fn's temporaries an
+    element), each part's result written into the whole result as it comes;
+    fn returns a tensor or a tuple of (K, *batch) / (*batch) tensors."""
+    batch = tuple(torch.broadcast_shapes(*(x.shape[1:] for x in xs)))
+    n = int(np.prod(batch)) if batch else 1
+    step = max(1, _PART_BYTES // per_element)
+    if n <= step:
+        return fn(*xs)
+    flat = [x.expand((x.shape[0],) + batch).reshape(x.shape[0], n) for x in xs]
+    outs = None
+    for s in range(0, n, step):
+        part = fn(*(f[:, s : s + step] for f in flat))
+        part = part if isinstance(part, tuple) else (part,)
+        if outs is None:
+            outs = [torch.empty(p.shape[:-1] + (n,), dtype=p.dtype, device=p.device) for p in part]
+        for o, p in zip(outs, part):
+            o[..., s : s + step] = p
+    outs = [o.reshape(o.shape[:-1] + batch) for o in outs]
+    return tuple(outs) if len(outs) > 1 else outs[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _resolve_consts(K: int, bits: int, device: torch.device, nb: int):
+    """(bias, limb index, zero, passes) of _resolve_parallel for K limbs below
+    2^bits in size: the bias 2^(bits+1) on limb 0, 2^(bits+1) - 2^(bits-15)
+    on the limbs above and -2^(bits-15) on the carry slot sums to zero and
+    makes every limb non-negative and below 2^(bits+2); ``passes``
+    normalising passes bring limbs below B to [0, 2^16] (each leaves them
+    below 2^16 + B / 2^16)."""
+    e = bits + 1
+    bias = torch.full((K,), (1 << e) - (1 << (e - LIMB_BITS)), dtype=I64)
+    bias[0] = 1 << e
+    passes, bound = 0, 1 << (bits + 2)
+    while bound > 1 << LIMB_BITS:
+        bound, passes = LIMB_MASK + ((bound - 1) >> LIMB_BITS), passes + 1
+    index = torch.arange(K, dtype=I64)
+    zero = torch.zeros((), dtype=I64, device=device)
+    return _col(bias, nb).to(device), _col(index, nb).to(device), zero, passes
 
 
 def _resolve_parallel(x: torch.Tensor, bits: int = 46):
@@ -192,61 +230,21 @@ def _resolve_parallel(x: torch.Tensor, bits: int = 46):
     return lo, top
 
 
-#: limbs from which _resolve takes the parallel pass on the card (fewer
-#: launches than the serial pass above about 40 limbs)
-_PARALLEL_FROM = 41
-
-
 def _resolve(x: torch.Tensor, bits: int = 46):
     """Carry-resolve a redundant SIGNED (K, *batch) limb tensor whose limbs
     lie in (-2^bits, 2^bits), bits <= 46; x is a temporary (it may be
-    overwritten).  Returns
-    (canonical limbs in [0, 2^16), carry_out): the value is the limbs' plus
-    carry_out 2^(16 K), so a carry_out of -1 means the value was negative.
-    The two passes give the same words; which one runs is a matter of
-    cost.  On the card eager PyTorch pays per launch, and this pass is in
-    every field op: from _PARALLEL_FROM limbs (MNT6753's widths) the
-    parallel pass, a fixed number of launches, else the serial pass over
-    limb pairs (about K launches).  On the CPU, which pays per element
-    (the parallel pass's running maximum is slow there), the serial pass."""
-    if x.is_cuda and x.shape[0] >= _PARALLEL_FROM:
-        return _in_parts(lambda t: _resolve_parallel(t, bits), x)
+    overwritten).  Returns (canonical limbs in [0, 2^16), carry_out): the
+    value is the limbs' plus carry_out 2^(16 K), so a carry_out of -1 means
+    the value was negative.  Below _WIDE_FROM limbs the serial pass, from
+    it the parallel pass (in parts of large batches): the same words."""
+    if x.shape[0] >= _WIDE_FROM:
+        return _in_parts(lambda t: _resolve_parallel(t, bits), x, per_element=48 * (x.shape[0] + 1))
     return _resolve_serial(x)
-
-
-#: batch elements a product, or a wide (MNT6753) carry pass, on the card
-#: works on at once: their temporaries are a few kB an element, so a batch
-#: of tens of millions (the plain MSM engine's lane tree, 2^20 points) is
-#: taken in parts
-_PART_ELEMENTS = 1 << 20
-
-
-def _in_parts(fn, *xs):
-    """fn over the flattened batch of (K_i, *batch) tensors (batch shapes
-    broadcast), in parts of _PART_ELEMENTS elements where the batch is
-    larger, each part's result written into the whole result as it comes
-    (no list of parts and concatenation: that held the result twice); fn
-    returns a tensor or a tuple of (K, *batch) / (*batch) tensors."""
-    batch = tuple(torch.broadcast_shapes(*(x.shape[1:] for x in xs)))
-    n = int(np.prod(batch)) if batch else 1
-    if n <= _PART_ELEMENTS:
-        return fn(*xs)
-    flat = [x.expand((x.shape[0],) + batch).reshape(x.shape[0], n) for x in xs]
-    outs = None
-    for s in range(0, n, _PART_ELEMENTS):
-        part = fn(*(f[:, s : s + _PART_ELEMENTS] for f in flat))
-        part = part if isinstance(part, tuple) else (part,)
-        if outs is None:
-            outs = [torch.empty(p.shape[:-1] + (n,), dtype=p.dtype, device=p.device) for p in part]
-        for o, p in zip(outs, part):
-            o[..., s : s + _PART_ELEMENTS] = p
-    outs = [o.reshape(o.shape[:-1] + batch) for o in outs]
-    return tuple(outs) if len(outs) > 1 else outs[0]
 
 
 def _resolve_pair(x: torch.Tensor, y: torch.Tensor, bits: int = 46):
     """Resolve two same-shape redundant values in ONE carry pass (half the
-    launches of two passes): returns (x_limbs, x_carry, y_limbs, y_carry)."""
+    op count of two passes): returns (x_limbs, x_carry, y_limbs, y_carry)."""
     out, carry = _resolve(torch.stack([x, y], dim=1), bits)
     return out[:, 0], carry[0], out[:, 1], carry[1]
 
@@ -294,30 +292,16 @@ def double(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-#: bytes of _conv's temporaries above which it works through the batch in parts
-_CONV_CHUNK_BYTES = 4 << 30
-
-
 def _conv(a: torch.Tensor, b: torch.Tensor, out_len: int) -> torch.Tensor:
     """The schoolbook product's columns, out[k] = sum_{i+j=k} a_i b_j for
     k < out_len: (La, *batch) x (Lb, *batch) -> (out_len, *batch) int64,
     the batch shapes broadcast.  One outer product, written into a zero
     array row i shifted by i (a strided view), and a column sum: three
-    launches whatever the widths; in parts of the flattened batch where its
-    temporaries would pass _CONV_CHUNK_BYTES."""
+    launches whatever the widths, on La times the accumulator's bytes."""
     La, Lb = a.shape[0], b.shape[0]
     batch = tuple(torch.broadcast_shapes(a.shape[1:], b.shape[1:]))
     W = max(La + Lb, out_len)
     n = int(np.prod(batch)) if batch else 1
-    per_element = 8 * La * (W + Lb)
-    if n > 1 and n * per_element > _CONV_CHUNK_BYTES:
-        a2 = a.expand((La,) + batch).reshape(La, n)
-        b2 = b.expand((Lb,) + batch).reshape(Lb, n)
-        step = max(1, _CONV_CHUNK_BYTES // per_element)
-        out = torch.empty((out_len, n), dtype=I64, device=a.device)
-        for s in range(0, n, step):
-            out[:, s : s + step] = _conv(a2[:, s : s + step], b2[:, s : s + step], out_len)
-        return out.reshape((out_len,) + batch)
     z = torch.zeros((La, W) + batch, dtype=I64, device=a.device)
     # element (i, j) of the outer product written at z[i, i + j]
     torch.mul(a.reshape((La, 1) + tuple(a.shape[1:])), b.reshape((1, Lb) + tuple(b.shape[1:])),
@@ -328,28 +312,46 @@ def _conv(a: torch.Tensor, b: torch.Tensor, out_len: int) -> torch.Tensor:
 def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Montgomery product a*b*R^{-1} mod q.  Operands canonical < q.
 
-    The schoolbook product into a redundant int64 accumulator, then
-    _mont_reduce.  The product is L row updates (addcmul), or on the card
-    from _PARALLEL_FROM limbs one convolution of three launches (_conv:
-    more bytes, fewer launches; the same sums).  On the card a batch of
-    more than _PART_ELEMENTS is taken in parts (the reduction's temporaries
-    are a few times the accumulator).  a and b must have the same number of
-    batch axes (they broadcast).
+    Row-wise schoolbook product into a redundant int64 accumulator, then the
+    word-serial Montgomery reduction (L rounds, each clearing one low limb
+    with an m*q row update), one carry pass, one conditional subtract.  From
+    _WIDE_FROM limbs the product is one convolution (_conv) and the
+    reduction _mont_reduce_wide, in parts of large batches.
+    a and b must have the same number of batch axes (they broadcast).
     """
-    if a.is_cuda:
-        return _in_parts(lambda x, y: _mont_mul(spec, x, y), a, b)
-    return _mont_mul(spec, a, b)
-
-
-def _mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     L = spec.n_limbs
-    if a.is_cuda and L >= _PARALLEL_FROM:
-        return _mont_reduce(spec, _conv(a, b, 2 * L + 1))
+    if L >= _WIDE_FROM:
+        return _in_parts(lambda x, y: _mont_reduce(spec, _conv(x, y, 2 * L + 1)), a, b,
+                         per_element=8 * L * (2 * L + 1))
     batch = torch.broadcast_shapes(a.shape[1:], b.shape[1:])
     acc = torch.zeros((2 * L + 1,) + tuple(batch), dtype=I64, device=a.device)
     for i in range(L):
         acc[i : i + L].addcmul_(a[i], b)
     return _mont_reduce(spec, acc)
+
+
+def _mont_reduce(spec: FieldSpec, acc: torch.Tensor) -> torch.Tensor:
+    """acc * R^{-1} mod q from a redundant (2L+1, *batch) int64 accumulator
+    (limbs below ~2^40), updated in place: L rounds, each clearing one low
+    limb with an m*q row update, one carry pass, one conditional subtract.
+    Canonical when acc < q R (a product of canonical operands is).  From
+    _WIDE_FROM limbs _mont_reduce_wide."""
+    L = spec.n_limbs
+    if L >= _WIDE_FROM:
+        return _mont_reduce_wide(spec, acc)
+    qv = _q(spec, acc)
+    np16 = spec.np16
+    for i in range(L):
+        # m depends on acc[i] mod 2^16 only; int64 wraparound cannot occur
+        # (acc < 2^40, np16 < 2^16)
+        m = (acc[i] * np16) & LIMB_MASK
+        acc[i : i + L].addcmul_(m, qv)
+        # acc[i] is now == 0 mod 2^16: push its carry up and retire it
+        acc[i + 1].add_(acc[i] >> LIMB_BITS)
+    res = acc[L : 2 * L + 1]  # value < 2q -> L+1 limbs
+    qpad = torch.cat([qv, torch.zeros_like(qv[:1])], dim=0)
+    sl, _, dl, borrow = _resolve_pair(res, res - qpad)
+    return _select(borrow == 0, dl, sl)[:L]
 
 
 @functools.lru_cache(maxsize=None)
@@ -384,11 +386,11 @@ def _const_product(spec: FieldSpec, value: int, x: torch.Tensor, rows: int) -> t
     return out.to(I64).reshape((rows,) + tuple(x.shape[1:]))
 
 
-def _mont_reduce(spec: FieldSpec, acc: torch.Tensor) -> torch.Tensor:
+def _mont_reduce_wide(spec: FieldSpec, acc: torch.Tensor) -> torch.Tensor:
     """acc * R^{-1} mod q from a redundant (2L+1, *batch) int64 accumulator
     (limbs below ~2^40), acc a temporary.  Montgomery's reduction on whole
-    numbers, not row by row (eager PyTorch pays per launch, and the rows
-    were L rounds of several launches): m = (acc mod R) (-q^{-1}) mod R is
+    numbers, not row by row (eager PyTorch pays per launch, and the row
+    form is L rounds of several launches): m = (acc mod R) (-q^{-1}) mod R is
     one product by a constant (acc's low limbs after one normalising pass,
     so below 2^25), carried, its carry out dropped; acc + m q (another) is
     0 mod R, and its top L + 1 limbs, carried, are acc R^{-1} mod q plus 0

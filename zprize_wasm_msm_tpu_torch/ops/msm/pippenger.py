@@ -60,7 +60,9 @@ ENGINES = ("kernel", "kernel-sorted", "plain", "plain-sorted")
 
 def _lane_count(n: int, c: int, n_windows: int, mem_budget_bytes: int, n_limbs: int) -> int:
     """Pick T (lanes per window) of the plain engine under the bucket-memory
-    budget, exactly as the reference does (4 bytes per limb in its count).
+    budget, exactly as the reference does (4 bytes per limb in its count:
+    the port's int64 limbs hold twice that; the lane tree's adds keep their
+    temporaries within the budget, _add_in_parts).
 
     More lanes -> fewer sequential steps (n / T of them) but more bucket
     memory and a deeper final tree reduction.
@@ -126,24 +128,51 @@ def _bucket_sweep_plain(curve, points, digits, lanes, c):
     return tuple(s.reshape(L, W, T, B) for s in state)
 
 
-def _bucket_accumulate_impl(curve, points, digits, lanes, c):
+def _bucket_accumulate_impl(curve, points, digits, lanes, c, mem_budget_bytes=2 << 30):
     """Plain bucket accumulation: the sweep, then the lane tree.  Returns
     bucket sums (X, Y, Z), each (L, W, B)."""
     return _lane_tree_reduce(
-        curve, _bucket_sweep_plain(curve, points, digits, lanes, c)
+        curve, _bucket_sweep_plain(curve, points, digits, lanes, c), mem_budget_bytes
     )
 
 
-def _lane_tree_reduce(curve, buckets):
-    """Tree-reduce the lane axis: (L, W, T, B) -> (L, W, B)."""
+#: a complete add's temporaries, in bytes of points a point of its batch,
+#: with the 753-bit products in mont's parts: at most 43 (MNT6753 G2 over
+#: Fq3; 22 to 37 on BLS12-381 G1 / G2 and MNT6753 G1), as
+#: csrc/diag/ab_plain_core.py measures them on the CPU and on the card
+ADD_TEMP_POINTS = 48
+
+
+def _add_in_parts(curve, p, q, mem_budget_bytes):
+    """group.add on (L, W, T, B) operands in parts of the bucket axis, each
+    of at most mem_budget_bytes / (ADD_TEMP_POINTS point bytes) points (at
+    least one bucket a part): the adds' temporaries stay within the budget
+    whatever the batch (the lane tree's first level adds half the state)."""
+    L, W, T, B = p[0].shape
+    fit = mem_budget_bytes // (ADD_TEMP_POINTS * 3 * curve.field.elem_len * 8)
+    step = max(1, fit // (W * T))
+    if step >= B:
+        return group.add(curve, p, q)
+    out = tuple(torch.empty((L, W, T, B), dtype=a.dtype, device=a.device) for a in p)
+    for b in range(0, B, step):
+        s = group.add(curve, tuple(a[..., b : b + step] for a in p), tuple(a[..., b : b + step] for a in q))
+        for o, v in zip(out, s):
+            o[..., b : b + step] = v
+    return out
+
+
+def _lane_tree_reduce(curve, buckets, mem_budget_bytes=2 << 30):
+    """Tree-reduce the lane axis: (L, W, T, B) -> (L, W, B); a level's adds
+    in parts under the memory budget (_add_in_parts)."""
     bx, by, bz = buckets
     t = bx.shape[2]
     while t > 1:
         half = t // 2
-        s = group.add(
+        s = _add_in_parts(
             curve,
             (bx[:, :, :half], by[:, :, :half], bz[:, :, :half]),
             (bx[:, :, half : 2 * half], by[:, :, half : 2 * half], bz[:, :, half : 2 * half]),
+            mem_budget_bytes,
         )
         if t % 2:  # odd tail: carry the last lane through
             bx = torch.cat([s[0], bx[:, :, -1:]], dim=2)
@@ -335,6 +364,7 @@ def window_sums(
     c: int,
     lanes: Optional[int] = None,
     impl: str = "plain",
+    mem_budget_bytes: int = 2 << 30,
 ):
     """Bucket accumulation + per-window weighted reduction, (L, W) x3, of
     the plain engine and of the two sorted engines (the kernel engine's
@@ -351,8 +381,9 @@ def window_sums(
         raise ValueError(f"window_sums: impl must be 'plain' or a sorted engine, got {impl!r}")
     W, N = digits.shape
     if lanes is None:
-        lanes = _lane_count(N, c, W, 2 << 30, curve.field.elem_len)
-    buckets = pl_bucket.bucket_accumulate_plain(curve, points, digits, lanes=lanes, c=c)
+        lanes = _lane_count(N, c, W, mem_budget_bytes, curve.field.elem_len)
+    buckets = pl_bucket.bucket_accumulate_plain(curve, points, digits, lanes=lanes, c=c,
+                                                mem_budget_bytes=mem_budget_bytes)
     return bucket_reduce(curve, buckets)
 
 
@@ -401,7 +432,7 @@ def msm(
         # W*B exceeds the one-block finish (c = 7 full-width scalars):
         # collapse the buckets per window on a wide grid, then fold
         return pl_reduce.finish_large(curve, buckets, c, impl="kernel")
-    per_window = window_sums(curve, (X, Y), digits, c, lanes, impl)
+    per_window = window_sums(curve, (X, Y), digits, c, lanes, impl, mem_budget_bytes)
     if impl == "kernel-sorted":
         from . import pl_reduce
 

@@ -63,11 +63,13 @@ def bucket_accumulate_plain(
     *,
     lanes: int = 128,
     c: int = 4,
+    mem_budget_bytes: int = 2 << 30,
 ):
     """Plain PyTorch version: pippenger._bucket_accumulate_impl (gather,
-    mixed add, index write per step) + _lane_tree_reduce."""
+    mixed add, index write per step) + _lane_tree_reduce (its adds in parts
+    under mem_budget_bytes)."""
     X, Y, digits = _pad(curve, points, digits, lanes)
-    return pippenger._bucket_accumulate_impl(curve, (X, Y), digits, lanes, c)
+    return pippenger._bucket_accumulate_impl(curve, (X, Y), digits, lanes, c, mem_budget_bytes)
 
 
 #: threads per block of the sweep kernel by extension degree (csrc/bucket.cu
